@@ -15,7 +15,11 @@ Phases, each of which raises (exit code 1) on failure:
    B1 (generated Triton stream passes: cg's Ap/pAp and r/rs passes at
    n=4096), B2 (CSR SpMV, 5-point Laplacian, n=2^20), B4 (periodic
    stencil, 4096x4096);
-4. the main path, ``Session(device="cuda") -> trace -> analyze -> codesign
+   then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
+   path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
+   d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
+   and a TF32 control that B6's fp32 limit must reject;
+4. the HPC path, ``Session(device="cuda") -> trace -> analyze -> codesign
    -> lower(backend="cuda") -> run()``: cg(n=4096, iters=64),
    cg_sparse(n=2^20, iters=64, laplacian5) in fp32 and fp64, and
    jacobi2d(n=4096, sweeps=8).  Each is held against the port's
@@ -25,7 +29,16 @@ Phases, each of which raises (exit code 1) on failure:
    its products' operands cut to TF32 (fp32) or fp32 (fp64), which the
    limits must reject; the launch counts of
    B1, B2 and B4 over these runs must be > 0; the warm, synchronized wall
-   time per ``run()`` is printed.
+   time per ``run()`` is printed;
+5. the LLM serving path at full width, ``Session("granite-3-8b",
+   device="cuda").trace("prefill", batch=1, seq=1024) -> analyze ->
+   codesign -> lower() -> serve()``, random fp32 weights from seed 0
+   (40 layers, 8.37 B parameters, ~34 GB of card memory): one prefill of a
+   1x1024 prompt (B5, B6, B7) and ``generate`` of 4 prompts x 16 tokens +
+   32 new tokens (decode: B6 at 4 rows, B7), the same again with every
+   kernel entry point swapped for its plain version, and the agreements
+   of ``LLM_TOL`` and ``DECODE_TOL`` with the controls they must reject;
+   launches per prefill and per decode step, prefill and decode times.
 
 The last two lines are the kernel table and the device summary as JSON; the
 line before them is ``nvidia-smi``'s name and power limit.  Without CUDA the
@@ -34,6 +47,7 @@ script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -63,6 +77,28 @@ KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 PATH_TOL = {"float32": 1e-5, "float64": 1e-13}
 #: |relative residual of the cuda backend's x - the reference's|
 RESIDUAL_GAP = 1e-6
+#: bf16 peak of the tensor cores, for later kernels that use them (B5/B6
+#: here compute in fp32 on the CUDA cores and are bounded at 67 TFLOP/s)
+PEAK_BF16_FLOPS = 989e12
+#: the LLM path, full width: granite-3-8b's prefill and decode shapes
+LLM_ARCH = "granite-3-8b"
+PREFILL_SEQ = 1024
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 16, 32
+#: serving path against its all-plain run on the card, max |Δ| <= TOL x
+#: max |plain logits|: the kernels sum in other orders than cuBLAS and
+#: torch's reductions, so single bf16 roundings flip in the residual stream
+#: and the flips carry through 40 layers (2-5 bf16 ulps of the largest
+#: logit); the plain logits one position later must fail it.  A near tie is
+#: a top-2 gap of the plain run's logits <= NEAR_TIE x max |logit| at the
+#: first token where the two runs part
+LLM_TOL = 5e-2
+NEAR_TIE = 2e-2
+#: decode logits at the last prompt position against prefill logits there,
+#: max |Δ| <= TOL x max |prefill logits|: the decode step also rounds its
+#: attention probabilities to bf16 before the PV product (as the JAX
+#: package's does), where B5 keeps them in fp32; the prefill logits one
+#: position earlier must fail it
+DECODE_TOL = 5e-2
 
 
 def log(msg: str = "") -> None:
@@ -132,16 +168,19 @@ def measure(kernel_fn, plain_fn, library_fn=None):
 
 
 def record(results, label, *, kernel, case, dtype, err, rel_err, tol,
-           nbytes, flops, times, **extra):
-    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+           nbytes, flops, times, math=None, **extra):
+    """``math``: the type the kernel computes in, when it differs from the
+    operands' (B5/B6 run fp32 arithmetic on bf16 operands)."""
+    b_ms, b_by = bound_ms(nbytes, flops, math or dtype)
     results.append(dict(kernel=kernel, case=case, dtype=dtype,
                         max_abs_err=err, max_rel_err=rel_err, rel_tol=tol,
                         bound_ms=b_ms, bound_by=b_by,
                         bytes=nbytes, flops=flops, **times, **extra))
     lib = ("n/a" if times["library_ms"] is None
            else f"{times['library_ms']:.4f} ms")
+    tol_s = tol if isinstance(tol, str) else f"{tol:g}"
     log(f"  {label} {dtype}: max|err| {err:.3e} (rel {rel_err:.3e}, tol "
-        f"{tol:g})  kernel {times['ms']:.4f} ms"
+        f"{tol_s})  kernel {times['ms']:.4f} ms"
         f" (eager call {times['call_ms']:.4f} ms)  plain "
         f"{times['plain_ms']:.4f} ms  library {lib}  bound {b_ms:.4f} ms "
         f"by {b_by} ({nbytes / 1e6:.2f} MB)")
@@ -149,6 +188,20 @@ def record(results, label, *, kernel, case, dtype, err, rel_err, tol,
 
 def max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
+
+
+def bf16_excess(got, want, rel_tol) -> float:
+    """max over elements of |got - want| / (1 bf16 ulp of the element +
+    ``rel_tol`` x max |want|): at most 1 where the two agree to one bf16
+    rounding of results that agree to ``rel_tol`` in fp32 (the term keeps
+    outputs near zero, where an fp32 difference spans many bf16 ulps,
+    from counting as misses)."""
+    import torch
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    slack = ulp + rel_tol * float(w.abs().max())
+    return float(((g - w).abs() / slack).max())
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -363,8 +416,188 @@ def check_off_path(dtypes):
             "elementwise ops between sweeps bitwise equal to the reference")
 
 
+def _rand(rng, shape, dtype, scale=1.0):
+    import torch
+    return (torch.from_numpy(rng.standard_normal(shape, dtype="float32"))
+            .mul_(scale).to("cuda", dtype))
+
+
+def _hold(label, got, want, dt):
+    """A kernel's output against its plain version: fp32 within
+    ``KERNEL_TOL`` of the output's scale, bf16 within one rounding
+    (``bf16_excess`` <= 1).  Returns (max |err|, relative err or excess)."""
+    import torch
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    assert bool(torch.isfinite(got).all()), (label, "non-finite")
+    err = max_err(got, want)
+    if dt == "float32":
+        scale = max(float(want.double().abs().max()), 1e-30)
+        assert err <= KERNEL_TOL[dt] * scale, (label, dt, err, scale)
+        return err, err / scale
+    excess = bf16_excess(got, want, KERNEL_TOL["float32"])
+    assert excess <= 1.0, (label, dt, "bf16 excess", excess, err)
+    return err, excess
+
+
+def check_rmsnorm(results, d=4096, eps=1e-6):
+    """B7 at the prefill's 1024 rows and a decode step's 4 rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    rng = np.random.default_rng(21)
+    w = _rand(rng, (d,), torch.float32, 0.1)
+    for rows in (PREFILL_SEQ, GEN_BATCH):
+        for dt in ("float32", "bfloat16"):
+            x = _rand(rng, (rows, d), getattr(torch, dt))
+            got = rmsnorm(x, w, eps=eps)
+            torch.cuda.synchronize()
+            want = rmsnorm_plain(x, w, eps=eps)
+            err, rel = _hold("rmsnorm", got, want, dt)
+            w1 = (1.0 + w).to(x.dtype)
+            times = measure(lambda: rmsnorm(x, w, eps=eps),
+                            lambda: rmsnorm_plain(x, w, eps=eps),
+                            lambda: F.rms_norm(x, (d,), w1, eps))
+            nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+            record(results, "B7 rmsnorm", kernel="rmsnorm",
+                   case=f"rows={rows} d={d}", dtype=dt, err=err,
+                   rel_err=rel, tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding", nbytes=nbytes,
+                   flops=4 * x.numel(), times=times, math="float32")
+
+
+def _attn_pairs(S, T, causal, window):
+    """(query, key) pairs that the mask keeps: the products the data needs."""
+    import torch
+    qi = torch.arange(S)[:, None] + (T - S)
+    kj = torch.arange(T)[None, :]
+    keep = torch.ones(S, T, dtype=torch.bool)
+    if causal:
+        keep &= kj <= qi
+    if window is not None:
+        keep &= kj > qi - window
+    return int(keep.sum())
+
+
+def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
+    """B5 at the prefill's shape (granite-3-8b, causal), timed; then, for
+    correctness only, the code paths the other dense archs reach: E=256
+    (gemma-7b), E=80 with a window (h2o-danube-1.8b), T > S, ragged S."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    rng = np.random.default_rng(22)
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        q = _rand(rng, (B, H, S, E), tdt)
+        k = _rand(rng, (B, KVH, S, E), tdt)
+        v = _rand(rng, (B, KVH, S, E), tdt)
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=True)
+        err, rel = _hold("flash", got, want, dt)
+        kx = k.repeat_interleave(H // KVH, dim=1)
+        vx = v.repeat_interleave(H // KVH, dim=1)
+        times = measure(
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True))
+        pairs = _attn_pairs(S, S, True, None)
+        flops = 4 * B * H * E * pairs
+        record(results, "B5 flash  ", kernel="flash_attention",
+               case=f"B={B} H={H} KVH={KVH} S=T={S} E={E} causal",
+               dtype=dt, err=err, rel_err=rel,
+               tol=KERNEL_TOL["float32"] if dt == "float32"
+               else "1 bf16 rounding",
+               nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
+               flops=flops, times=times, math="float32",
+               bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+    for name, (h, kvh, s, t, e, causal, window) in {
+            "E=256 (gemma-7b)": (16, 16, 200, 200, 256, True, None),
+            "E=80 window=96 (h2o-danube)": (8, 2, 300, 300, 80, True, 96),
+            "T>S (q_offset=64), ragged": (4, 1, 100, 164, 128, True, None),
+            "non-causal, E=64": (4, 2, 96, 130, 64, False, None)}.items():
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            q = _rand(rng, (2, h, s, e), tdt)
+            k = _rand(rng, (2, kvh, t, e), tdt)
+            v = _rand(rng, (2, kvh, t, e), tdt)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            err, rel = _hold(f"flash {name}", got, want, dt)
+            log(f"  B5 off the main path, {name} {dt}: max|err| {err:.3e} "
+                f"({'rel' if dt == 'float32' else 'bf16 excess'} {rel:.3e})")
+
+
+def check_mlp(results, D=4096, F_=12800):
+    """B6 (gated silu, granite-3-8b) at the prefill's 1024 rows and a decode
+    step's 4 rows, with fp32 weights; a TF32 control that the fp32 limit
+    must reject; relu² without a gate and a ragged M/F for correctness."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    rng = np.random.default_rng(23)
+    wg = _rand(rng, (D, F_), torch.float32, D ** -0.5)
+    wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
+    wd = _rand(rng, (F_, D), torch.float32, F_ ** -0.5)
+    controls = {}
+    for rows in (PREFILL_SEQ, GEN_BATCH):
+        for dt in ("float32", "bfloat16"):
+            x = _rand(rng, (rows, D), getattr(torch, dt))
+            got = fused_mlp(x, wg, wu, wd, activation="silu")
+            torch.cuda.synchronize()
+            want = fused_mlp_plain(x, wg, wu, wd, activation="silu")
+            err, rel = _hold("fused_mlp", got, want, dt)
+            if dt == "float32":
+                low = fused_mlp_plain(_cut(x), _cut(wg), _cut(wu), _cut(wd),
+                                      activation="silu")
+                c_rel = max_err(low, want) / float(want.abs().max())
+                assert c_rel > KERNEL_TOL["float32"], (
+                    "B6's fp32 limit passes a TF32 run", rows, c_rel)
+                controls[rows] = c_rel
+                log(f"  B6 TF32 control rows={rows}: rel err {c_rel:.3e} > "
+                    f"{KERNEL_TOL['float32']:g}: rejected")
+
+            def library():
+                xf = x.float()
+                return torch.matmul(F.silu(torch.matmul(xf, wg))
+                                    * torch.matmul(xf, wu), wd)
+            times = measure(lambda: fused_mlp(x, wg, wu, wd),
+                            lambda: fused_mlp_plain(x, wg, wu, wd),
+                            library)
+            flops = 6 * rows * D * F_
+            record(results, "B6 mlp    ", kernel="fused_mlp",
+                   case=f"gated silu M={rows} D={D} F={F_}", dtype=dt,
+                   err=err, rel_err=rel,
+                   tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding",
+                   nbytes=(3 * D * F_ * 4 + 2 * x.numel() * x.element_size()),
+                   flops=flops, times=times, math="float32",
+                   bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3,
+                   tf32_control_rel_err=controls.get(rows))
+    for name, (m, f, gated, act) in {
+            "relu2 no gate (minitron-8b)": (300, 1000, False, "relu2"),
+            "gelu gated, ragged M and F (gemma-7b)": (77, 1000, True,
+                                                      "gelu")}.items():
+        for dt in ("float32", "bfloat16"):
+            x = _rand(rng, (m, D), getattr(torch, dt))
+            g = wg[:, :f].contiguous() if gated else None
+            u, dn = wu[:, :f].contiguous(), wd[:f].contiguous()
+            got = fused_mlp(x, g, u, dn, activation=act)
+            torch.cuda.synchronize()
+            want = fused_mlp_plain(x, g, u, dn, activation=act)
+            err, rel = _hold(f"fused_mlp {name}", got, want, dt)
+            log(f"  B6 off the main path, {name} {dt}: max|err| {err:.3e} "
+                f"({'rel' if dt == 'float32' else 'bf16 excess'} {rel:.3e})")
+
+
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the HPC path
 # --------------------------------------------------------------------------
 
 def _rel_err(out, ref, scale_extra):
@@ -443,20 +676,20 @@ def run_timing(run, reps=RUN_REPS):
     return sum(times) / len(times), min(times)
 
 
-def profile_run(plan, feeds, top=4):
-    """One ``run()`` under ``torch.profiler``: device kernel time (sum of
-    kernel durations on the one stream), the profiled wall time, the busy
-    share and the kernels that take the most device time.  The profiler
-    slows the host side, so the share is a lower bound on the busy share
-    of an unprofiled run."""
+def profile_fn(fn, top=4):
+    """One call of ``fn`` under ``torch.profiler``: device kernel time (sum
+    of kernel durations on the one stream), the profiled wall time, the
+    busy share and the kernels that take the most device time.  The
+    profiler slows the host side, so the share is a lower bound on the busy
+    share of an unprofiled call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    plan.run(feeds)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.run(feeds)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name = {}
@@ -510,7 +743,7 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
     # i.e. what the run costs once launch overhead is gone
     graph_run = graph_ms(lambda: plan.run(feeds), inner=1, reps=3)
     if profile:
-        extra["profile"] = prof = profile_run(plan, feeds)
+        extra["profile"] = prof = profile_fn(lambda: plan.run(feeds))
         log(f"  {name} {dt} profiled: {json.dumps(prof)}")
     ep = plan.exec_plan
     paths.append(dict(path=name, dtype=dt, launches=counts,
@@ -573,6 +806,230 @@ def jacobi_numpy(sweeps):
         assert np.array_equal(got, u), float(np.abs(got - u).max())
         return {"numpy_replay": "bitwise"}
     return check
+
+
+# --------------------------------------------------------------------------
+# phase 5: the LLM serving path
+# --------------------------------------------------------------------------
+
+class plain_kernels:
+    """Within the block, every LLM kernel entry point (B5, B6, B7) is its
+    plain version: the model imports each wrapper from its module at call
+    time, so swapping the module attribute swaps the path.  Only this
+    script does this; the package has no such switch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention, fused_mlp, rmsnorm
+        self._saved = []
+        for mod, name, plain in (
+                (flash_attention, "flash_attention",
+                 flash_attention.flash_attention_plain),
+                (fused_mlp, "fused_mlp", fused_mlp.fused_mlp_plain),
+                (rmsnorm, "rmsnorm", rmsnorm.rmsnorm_plain)):
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _sync_s(fn):
+    """(result, wall seconds) of ``fn()`` ended by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _first_split(toks, toks_plain, plain_logits_at):
+    """Tokens equal, or where they first part, the plain run's top-2 gap
+    there within ``NEAR_TIE`` of its logits' scale (a near tie)."""
+    import torch
+    if torch.equal(toks, toks_plain):
+        return {"tokens_equal": True}
+    col = int((toks != toks_plain).any(0).nonzero()[0])
+    lg = plain_logits_at(col)                    # (B, vocab) before col
+    top2 = lg.topk(2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    scale = float(lg.abs().max())
+    assert gap <= NEAR_TIE * scale, ("generated tokens part at", col,
+                                     "top-2 gap", gap, "scale", scale)
+    return {"tokens_equal": False, "first_split_col": col,
+            "top2_gap": gap, "near_tie_limit": NEAR_TIE * scale}
+
+
+def drive_serving(results_paths, profile=False):
+    """Phase 5: granite-3-8b at full width through ``Session -> serve()``;
+    returns the launch counts of the kernel run (prefill + generate)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.models import init_cache, init_params
+    t0 = time.perf_counter()
+    plan = (Session(LLM_ARCH, device="cuda")
+            .trace("prefill", batch=1, seq=PREFILL_SEQ)
+            .analyze().codesign().lower())
+    p = plan.plan
+    assert p.use_flash_attention and p.use_fused_mlp and \
+        p.use_fused_rmsnorm, p
+    cfg = plan.cfg
+    log(f"  plan: {plan!r} ({p.notes}), made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _sync_s(lambda: init_params(cfg, seed=0, device="cuda"))
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B fp32 parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB) made in "
+        f"{init_s:.2f} s")
+    bundle = plan.serve()
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, PREFILL_SEQ))
+                              ).cuda()
+    gen_prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
+    steps = GEN_PROMPT + GEN_NEW - 1
+
+    def gen():
+        return bundle.generate(params, gen_prompt, GEN_NEW)
+
+    # the kernel run, counted
+    kernels.reset_launches()
+    logits, first_prefill_s = _sync_s(lambda: bundle.prefill_fn(params,
+                                                                prompt))
+    per_prefill = kernels.launches()
+    kernels.reset_launches()
+    toks, first_gen_s = _sync_s(gen)
+    per_gen = kernels.launches()
+    counts = {k: per_prefill[k] + per_gen[k] for k in per_prefill}
+    L = cfg.n_layers
+    want_prefill = {"flash_attention": L, "fused_mlp": L, "rmsnorm": 2 * L + 1}
+    want_step = {"flash_attention": 0, "fused_mlp": L, "rmsnorm": 2 * L + 1}
+    got_step = {k: per_gen[k] / steps for k in want_step}
+    assert {k: per_prefill[k] for k in want_prefill} == want_prefill, \
+        per_prefill
+    assert got_step == want_step, per_gen
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    assert logits.shape == (1, PREFILL_SEQ, cfg.padded_vocab)
+    assert toks.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    assert bool((toks[:, GEN_PROMPT:] < cfg.padded_vocab).all())
+    log(f"  launches per prefill {want_prefill}, per decode step "
+        f"{want_step} (as expected; {steps} decode steps per generate)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # decode logits at the last prompt position vs prefill logits there
+    # (and, as a control, vs the prefill logits one position earlier)
+    def decode_vs_prefill():
+        cache = init_cache(cfg, GEN_BATCH, GEN_PROMPT, device="cuda")
+        for t in range(GEN_PROMPT):
+            dec, cache = bundle.decode_fn(params, cache,
+                                          gen_prompt[:, t:t + 1], t)
+        pre = bundle.prefill_fn(params, gen_prompt)
+        scale = float(pre[:, -1].abs().max())
+        return (max_err(dec[:, -1], pre[:, -1]) / scale,
+                max_err(dec[:, -1], pre[:, -2]) / scale)
+    dec_err, dec_control = decode_vs_prefill()
+
+    # timing, warm
+    pre_times = [_sync_s(lambda: bundle.prefill_fn(params, prompt))[1]
+                 for _ in range(3)]
+    gen_times = [_sync_s(gen)[1] for _ in range(2)]
+    prefill_s, gen_s = min(pre_times), min(gen_times)
+    step_s = gen_s / steps
+
+    # the same on the plain versions
+    with plain_kernels():
+        kernels.reset_launches()
+        logits_plain, plain_prefill_s = _sync_s(
+            lambda: bundle.prefill_fn(params, prompt))
+        toks_plain, plain_gen_s = _sync_s(gen)
+        plain_dec_err, _ = decode_vs_prefill()
+        plain_launches = {k: kernels.launches()[k] for k in want_prefill}
+    scale = float(logits_plain.abs().max())
+    rel = max_err(logits, logits_plain) / scale
+    rel_control = max_err(logits[:, 1:], logits_plain[:, :-1]) / scale
+
+    def plain_logits_at(col):
+        with plain_kernels():
+            c = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW,
+                           device="cuda")
+            lg = None
+            for t in range(col):
+                lg, c = bundle.decode_fn(params, c, toks_plain[:, t:t + 1],
+                                         t)
+        return lg[:, -1]
+
+    split = _first_split(toks, toks_plain, plain_logits_at)
+    agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean()
+    smi = smi_line()
+    out = dict(
+        path=f"serve {cfg.name} prefill 1x{PREFILL_SEQ}, generate "
+        f"{GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW})", nvidia_smi=smi,
+        plan=dataclasses.asdict(p), launches=counts,
+        launches_per_prefill={k: per_prefill[k] for k in want_prefill},
+        launches_per_decode_step=got_step,
+        prefill_ms=prefill_s * 1e3, prefill_ms_all=[t * 1e3 for t in pre_times],
+        prefill_tokens_per_s=PREFILL_SEQ / prefill_s,
+        decode_ms_per_step=step_s * 1e3,
+        decode_tokens_per_s=GEN_BATCH / step_s,
+        generate_ms=gen_s * 1e3, first_prefill_ms=first_prefill_s * 1e3,
+        first_generate_ms=first_gen_s * 1e3,
+        plain_prefill_ms=plain_prefill_s * 1e3,
+        plain_generate_ms=plain_gen_s * 1e3,
+        prefill_rel_err_vs_plain=rel, llm_tol=LLM_TOL,
+        prefill_vs_next_position_rel_err=rel_control,
+        prefill_argmax_agreement=float(agree),
+        decode_vs_prefill_rel_err=dec_err,
+        decode_vs_prefill_rel_err_plain=plain_dec_err,
+        decode_vs_previous_position_rel_err=dec_control,
+        decode_tol=DECODE_TOL, peak_memory_gb=peak_gb, **split)
+    if profile:
+        out["profile_prefill"] = profile_fn(
+            lambda: bundle.prefill_fn(params, prompt), top=6)
+        c0 = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW, device="cuda")
+        out["profile_decode_step"] = profile_fn(
+            lambda: bundle.decode_fn(params, c0, gen_prompt[:, :1], 0), top=6)
+    results_paths.append(out)
+    log(f"  {smi}: prefill 1x{PREFILL_SEQ} {prefill_s * 1e3:.1f} ms "
+        f"({PREFILL_SEQ / prefill_s:.0f} tokens/s; plain versions "
+        f"{plain_prefill_s * 1e3:.1f} ms); decode {step_s * 1e3:.2f} ms per "
+        f"step at batch {GEN_BATCH} ({GEN_BATCH / step_s:.1f} tokens/s; "
+        f"plain generate {plain_gen_s * 1e3:.0f} ms against "
+        f"{gen_s * 1e3:.0f} ms)")
+    log(f"  prefill logits vs the plain run: rel err {rel:.3e} (tol "
+        f"{LLM_TOL:g}; shifted one position: {rel_control:.3e}, must "
+        f"exceed it), argmax agreement {float(agree):.4f}; generated "
+        f"tokens {split}; decode vs prefill logits at the last prompt "
+        f"position: rel err {dec_err:.3e} (plain run {plain_dec_err:.3e}, "
+        f"tol {DECODE_TOL:g}; against the position before: "
+        f"{dec_control:.3e}, must exceed it); peak memory {peak_gb:.1f} GB")
+    assert not any(plain_launches.values()), plain_launches
+    assert rel <= LLM_TOL, ("prefill logits vs the plain run", rel)
+    assert rel_control > LLM_TOL, ("LLM_TOL passes shifted logits",
+                                   rel_control)
+    assert dec_err <= DECODE_TOL, ("decode vs prefill logits", dec_err)
+    assert dec_control > DECODE_TOL, ("DECODE_TOL passes the wrong "
+                                      "position", dec_control)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main(argv=None) -> int:
@@ -644,9 +1101,13 @@ def main(argv=None) -> int:
     check_spmv(csr, results, dtypes)
     check_stencil(results, dtypes)
     check_off_path(dtypes)
+    check_rmsnorm(results)
+    check_flash(results)
+    check_mlp(results)
+    log(f"  kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 4: the main path
-    log("== phase 4: the main path, Session(device='cuda') "
+    log("== phase 4: the HPC path, Session(device='cuda') "
         "-> lower(backend='cuda') -> run()")
     paths = []
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -665,22 +1126,42 @@ def main(argv=None) -> int:
             totals[k] += v
     for k in ("stream", "spmv", "stencil2d"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
-    log(f"  launches over the main path: {totals}")
+    log(f"  launches over the HPC path: {totals}")
+
+    # ---- phase 5: the LLM serving path
+    log(f"== phase 5: the LLM serving path, Session({LLM_ARCH!r}, "
+        "device='cuda') -> trace('prefill') -> codesign -> lower -> serve()")
+    counts = drive_serving(paths, profile=args.profile)
+    for k, v in counts.items():
+        totals[k] += v
+    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
+        assert totals[k] > 0, f"kernel {k} was never launched on the path"
+    log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     # ---- results
+    # name: (route, source, TPU kernel, the path's dtype)
     meta = {
         "stream": ("triton", "src/repro_torch/kernels/stream.py",
-                   "src/repro/exec/pallas.py:427"),
+                   "src/repro/exec/pallas.py:427", "float32"),
         "spmv": ("cuda", "src/repro_torch/csrc/spmv.cu",
-                 "src/repro/exec/pallas.py:595"),
+                 "src/repro/exec/pallas.py:595", "float32"),
         "stencil2d": ("cuda", "src/repro_torch/csrc/stencil.cu",
-                      "src/repro/exec/pallas.py:687"),
+                      "src/repro/exec/pallas.py:687", "float32"),
+        "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:30",
+                            "bfloat16"),
+        "fused_mlp": ("cuda", "src/repro_torch/csrc/fused_mlp.cu",
+                      "src/repro/kernels/fused_mlp/kernel.py:37",
+                      "bfloat16"),
+        "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:21", "bfloat16"),
     }
     table = []
-    for k, (route, source, replaces) in meta.items():
+    for k, (route, source, replaces, path_dt) in meta.items():
         cases = [r for r in results if r["kernel"] == k]
-        head = cases[0]                      # the fp32 main-path shape
+        # the first case at the path's dtype: the main path's (prefill) shape
+        head = next(r for r in cases if r["dtype"] == path_dt)
         entry = dict(name=k, route=route, source=source, replaces=replaces,
                      launches=totals[k], max_abs_err=head["max_abs_err"],
                      ms=head["ms"], plain_ms=head["plain_ms"],

@@ -1,6 +1,8 @@
 """Frozen stage artifacts of the port's staged pipeline.
 
-The counterparts of ``repro.api.artifacts`` for frontend (HPC) plans::
+The counterparts of ``repro.api.artifacts``, for LLM traces of an arch
+config (``phase`` train / prefill / decode; the lowered plan serves) and
+for frontend (HPC) traces (``phase="hpc"``; the lowered plan runs)::
 
     Session.trace()          -> TracedGraph
     TracedGraph.analyze()    -> AnalyzedGraph
@@ -15,8 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
+from ..configs.base import ArchConfig
 from ..core.graph import OpGraph
 from ..core.lowering import ExecPlan, GroupKernel
+from ..core.policy import CelloPlan
 from ..core.reuse import ReuseAnalysis
 from ..core.schedule import CoDesignResult, EvaluatedSchedule
 
@@ -26,24 +30,20 @@ if TYPE_CHECKING:                                      # pragma: no cover
 
 
 @dataclasses.dataclass(frozen=True)
-class CelloPlan:
-    """The lowered plan's summary for a frontend graph (the LLM fields of
-    ``repro.core.policy.CelloPlan`` do not apply to the port)."""
-    arch: str
-    explicit_frac: float = 0.5
-    notes: str = ""
-
-
-@dataclasses.dataclass(frozen=True)
 class TracedGraph:
-    """Stage 1: the analysis-level op DAG of a frontend program.
+    """Stage 1: the analysis-level op DAG for one (arch, phase, shape).
 
     ``Session.trace`` memoizes these, so the carried ``graph`` is shared
-    between repeat calls — treat it as read-only.  ``program`` is the
-    source expression DAG, which the lowered plan executes.
+    between repeat calls — treat it as read-only.  Frontend traces
+    (``phase="hpc"``) carry ``program``, the source expression DAG, which
+    the lowered plan executes.
     """
     arch: str
-    phase: str                # always "hpc" in the port
+    phase: str                # "train" | "prefill" | "decode" | "hpc"
+    batch: int
+    seq: Optional[int]                # train/prefill
+    kv_len: Optional[int]             # decode
+    layer_kind: Optional[str]
     graph: OpGraph = dataclasses.field(repr=False, compare=False)
     session: "Session" = dataclasses.field(repr=False, compare=False)
     program: Optional["Program"] = dataclasses.field(
@@ -53,8 +53,11 @@ class TracedGraph:
 
     @property
     def shape_key(self) -> str:
-        return ("-".join(f"{k}{v}" for k, v in self.wl_params)
-                or self.graph.name)
+        if self.phase == "hpc":
+            return ("-".join(f"{k}{v}" for k, v in self.wl_params)
+                    or self.graph.name)
+        span = f"s{self.seq}" if self.phase != "decode" else f"kv{self.kv_len}"
+        return f"b{self.batch}{span}"
 
     def analyze(self) -> "AnalyzedGraph":
         return self.session.analyze(self)
@@ -127,9 +130,11 @@ class CoDesigned:
     def energy_ratio(self, baseline: str = "seq-implicit") -> float:
         return self.result.energy_ratio(baseline)
 
-    def lower(self, config=None, *, backend: Optional[str] = None,
+    def lower(self, config=None, *, seq: Optional[int] = None,
+              backend: Optional[str] = None,
               mesh=None) -> "CompiledPlan":
-        return self.session.lower(self, config, backend=backend, mesh=mesh)
+        return self.session.lower(self, config, seq=seq, backend=backend,
+                                  mesh=mesh)
 
     def __repr__(self) -> str:
         s = self.best.schedule
@@ -141,14 +146,21 @@ class CoDesigned:
 
 @dataclasses.dataclass(frozen=True)
 class CompiledPlan:
-    """Stage 4: the lowered plan, ready to run.
+    """Stage 4: the lowered plan, ready to serve or run.
 
-    :meth:`run` hands the plan to a registered execution backend
-    (``repro_torch.exec``): ``cuda`` (the default) runs its units on the
-    hand-written Hopper kernels, ``reference`` replays the scheduled op
-    order through the torch interpreter.
+    An LLM plan (``cfg`` set) serves: :meth:`serve` returns the prefill
+    and decode entry points and the greedy driver bound to ``(cfg,
+    plan)``; the plan's kernel flags pick the hand-written kernels (B5
+    flash attention, B6 fused MLP, B7 RMSNorm) for tensors on the card.
+
+    A frontend (HPC) plan (``cfg=None``) runs: :meth:`run` hands it to a
+    registered execution backend (``repro_torch.exec``): ``cuda`` (the
+    default) runs its units on the hand-written Hopper kernels,
+    ``reference`` replays the scheduled op order through the torch
+    interpreter.
     """
     plan: CelloPlan = dataclasses.field(repr=False)
+    cfg: Optional[ArchConfig] = dataclasses.field(default=None, repr=False)
     trace: Optional[TracedGraph] = dataclasses.field(
         default=None, repr=False, compare=False)
     codesigned: Optional[CoDesigned] = dataclasses.field(
@@ -165,13 +177,21 @@ class CompiledPlan:
 
     @property
     def arch(self) -> str:
-        return self.plan.arch
+        return self.cfg.name if self.cfg is not None else self.plan.arch
 
     @property
     def device(self) -> str:
         return self.trace.session.device
 
     # -- execution ------------------------------------------------------
+    def serve(self):
+        """Serving bundle (prefill/decode fns + greedy generate driver)."""
+        if self.cfg is None:
+            raise ValueError("frontend (HPC) plans have no LLM serving "
+                             "stack; execute them with plan.run()")
+        from ..launch.serve import make_serving
+        return make_serving(self.cfg, self.plan)
+
     def run(self, feeds=None, *, seed: int = 0,
             backend: Optional[str] = None,
             config=None) -> Dict[str, Any]:
@@ -206,13 +226,15 @@ class CompiledPlan:
         out: Dict[str, Any] = {
             "arch": self.arch,
             "plan": dataclasses.asdict(self.plan),
-            "backend": self.backend,
-            "group_kernel_kinds": [gk.kind for gk in self.group_kernels],
         }
         if self.trace is not None:
             out["phase"] = self.trace.phase
             out["shape"] = self.trace.shape_key
             out["device"] = self.device
+        if self.cfg is None:
+            out["backend"] = self.backend
+            out["group_kernel_kinds"] = [gk.kind
+                                         for gk in self.group_kernels]
         if self.exec_plan is not None:
             ep = self.exec_plan
             out["exec_units"] = len(ep.units)
@@ -293,20 +315,32 @@ class CompiledPlan:
                 if terms:
                     lines.append("  sparse operands   : "
                                  + ", ".join(terms))
-        g = self.trace.graph if self.trace is not None else None
-        lines.append(
-            f"  execution backend : {self.backend}"
-            + (f" over {len(g.ops)} ops" if g is not None else "")
-            + (f" on {self.device}" if self.trace is not None else "")
-            + " (run(backend=...) to override)")
-        if self.group_kernels:
-            lines.append("  group kernels     :")
-            for i, gk in enumerate(self.group_kernels):
-                lines.append(f"    g{i} {{{'+'.join(gk.ops)}}}: "
-                             f"{gk.describe()}")
-        if self.exec_plan is not None:
-            lines.append(f"  execution plan    : "
-                         f"{self.exec_plan.describe()}")
+        else:
+            lines.append("  (default plan — no search was run)")
+        if self.cfg is None:
+            g = self.trace.graph if self.trace is not None else None
+            lines.append(
+                f"  execution backend : {self.backend}"
+                + (f" over {len(g.ops)} ops" if g is not None else "")
+                + (f" on {self.device}" if self.trace is not None else "")
+                + " (run(backend=...) to override)")
+            if self.group_kernels:
+                lines.append("  group kernels     :")
+                for i, gk in enumerate(self.group_kernels):
+                    lines.append(f"    g{i} {{{'+'.join(gk.ops)}}}: "
+                                 f"{gk.describe()}")
+            if self.exec_plan is not None:
+                lines.append(f"  execution plan    : "
+                             f"{self.exec_plan.describe()}")
+        else:
+            lines += [
+                f"  flash attention   : {p.use_flash_attention} "
+                f"(q_block={p.q_block}, kv_block={p.kv_block})",
+                f"  fused MLP         : {p.use_fused_mlp} "
+                f"(m={p.mlp_block_m}, f={p.mlp_block_f})",
+                f"  fused RMSNorm     : {p.use_fused_rmsnorm}",
+                f"  remat save-set    : {', '.join(p.remat_save_names)}",
+            ]
         if p.notes:
             lines.append(f"  notes             : {p.notes}")
         return "\n".join(lines)
@@ -314,5 +348,9 @@ class CompiledPlan:
     def __repr__(self) -> str:
         tag = (f"phase={self.trace.phase!r}, " if self.trace else "")
         how = "codesigned" if self.codesigned else "default"
+        if self.cfg is not None:
+            return (f"CompiledPlan({self.arch!r}, {tag}{how}, "
+                    f"flash={self.plan.use_flash_attention}, "
+                    f"fused_mlp={self.plan.use_fused_mlp})")
         return (f"CompiledPlan({self.arch!r}, {tag}{how}, "
                 f"backend={self.backend!r})")

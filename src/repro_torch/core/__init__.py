@@ -1,8 +1,8 @@
 """CELLO core for the PyTorch port: the planning layer, copied.
 
 The same modules as ``repro.core`` (graph IR, reuse analysis, hybrid
-buffer simulator, cost model, the co-design search and the HPC part of
-execution planning).  They are pure Python; the port keeps its own copy
+buffer simulator, cost model, the co-design search, the LLM layer graphs
+and execution planning, and the LLM plan policy).  They are pure Python; the port keeps its own copy
 because ``repro.core`` loads jax on import.  ``V5E`` stays the default
 hardware model so that plans made here equal the JAX package's.
 """
@@ -15,9 +15,10 @@ from .schedule import (CoDesignResult, EvaluatedSchedule, Schedule,
 from .search import (DEFAULT_SPLITS, SearchStrategy, get_strategy,
                      register_strategy, run_codesign)
 from .lowering import (CarrySlot, ExecPlan, ExecUnit, GroupKernel,
-                       RolledLoop, StreamPass, detect_rolled_loop,
-                       flatten_units, fuse_units, plan_execution,
-                       select_group_kernels)
+                       RolledLoop, StreamPass, decode_graph,
+                       detect_rolled_loop, flatten_units, fuse_units,
+                       layer_graph, plan_execution, select_group_kernels)
+from .policy import CelloPlan, default_plan, lower_codesign
 
 __all__ = [
     "GraphBuilder", "OpGraph", "OpNode", "TensorKind", "TensorSpec",
@@ -30,5 +31,6 @@ __all__ = [
     "run_codesign",
     "CarrySlot", "ExecPlan", "ExecUnit", "GroupKernel", "RolledLoop",
     "StreamPass", "detect_rolled_loop", "flatten_units", "fuse_units",
-    "plan_execution", "select_group_kernels",
+    "plan_execution", "select_group_kernels", "layer_graph",
+    "decode_graph", "CelloPlan", "default_plan", "lower_codesign",
 ]

@@ -1,11 +1,19 @@
-"""Execution planning for frontend (HPC) plans.
+"""Per-architecture layer DAG builders and execution planning, copied.
 
-The HPC half of ``repro.core.lowering``, copied: fusion group -> kernel
-shape selection (``select_group_kernels``), the flat dispatch units, the
-cross-pass residency planner (``fuse_units``) and rolled-loop detection
-(``detect_rolled_loop``), joined by ``plan_execution``.  The plans it
-makes are equal to the JAX package's field for field, so the two
-packages lower the same co-designed schedule to the same units.
+The two halves of ``repro.core.lowering``:
+
+* the LLM layer graphs (``attention_block`` … ``layer_graph``,
+  ``decode_graph``): the analysis-level view of one transformer block (or
+  one decode step) that the co-designer searches, at tensor granularity.
+  ``core.policy.lower_codesign`` turns the fusion groups found on them
+  into the kernel flags of a ``CelloPlan``;
+* execution planning for frontend (HPC) plans: fusion group -> kernel
+  shape selection (``select_group_kernels``), the flat dispatch units, the
+  cross-pass residency planner (``fuse_units``) and rolled-loop detection
+  (``detect_rolled_loop``), joined by ``plan_execution``.
+
+Both are pure Python and equal to the JAX package's field for field, so
+the two packages lower the same co-designed schedule to the same plan.
 
 The names keep the TPU vocabulary of the original (VMEM residency,
 ``pallas-stream`` in ``GroupKernel.describe``): they describe the
@@ -17,7 +25,238 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from .graph import OpGraph
+from ..configs.base import ArchConfig
+from .graph import GraphBuilder, OpGraph, TensorKind
+
+BF16 = 2
+F32 = 4
+
+
+def attention_block(b: GraphBuilder, cfg: ArchConfig, prefix: str, x: str,
+                    batch: int, q_len: int, kv_len: int,
+                    cross_kv: Optional[str] = None,
+                    out_kind: TensorKind = TensorKind.INTERMEDIATE) -> str:
+    """Standard (GQA / sliding-window / cross) attention sub-DAG. Returns the
+    name of the block output tensor (pre-residual)."""
+    d, h, kvh, e = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bb, s = batch, q_len
+    z = kv_len if cfg.window is None else min(kv_len, cfg.window)
+
+    wq = b.weight(f"{prefix}.wq", (d, h * e))
+    wo = b.weight(f"{prefix}.wo", (h * e, d))
+    q = b.contract(f"{prefix}.q", [x, wq], f"{prefix}.q_out",
+                   (bb, s, h, e), 2 * bb * s * d * h * e)
+
+    if cross_kv is None:
+        wk = b.weight(f"{prefix}.wk", (d, kvh * e))
+        wv = b.weight(f"{prefix}.wv", (d, kvh * e))
+        k_t = b.contract(f"{prefix}.k", [x, wk], f"{prefix}.k_out",
+                         (bb, z, kvh, e), 2 * bb * z * d * kvh * e)
+        v_t = b.contract(f"{prefix}.v", [x, wv], f"{prefix}.v_out",
+                         (bb, z, kvh, e), 2 * bb * z * d * kvh * e)
+    else:
+        # cross-attention: K/V come from the (pinned-candidate) image tensor
+        k_t = v_t = cross_kv
+
+    # scores + softmax + PV: FLOPs carry full h heads (GQA broadcast free)
+    scores = b.contract(f"{prefix}.scores", [q, k_t], f"{prefix}.scores_out",
+                        (bb, h, s, z), 2 * bb * h * s * z * e)
+    probs = b.elementwise(f"{prefix}.softmax", [scores], f"{prefix}.probs",
+                          flops_per_elem=5)
+    pv = b.contract(f"{prefix}.pv", [probs, v_t], f"{prefix}.pv_out",
+                    (bb, s, h, e), 2 * bb * h * s * z * e)
+    return b.contract(f"{prefix}.o", [pv, wo], f"{prefix}.attn_out",
+                      (bb, s, d), 2 * bb * s * h * e * d, out_kind=out_kind)
+
+
+def mlp_block(b: GraphBuilder, cfg: ArchConfig, prefix: str, x: str,
+              tokens: int, out_kind: TensorKind = TensorKind.INTERMEDIATE) -> str:
+    d, f = cfg.d_model, cfg.d_ff
+    gated = cfg.activation in ("swiglu", "geglu")
+    if cfg.is_moe:
+        return moe_block(b, cfg, prefix, x, tokens, out_kind)
+    w_up = b.weight(f"{prefix}.w_up", (d, (2 if gated else 1) * f))
+    w_down = b.weight(f"{prefix}.w_down", (f, d))
+    h = b.contract(f"{prefix}.up", [x, w_up], f"{prefix}.h",
+                   (tokens, (2 if gated else 1) * f),
+                   2 * tokens * d * (2 if gated else 1) * f)
+    a = b.elementwise(f"{prefix}.act", [h], f"{prefix}.a",
+                      flops_per_elem=4, out_shape=(tokens, f))
+    return b.contract(f"{prefix}.down", [a, w_down], f"{prefix}.mlp_out",
+                      (tokens, d), 2 * tokens * f * d, out_kind=out_kind)
+
+
+def moe_block(b: GraphBuilder, cfg: ArchConfig, prefix: str, x: str,
+              tokens: int, out_kind: TensorKind = TensorKind.INTERMEDIATE) -> str:
+    """Top-k MoE FFN.  Routing/dispatch are data-dependent ⇒ irregular:
+    their reuse must live in the implicit region (the CELLO showcase)."""
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    gated = cfg.activation in ("swiglu", "geglu")
+    w_router = b.weight(f"{prefix}.w_router", (d, E))
+    w_up_e = b.weight(f"{prefix}.w_up_e", (E, d, (2 if gated else 1) * f))
+    w_down_e = b.weight(f"{prefix}.w_down_e", (E, f, d))
+    logits = b.contract(f"{prefix}.router", [x, w_router],
+                        f"{prefix}.logits", (tokens, E), 2 * tokens * d * E,
+                        dtype_bytes=F32)
+    gates = b.elementwise(f"{prefix}.topk", [logits], f"{prefix}.gates",
+                          flops_per_elem=2, out_shape=(tokens, k),
+                          dtype_bytes=F32, irregular=True)
+    # dispatch: gather tokens to experts (data-dependent addressing)
+    xe = b.elementwise(f"{prefix}.dispatch", [x, gates], f"{prefix}.xe",
+                       flops_per_elem=0, out_shape=(tokens * k, d),
+                       irregular=True, spec="gather")
+    h = b.contract(f"{prefix}.up", [xe, w_up_e], f"{prefix}.h",
+                   (tokens * k, (2 if gated else 1) * f),
+                   2 * tokens * k * d * (2 if gated else 1) * f)
+    a = b.elementwise(f"{prefix}.act", [h], f"{prefix}.a",
+                      flops_per_elem=4, out_shape=(tokens * k, f))
+    ye = b.contract(f"{prefix}.down", [a, w_down_e], f"{prefix}.ye",
+                    (tokens * k, d), 2 * tokens * k * f * d)
+    # combine: weighted scatter-add back to token order (data-dependent)
+    return b.elementwise(f"{prefix}.combine", [ye, gates],
+                         f"{prefix}.mlp_out", flops_per_elem=2 * k,
+                         out_shape=(tokens, d), irregular=True, spec="gather",
+                         out_kind=out_kind)
+
+
+def rglru_block(b: GraphBuilder, cfg: ArchConfig, prefix: str, x: str,
+                batch: int, seq: int) -> str:
+    """RG-LRU recurrent block (recurrentgemma): gated linear recurrence."""
+    d = cfg.d_model
+    bb, s = batch, seq
+    wx, wgate, wa, wout = b.weights(prefix, ("wx", "wgate", "wa", "wout"),
+                                    (d, d))
+    xb = b.contract(f"{prefix}.proj", [x, wx], f"{prefix}.xb",
+                    (bb, s, d), 2 * bb * s * d * d)
+    g = b.contract(f"{prefix}.gates", [x, wgate, wa], f"{prefix}.g",
+                   (bb, s, 2 * d), 2 * bb * s * d * 2 * d)
+    # the recurrence itself: sequential along s => 'scan' op
+    h = b.scan(f"{prefix}.scan", [xb, g], f"{prefix}.h",
+               (bb, s, d), flops_per_elem=8)
+    return b.contract(f"{prefix}.out", [h, wout], f"{prefix}.rglru_out",
+                      (bb, s, d), 2 * bb * s * d * d)
+
+
+def rwkv_block(b: GraphBuilder, cfg: ArchConfig, prefix: str, x: str,
+               batch: int, seq: int) -> str:
+    """RWKV6 time-mix: r/k/v/g projections + WKV6 recurrence + output."""
+    d = cfg.d_model
+    bb, s = batch, seq
+    H, e = cfg.n_heads, cfg.resolved_head_dim
+    wr, wk, wv, wg, wo, ww = b.weights(
+        prefix, ("wr", "wk", "wv", "wg", "wo", "ww"), (d, d))
+    rkvg = b.contract(f"{prefix}.rkvg", [x, wr, wk, wv, wg, ww],
+                      f"{prefix}.rkvg_out", (bb, s, 5 * d),
+                      2 * bb * s * d * 5 * d)
+    # WKV6 recurrence: per head, state (e x e) updated per step
+    wkv = b.scan(f"{prefix}.wkv", [rkvg], f"{prefix}.wkv_out",
+                 (bb, s, d), flops=2 * bb * s * H * e * e * 4)
+    return b.contract(f"{prefix}.out", [wkv, wo], f"{prefix}.rwkv_out",
+                      (bb, s, d), 2 * bb * s * d * d)
+
+
+def layer_graph(cfg: ArchConfig, batch: int, seq: int, *,
+                layer_kind: Optional[str] = None,
+                include_residuals: bool = True) -> OpGraph:
+    """One transformer block as an OpGraph (the CELLO unit of analysis).
+
+    The residual stream exhibits the paper's "complex reuse": ``x`` feeds the
+    norm AND the residual add (two consumers, different distances); the block
+    output feeds the next norm and the next residual add likewise.
+    """
+    kind = layer_kind or cfg.layer_kinds()[0]
+    d = cfg.d_model
+    tokens = batch * seq
+    with OpGraph.build(f"{cfg.name}:{kind}:b{batch}s{seq}") as b:
+        x = b.input("x", (batch, seq, d))
+        ln1_w = b.weight("ln1.w", (d,))
+        ln2_w = b.weight("ln2.w", (d,))
+        x_n1 = b.elementwise("ln1", [x, ln1_w], "x_n1", flops_per_elem=6)
+
+        if kind == "attn":
+            y = attention_block(b, cfg, "attn", x_n1, batch, seq, seq)
+        elif kind == "xattn":
+            img_kv = b.input("img_kv", (batch, cfg.vision_seq,
+                                        2 * cfg.n_kv_heads *
+                                        cfg.resolved_head_dim))
+            y = attention_block(b, cfg, "xattn", x_n1, batch, seq,
+                                cfg.vision_seq, cross_kv=img_kv)
+        elif kind == "rglru":
+            y = rglru_block(b, cfg, "rglru", x_n1, batch, seq)
+        elif kind == "rwkv":
+            y = rwkv_block(b, cfg, "rwkv", x_n1, batch, seq)
+        else:
+            raise ValueError(kind)
+
+        if include_residuals:
+            src = b.elementwise("res1", [x, y], "x_mid", flops_per_elem=1)
+        else:
+            src = y
+        x_n2 = b.elementwise("ln2", [src, ln2_w], "x_n2", flops_per_elem=6)
+        m = mlp_block(b, cfg, "mlp", x_n2, tokens)
+        if include_residuals:
+            b.elementwise("res2", [src, m], "x_out", flops_per_elem=1,
+                          out_kind=TensorKind.OUTPUT,
+                          out_shape=(batch, seq, d))
+    return b.graph
+
+
+def decode_graph(cfg: ArchConfig, batch: int, kv_len: int) -> OpGraph:
+    """Single-token decode step for one layer: KV-cache reuse pattern.
+
+    The cache is an INPUT consumed by scores/PV and extended (OUTPUT) — the
+    canonical multi-distance reuse tensor for serving.
+    """
+    kind = next((k for k in cfg.layer_kinds() if k in ("attn", "rwkv")),
+                cfg.layer_kinds()[0])
+    d, h, kvh, e = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    bb = batch
+    z = kv_len if cfg.window is None else min(kv_len, cfg.window)
+    with OpGraph.build(f"{cfg.name}:decode:b{batch}kv{kv_len}") as b:
+        x = b.input("x", (bb, 1, d))
+        ln1_w = b.weight("ln1.w", (d,))
+        x_n1 = b.elementwise("ln1", [x, ln1_w], "x_n1", flops_per_elem=6)
+        if kind == "rwkv":
+            state = b.input("state", (bb, cfg.n_heads, e, e), dtype_bytes=F32)
+            wr, wk, wv, wo = b.weights("t", ("wr", "wk", "wv", "wo"), (d, d))
+            rkv = b.contract("t.rkv", [x_n1, wr, wk, wv], "t.rkv_out",
+                             (bb, 1, 3 * d), 2 * bb * d * 3 * d)
+            ty = b.scan("t.wkv", [rkv, state], "t.y", (bb, 1, d),
+                        flops=2 * bb * cfg.n_heads * e * e * 4)
+            b.elementwise("t.state_new", [rkv, state], "state_out",
+                          flops_per_elem=2, out_shape=(bb, cfg.n_heads, e, e),
+                          dtype_bytes=F32, out_kind=TensorKind.OUTPUT)
+            y = b.contract("t.o", [ty, wo], "attn_out", (bb, 1, d),
+                           2 * bb * d * d)
+        else:
+            k_cache = b.input("k_cache", (bb, z, kvh, e))
+            v_cache = b.input("v_cache", (bb, z, kvh, e))
+            wq = b.weight("attn.wq", (d, h * e))
+            wk = b.weight("attn.wk", (d, kvh * e))
+            wv = b.weight("attn.wv", (d, kvh * e))
+            wo = b.weight("attn.wo", (h * e, d))
+            q = b.contract("attn.q", [x_n1, wq], "q", (bb, 1, h, e),
+                           2 * bb * d * h * e)
+            b.contract("attn.kv_new", [x_n1, wk, wv], "kv_new",
+                       (bb, 1, 2 * kvh, e), 4 * bb * d * kvh * e,
+                       out_kind=TensorKind.OUTPUT)
+            scores = b.contract("attn.scores", [q, k_cache], "scores",
+                                (bb, h, 1, z), 2 * bb * h * z * e)
+            probs = b.elementwise("attn.softmax", [scores], "probs",
+                                  flops_per_elem=5)
+            ctx = b.contract("attn.pv", [probs, v_cache], "ctx",
+                             (bb, 1, h, e), 2 * bb * h * z * e)
+            y = b.contract("attn.o", [ctx, wo], "attn_out", (bb, 1, d),
+                           2 * bb * h * e * d)
+        x_mid = b.elementwise("res1", [x, y], "x_mid", flops_per_elem=1)
+        ln2_w = b.weight("ln2.w", (d,))
+        x_n2 = b.elementwise("ln2", [x_mid, ln2_w], "x_n2", flops_per_elem=6)
+        m = mlp_block(b, cfg, "mlp", x_n2, bb)
+        b.elementwise("res2", [x_mid, m], "x_out", flops_per_elem=1,
+                      out_kind=TensorKind.OUTPUT, out_shape=(bb, 1, d))
+    return b.graph
+
 
 # ---------------------------------------------------------------------------
 # group -> kernel-shape selection (execution backends)

@@ -5,7 +5,12 @@ torch version.
                  source per pass (plus its reduction-finalize kernel),
   ``spmv``     — B2, CSR SpMV, CUDA C++ (``csrc/spmv.cu``),
   ``stencil``  — B4, the periodic 5-point stencil, CUDA C++
-                 (``csrc/stencil.cu``).
+                 (``csrc/stencil.cu``),
+  ``flash_attention`` — B5, online-softmax attention, CUDA C++
+                 (``csrc/flash_attention.cu``),
+  ``fused_mlp`` — B6, the fused (gated) MLP, CUDA C++
+                 (``csrc/fused_mlp.cu``),
+  ``rmsnorm``  — B7, RMSNorm, CUDA C++ (``csrc/rmsnorm.cu``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises — it never falls back.  ``LAUNCHES`` counts
@@ -15,7 +20,8 @@ else, so a run can show that its path went through the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
-                            "stencil2d": 0}
+                            "stencil2d": 0, "flash_attention": 0,
+                            "fused_mlp": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:

@@ -177,7 +177,9 @@ def test_build_dir_and_digest(monkeypatch, tmp_path):
     monkeypatch.setenv("CELLO_TORCH_BUILD_DIR", str(tmp_path / "b"))
     assert build.build_dir() == tmp_path / "b"
     assert (tmp_path / "b").is_dir()
-    assert {s.name for s in build._sources()} == {"spmv.cu", "stencil.cu"}
+    assert {s.name for s in build._sources()} == {
+        "spmv.cu", "stencil.cu", "flash_attention.cu", "fused_mlp.cu",
+        "rmsnorm.cu"}
     assert build._digest() == build._digest()
 
 
