@@ -15,7 +15,7 @@ state is in the artifact itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 from ..configs.base import ArchConfig
 from ..core.graph import OpGraph
@@ -332,6 +332,8 @@ class CompiledPlan:
             if self.exec_plan is not None:
                 lines.append(f"  execution plan    : "
                              f"{self.exec_plan.describe()}")
+                lines += [f"  cuda spmv kernel  : {ln}" for ln in
+                          _spmv_kernels(self.trace.program, self.exec_plan)]
         else:
             lines += [
                 f"  flash attention   : {p.use_flash_attention} "
@@ -354,3 +356,19 @@ class CompiledPlan:
                     f"fused_mlp={self.plan.use_fused_mlp})")
         return (f"CompiledPlan({self.arch!r}, {tag}{how}, "
                 f"backend={self.backend!r})")
+
+
+def _spmv_kernels(program, exec_plan) -> List[str]:
+    """One line per kernel that the ``cuda`` backend runs spmv ops on:
+    B3 (the op's operand holds a prefix pin that the arrangement accepts)
+    or B2, with the ops it runs."""
+    from ..exec.cuda import spmv_prefixes
+    ops: Dict[str, List[str]] = {}
+    for unit in exec_plan.units:
+        if unit.sp is None:
+            continue
+        for op, rows in spmv_prefixes(program, unit.sp).items():
+            key = ("B2 (whole operand)" if rows is None else
+                   f"B3 (resident prefix {rows}/{unit.sp.rows} rows)")
+            ops.setdefault(key, []).append(op)
+    return [f"{k} for {', '.join(v)}" for k, v in ops.items()]

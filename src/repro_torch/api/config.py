@@ -22,8 +22,10 @@ class CodesignConfig:
     ``strategy`` (registered name or strategy instance), ``capacity_bytes``
     (None → session capacity), ``max_orders``, ``splits``
     (explicit/implicit boundary candidates), ``overbook`` (fractional pin
-    spill for sparse operands; a plan that takes a prefix pin needs kernel
-    B3, which the ``cuda`` backend does not have yet)."""
+    spill for sparse operands; the ``cuda`` backend runs an spmv op whose
+    operand takes a prefix pin on kernel B3, which marks the prefix's loads
+    evict_last in L2: a hint, kept by the card only within its persisting
+    set-aside)."""
     strategy: Any = "default"
     capacity_bytes: Optional[int] = None
     max_orders: int = 16

@@ -1,8 +1,10 @@
 """`repro_torch.exec` — execution backends for compiled plans.
 
   ``cuda``       — the plan's units on hand-written Hopper kernels (B1
-                   generated Triton passes, B2 CSR SpMV and B4 stencil in
-                   CUDA C++); the default backend of ``Session.lower``,
+                   generated Triton passes; B2 CSR SpMV, B3 CSR SpMV with
+                   an evict_last L2 hint on a pinned row prefix, and B4
+                   stencil in CUDA C++); the default backend of
+                   ``Session.lower``,
   ``reference``  — the torch interpreter (op by op, full tensors), the
                    oracle the ``cuda`` backend is held against.
 

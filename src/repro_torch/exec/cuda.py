@@ -8,8 +8,10 @@ execution units (``core.lowering.plan_execution``) and launches a kernel
 per unit on the current CUDA stream:
 
 * ``stream`` units run as one B1 pass (``kernels.stream``, generated
-  Triton); their spmv ops first run as B2 launches (``kernels.spmv``,
-  CUDA C++) whose outputs the pass streams;
+  Triton); their spmv ops first run as CUDA C++ launches
+  (``kernels.spmv``) whose outputs the pass streams: B3 for an op whose
+  operand holds an overbooked (prefix) pin that the arrangement accepts
+  (:func:`spmv_prefixes`), B2 for every other;
 * ``block`` units run each ``stencil2d`` op as a B4 launch
   (``kernels.stencil``, CUDA C++), ping-ponging between scratch buffers,
   and each run of same-shape elementwise ops as a B1 pass over the
@@ -26,40 +28,51 @@ whole plan and returns.  ``stats`` counts runs and kernel launches.
 
 On CPU tensors every kernel wrapper runs its plain version, so the same
 driver runs here on the CPU (the tests use it that way, with
-``Session(device="cpu")``).  Plans with overbooked (prefix) pins need the
-sliced SpMV kernel B3, which is not ported yet: compiling one raises
-``NotImplementedError``.
+``Session(device="cpu")``).
 """
 from __future__ import annotations
 
 import collections
 import functools
-from typing import Any, Dict, List, Set, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
 from .. import kernels
-from ..kernels.spmv import spmv
+from ..kernels.spmv import arrange, spmv
 from ..kernels.stencil import stencil2d
 from ..kernels.stream import StreamKernel
 from .base import Executor, plan_device, plan_program
 from .reference import as_tensor, eval_node
 
 
+def spmv_prefixes(program, sp) -> Dict[str, Optional[int]]:
+    """Every spmv op of the stream pass ``sp`` with the resident prefix
+    (rows) that B3 runs it with, or None where it runs on B2: its operand
+    holds no prefix slice, or the arrangement declines it (as the JAX
+    package's ``_StreamCall`` does at ``repro/exec/pallas.py:224-241``)."""
+    slice_of = {t: sl for sl in sp.slices for t in sl.tensors}
+    out: Dict[str, Optional[int]] = {}
+    for o in sp.ops:
+        nd = program.nodes[o]
+        if nd.op != "spmv":
+            continue
+        sl = slice_of.get(nd.inputs[0])
+        out[o] = None if sl is None else arrange(
+            sl, program.nodes.get(nd.inputs[0]), sp.rows, sp.tile_rows,
+            program.nodes[nd.inputs[1]].shape[0])
+    return out
+
+
 class _StreamUnit:
-    """A ``stream`` unit: B2 launches for its spmv ops, then one B1 pass."""
+    """A ``stream`` unit: B3 or B2 launches for its spmv ops, then one B1
+    pass."""
 
     def __init__(self, program, unit, needed: Set[str]):
         sp = unit.sp
-        if sp.slices:
-            raise NotImplementedError(
-                "this plan holds an overbooked (prefix) pin, whose sliced "
-                "SpMV kernel B3 (repro/exec/pallas.py:616) is not ported to "
-                "the cuda backend yet (ROADMAP.md, 'TPU kernels to port'); "
-                "run it with backend='reference' or codesign with "
-                "overbook=0")
         nodes = [program.nodes[o] for o in sp.ops]
         self.spmv_nodes = [nd for nd in nodes if nd.op == "spmv"]
+        self.prefix = spmv_prefixes(program, sp)
         rest = [nd for nd in nodes if nd.op != "spmv"]
         shapes = {n: program.nodes[n].shape
                   for nd in nodes for n in (*nd.inputs, nd.name)}
@@ -73,7 +86,8 @@ class _StreamUnit:
 
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         vals = {nd.name: spmv(*(env[t] for t in nd.inputs),
-                              rows=nd.shape[0])
+                              rows=nd.shape[0],
+                              prefix_rows=self.prefix[nd.name])
                 for nd in self.spmv_nodes}
         out = {n: vals[n] for n in self.spmv_out}
         if self.pass_ is not None:

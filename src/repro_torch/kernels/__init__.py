@@ -3,7 +3,11 @@ torch version.
 
   ``stream``   — B1, the fused row-streaming pass, generated as Triton
                  source per pass (plus its reduction-finalize kernel),
-  ``spmv``     — B2, CSR SpMV, CUDA C++ (``csrc/spmv.cu``),
+  ``spmv``     — B2, CSR SpMV, and B3, the same over an operand with an
+                 overbooked pin (its row prefix's loads marked
+                 evict_last in L2), CUDA C++ (``csrc/spmv.cu``), with B3's
+                 arrangement (which op runs sliced, and where the prefix
+                 ends); B3 counts as ``spmv_sliced``,
   ``stencil``  — B4, the periodic 5-point stencil, CUDA C++
                  (``csrc/stencil.cu``),
   ``flash_attention`` — B5, online-softmax attention, CUDA C++
@@ -20,7 +24,8 @@ else, so a run can show that its path went through the kernels.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
-                            "stencil2d": 0, "flash_attention": 0,
+                            "spmv_sliced": 0, "stencil2d": 0,
+                            "flash_attention": 0,
                             "fused_mlp": 0, "rmsnorm": 0}
 
 

@@ -1,13 +1,25 @@
-"""B2 · CSR SpMV: the CUDA C++ kernel ``csrc/spmv.cu`` and its plain
-version.
+"""B2 and B3 · CSR SpMV: the CUDA C++ kernels ``csrc/spmv.cu``, their plain
+versions, and B3's arrangement.
 
-Replaces ``repro/exec/pallas.py:595`` ``_spmv_row_tile``.  The kernel gives
-each row one thread that adds the row's products in ascending entry order
-(no atomics, no masked scan over all entries); see the source for the
+B2 replaces ``repro/exec/pallas.py:595`` ``_spmv_row_tile``.  The kernel
+gives each row one thread that adds the row's products in ascending entry
+order (no atomics, no masked scan over all entries); see the source for the
 design and its bound.  The CUDA backend launches it on its own just before
 the B1 pass that holds the spmv op, and the pass streams its output.
+
+B3 replaces ``:616`` ``_spmv_sliced_tile`` together with its arrangement,
+``:300`` ``_StreamCall._arrange``.  An overbooked pin keeps an
+indptr-aligned row prefix of a CSR operand resident and streams the rest.
+:func:`arrange` decides, as the JAX package does, whether an spmv op runs
+sliced at all and where the resident prefix ends; B3 is B2's kernel with
+the prefix rows' loads marked evict_last in the card's L2 (a hint: see the
+source for what the card measured of it).  The prefix is the leading range
+of the CSR arrays themselves, so no packed layout is built: the arrangement
+is static (pattern meta only) and is made once, when the plan compiles.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,30 +44,93 @@ def spmv_plain(indptr: torch.Tensor, indices: torch.Tensor,
     return out.index_add_(0, seg, contrib)
 
 
+def spmv_sliced_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                      data: torch.Tensor, x: torch.Tensor, rows: int,
+                      prefix_rows: int) -> torch.Tensor:
+    """B3's plain version: ``y = A @ x``, each row's products added in
+    ascending entry order from zero, one entry slot of every row per step:
+    the kernel's order, on any device.  ``prefix_rows`` is where the
+    kernel's resident prefix ends; it does not change the result."""
+    _check_prefix(rows, prefix_rows)
+    out = torch.zeros(rows, dtype=data.dtype, device=data.device)
+    nnz = data.shape[0]
+    if nnz == 0 or rows == 0:
+        return out
+    start = indptr[:-1].long()
+    counts = indptr[1:].long() - start
+    for k in range(int(counts.max())):
+        e = (start + k).clamp_(max=nnz - 1)
+        prod = data[e] * x[indices[e].long()]
+        out = torch.where(counts > k, out + prod, out)
+    return out
+
+
 def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-         x: torch.Tensor, rows: int) -> torch.Tensor:
-    """``y = A @ x`` for the CSR operand ``(indptr, indices, data)``."""
+         x: torch.Tensor, rows: int, prefix_rows: Optional[int] = None
+         ) -> torch.Tensor:
+    """``y = A @ x`` for the CSR operand ``(indptr, indices, data)``: B2,
+    or B3 when ``prefix_rows`` gives the resident prefix of an overbooked
+    pin (rows ``[0, prefix_rows)``, from :func:`arrange`)."""
+    sliced = prefix_rows is not None
+    if sliced:
+        _check_prefix(rows, prefix_rows)
     if not on_cuda(indptr, indices, data, x):
-        return spmv_plain(indptr, indices, data, x, rows)
+        return (spmv_sliced_plain(indptr, indices, data, x, rows, prefix_rows)
+                if sliced else spmv_plain(indptr, indices, data, x, rows))
     from .build import check, cuda_library
+    name = "spmv_sliced" if sliced else "spmv"
     if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
-        raise TypeError("spmv kernel takes int32 indptr/indices")
+        raise TypeError(f"{name} kernel takes int32 indptr/indices")
     if data.dtype != x.dtype or data.dtype not in (torch.float32,
                                                    torch.float64):
-        raise TypeError(f"spmv kernel takes float32/float64 data and x of "
+        raise TypeError(f"{name} kernel takes float32/float64 data and x of "
                         f"one dtype, got {data.dtype}, {x.dtype}")
     if indptr.shape != (rows + 1,) or indices.shape != data.shape:
-        raise ValueError(f"spmv: indptr {tuple(indptr.shape)}, indices "
+        raise ValueError(f"{name}: indptr {tuple(indptr.shape)}, indices "
                          f"{tuple(indices.shape)}, data {tuple(data.shape)} "
                          f"do not describe {rows} rows")
     for t in (indptr, indices, data, x):
         if not t.is_contiguous():
-            raise ValueError("spmv kernel takes contiguous tensors")
+            raise ValueError(f"{name} kernel takes contiguous tensors")
     y = torch.empty(rows, dtype=x.dtype, device=x.device)
-    fn = (cuda_library().cello_spmv_f32 if x.dtype == torch.float32
-          else cuda_library().cello_spmv_f64)
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(cuda_library(), f"cello_{name}_{suffix}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES["spmv"] += 1
+    LAUNCHES[name] += 1
     check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-             x.data_ptr(), y.data_ptr(), rows, stream), "spmv")
+             x.data_ptr(), y.data_ptr(), rows,
+             *((prefix_rows,) if sliced else ()), stream), name)
     return y
+
+
+def arrange(sl, leaf, rows: int, tile_rows: int, nnz: int) -> Optional[int]:
+    """The resident prefix (rows) of one prefix-sliced spmv op, or None
+    where the JAX package falls back to its whole-resident kernel
+    (``pallas.py:322-332``) and the op runs on B2: ``rows % tile_rows !=
+    0``, no entries, no ``pattern`` param on the operand's indptr leaf (a
+    hand-built program), pattern meta the generator refuses, or per-row
+    counts that do not add up to ``nnz``.  The prefix is the whole row
+    tiles that the slice covers, the boundary tile excluded
+    (``pallas.py:346``).
+
+    ``sl`` is the op's :class:`~repro_torch.core.lowering.ResidentSlice`,
+    ``leaf`` the operand's indptr node (or None), ``rows`` and
+    ``tile_rows`` the stream pass's."""
+    from ..frontends.sparse import row_counts
+    pattern = leaf.param("pattern") if leaf is not None else None
+    if rows % tile_rows or nnz <= 0 or pattern is None:
+        return None
+    try:
+        counts = row_counts(pattern, rows, density=leaf.param("density"),
+                            bandwidth=leaf.param("bandwidth"))
+    except (TypeError, ValueError):
+        return None
+    if int(counts.sum()) != nnz:
+        return None
+    return min(sl.rows // tile_rows, rows // tile_rows - 1) * tile_rows
+
+
+def _check_prefix(rows: int, prefix_rows: int) -> None:
+    if not 0 <= prefix_rows <= rows:
+        raise ValueError(f"spmv_sliced: prefix_rows {prefix_rows} outside "
+                         f"[0, {rows}]")

@@ -141,14 +141,26 @@ def test_feeds_from_numpy_keeps_dtypes_and_shapes():
 
 
 def test_overbooked_prefix_pins_need_b3():
-    traced = pt_api.Session(device="cpu").trace(
-        workload="cg_sparse", n=64, iters=3, pattern="banded", bandwidth=2)
+    """A plan with a prefix pin runs its spmv ops on B3 (the sliced SpMV)
+    and matches the JAX package's pallas backend; more such plans, fp64
+    and the arrangement are in ``test_torch_overbook.py``."""
+    params = dict(n=64, iters=3, pattern="banded", bandwidth=2)
+    jx = jx_api.Session(use_cache=False).trace(workload="cg_sparse",
+                                               **params)
+    traced = pt_api.Session(device="cpu").trace(workload="cg_sparse",
+                                                **params)
+    jx_plan = jx.analyze().codesign(jx_api.CodesignConfig(
+        capacity_bytes=4500, overbook=0.25)).lower()
     plan = traced.analyze().codesign(pt_api.CodesignConfig(
         capacity_bytes=4500, overbook=0.25)).lower()
-    assert "pinned=prefix(rows=" in plan.explain()
-    with pytest.raises(NotImplementedError, match="B3"):
-        plan.run()
-    feeds = pt_fe.feeds_from_numpy(pt_fe.make_feeds(traced.program, seed=3))
+    text = plan.explain()
+    assert "pinned=prefix(rows=" in text
+    assert "B3 (resident prefix 0/64 rows) for Ax0, Ap0, Ap1, Ap2" in text
+    np_feeds = jx_fe.make_feeds(jx.program, seed=3)
+    pal = {k: np.asarray(v) for k, v in
+           jx_plan.run(np_feeds, backend="pallas").items()}
+    feeds = pt_fe.feeds_from_numpy(np_feeds)
+    _close(plan.run(feeds), pal, np.float32, "cg_sparse overbooked")
     want = pt_fe.evaluate(traced.program, feeds)
     got = plan.run(feeds, backend="reference")
     for k in want:
