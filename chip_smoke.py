@@ -22,7 +22,13 @@ Phases, each of which raises (exit code 1) on failure:
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
    d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
-   and a TF32 control that B6's fp32 limit must reject;
+   and a TF32 control that B6's fp32 limit must reject; B5 at
+   recurrentgemma-2b's prefill (S 4096, 10 heads over 1 kv head of 256,
+   causal, window 2048) and B6 at the recurrent paths' prefill shapes
+   (gated tanh-gelu M 4096, D 2560, F 7680; relu² M 1024, D 4096, F
+   14336); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D 2560) and B9
+   (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
+   layout), in bf16 and fp32, each with and without an initial state;
 4. the HPC path, ``Session(device="cuda") -> trace -> analyze -> codesign
    -> lower(backend="cuda") -> run()``: cg(n=4096, iters=64),
    cg_sparse(n=2^20, iters=64, laplacian5) in fp32 and fp64, and
@@ -48,8 +54,21 @@ Phases, each of which raises (exit code 1) on failure:
    1x1024 prompt (B5, B6, B7) and ``generate`` of 4 prompts x 16 tokens +
    32 new tokens (decode: B6 at 4 rows, B7), the same again with every
    kernel entry point swapped for its plain version, and the agreements
-   of ``LLM_TOL`` and ``DECODE_TOL`` with the controls they must reject;
-   launches per prefill and per decode step, prefill and decode times.
+   of ``LLM_TOL`` and ``DECODE_TOL`` (rwkv6-7b: ``RWKV_TOL``) with the
+   controls they must reject; launches per prefill and per decode step,
+   prefill and decode times;
+6. the same for the recurrent families, one model at a time (each freed
+   before the next loads): recurrentgemma-2b (26 layers of
+   ``[rglru, rglru, attn]``, d 2560, ~3.4 B parameters), planned on
+   ``trace("prefill", batch=1, seq=4096, layer_kind="attn")``, a 1x4096
+   prefill (B5 8, B6 26, B7 53, B8 18 launches); rwkv6-7b (32 rwkv
+   layers, d 4096, ~7.0 B parameters), planned on ``trace("prefill",
+   batch=1, seq=1024)``, a 1x1024 prefill (B6 32, B7 65, B9 32); decode
+   steps launch B6 and B7 as the prefill does, and B5, B8, B9 never.
+   rwkv6-7b, held to the wider ``RWKV_TOL``, also brings a second witness
+   (``serve_witness``): at a second prompt seed, its kernel run against
+   its plain run in bf16 and with fp32 activations, the latter within
+   ``FP32_WITNESS_TOL``.
 
 The last two lines are the kernel table and the device summary as JSON; the
 line before them is ``nvidia-smi``'s name and power limit.  Without CUDA the
@@ -110,6 +129,10 @@ PEAK_BF16_FLOPS = 989e12
 LLM_ARCH = "granite-3-8b"
 PREFILL_SEQ = 1024
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 16, 32
+#: the recurrent families' serving paths: recurrentgemma-2b's prefill is
+#: longer than its 2048-token attention window
+HYBRID_ARCH, HYBRID_SEQ = "recurrentgemma-2b", 4096
+SSM_ARCH, SSM_SEQ = "rwkv6-7b", 1024
 #: serving path against its all-plain run on the card, max |Δ| <= TOL x
 #: max |plain logits|: the kernels sum in other orders than cuBLAS and
 #: torch's reductions, so single bf16 roundings flip in the residual stream
@@ -125,6 +148,43 @@ NEAR_TIE = 2e-2
 #: package's does), where B5 keeps them in fp32; the prefill logits one
 #: position earlier must fail it
 DECODE_TOL = 5e-2
+#: rwkv6-7b's limit for both comparisons above.  Its random-weight
+#: time-mix branch (y = r·S, with no norm after it, trilinear in the
+#: layer's input and ~9x the MLP branch's output) carries one bf16
+#: rounding flip further than attention does: on one H100 two plain-torch
+#: evaluations of the same function, its decode steps and its prefill,
+#: disagreed by 6.09e-2 of the largest logit, above ``LLM_TOL``, and the
+#: kernel run by 6.19e-2 (prefill vs plain) and 6.46e-2 (decode vs
+#: prefill).  Its shifted-position controls read ~1.3, 13x over this limit
+RWKV_TOL = 1e-1
+#: the second witness that a path held to more than ``LLM_TOL`` /
+#: ``DECODE_TOL`` (rwkv6-7b) differs from its plain run by bf16 rounding
+#: alone: the same model served with fp32 activations (every kernel of the
+#: path takes fp32), prefill logits of the kernel run vs the plain run and
+#: decode vs prefill, max |Δ| <= TOL x max |plain logits|.  With no bf16
+#: rounding to flip, kernels that compute their plain versions' function
+#: agree to fp32 rounding carried through the layers; the bf16 kernel
+#: run's logits against the fp32 plain run's are its control and must
+#: fail it.  Beside it, the bf16 readings at a second prompt seed
+FP32_WITNESS_TOL = 1e-4
+#: the serving paths, in order: (arch, prefill length, the trace's
+#: ``layer_kind``, launches per prefill, (LLM limit, decode limit)).  A
+#: decode step launches B6 and B7 as often as a prefill and B5, B8 and B9
+#: never.  recurrentgemma is planned on an attention layer's trace: its
+#: default trace is an rglru layer, which has no scores/pv group, and
+#: lowers to flash attention off
+SERVE_PATHS = (
+    (LLM_ARCH, PREFILL_SEQ, None, {"flash_attention": 40, "fused_mlp": 40,
+                                   "rmsnorm": 81, "rglru": 0, "wkv6": 0},
+     (LLM_TOL, DECODE_TOL)),
+    (HYBRID_ARCH, HYBRID_SEQ, "attn", {"flash_attention": 8,
+                                       "fused_mlp": 26, "rmsnorm": 53,
+                                       "rglru": 18, "wkv6": 0},
+     (LLM_TOL, DECODE_TOL)),
+    (SSM_ARCH, SSM_SEQ, None, {"flash_attention": 0, "fused_mlp": 32,
+                               "rmsnorm": 65, "rglru": 0, "wkv6": 32},
+     (RWKV_TOL, RWKV_TOL)),
+)
 
 
 def log(msg: str = "") -> None:
@@ -708,6 +768,53 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
                 f"({'rel' if dt == 'float32' else 'bf16 excess'} {rel:.3e})")
 
 
+def check_flash_hybrid(results):
+    """B5 at recurrentgemma-2b's prefill shape: 10 query heads over one kv
+    head (MQA) of E = 256, causal, a 2048-token window that bites at S =
+    4096 (213,760 B of dynamic shared memory a block).  SDPA gets the
+    window as a boolean mask."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cfg = get_config(HYBRID_ARCH)
+    rng = np.random.default_rng(26)
+    B, S, W = 1, HYBRID_SEQ, cfg.window
+    H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    pos = torch.arange(S, device="cuda")
+    keep = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - W))
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        q = _rand(rng, (B, H, S, E), tdt)
+        k = _rand(rng, (B, KVH, S, E), tdt)
+        v = _rand(rng, (B, KVH, S, E), tdt)
+
+        def kernel():
+            return flash_attention(q, k, v, causal=True, window=W)
+
+        def plain():
+            return flash_attention_plain(q, k, v, causal=True, window=W)
+        got = kernel()
+        torch.cuda.synchronize()
+        err, rel = _hold("flash hybrid", got, plain(), dt)
+        kx, vx = k.expand(B, H, S, E), v.expand(B, H, S, E)
+        times = measure(kernel, plain, lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=keep))
+        pairs = _attn_pairs(S, S, True, W)
+        flops = 4 * B * H * E * pairs
+        record(results, "B5 flash  ", kernel="flash_attention",
+               case=f"{HYBRID_ARCH} B={B} H={H} KVH={KVH} S=T={S} E={E} "
+               f"causal window={W}", dtype=dt, err=err, rel_err=rel,
+               tol=KERNEL_TOL["float32"] if dt == "float32"
+               else "1 bf16 rounding",
+               nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
+               flops=flops, times=times, math="float32",
+               bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+
+
 def check_mlp(results, D=4096, F_=12800):
     """B6 (gated silu, granite-3-8b) at the prefill's 1024 rows and a decode
     step's 4 rows, with fp32 weights; a TF32 control that the fp32 limit
@@ -769,6 +876,162 @@ def check_mlp(results, D=4096, F_=12800):
             err, rel = _hold(f"fused_mlp {name}", got, want, dt)
             log(f"  B6 off the main path, {name} {dt}: max|err| {err:.3e} "
                 f"({'rel' if dt == 'float32' else 'bf16 excess'} {rel:.3e})")
+
+
+def check_mlp_recurrent(results):
+    """B6 at the recurrent serving paths' prefill shapes: gated tanh-gelu
+    (recurrentgemma-2b, M 4096, D 2560, F 7680: 1.26 GB of fp32 split-F
+    partials) and relu² without a gate (rwkv6-7b, M 1024, D 4096, F 14336:
+    0.94 GB), fp32 weights."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    from repro_torch.models.common import is_gated
+    rng = np.random.default_rng(27)
+    for arch, m in ((HYBRID_ARCH, HYBRID_SEQ), (SSM_ARCH, SSM_SEQ)):
+        cfg = get_config(arch)
+        D, F_ = cfg.d_model, cfg.d_ff
+        gated = is_gated(cfg.activation)
+        act = {"geglu": "gelu", "relu2": "relu2"}[cfg.activation]
+        wg = _rand(rng, (D, F_), torch.float32, D ** -0.5) if gated else None
+        wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
+        wd = _rand(rng, (F_, D), torch.float32, F_ ** -0.5)
+        for dt in ("float32", "bfloat16"):
+            x = _rand(rng, (m, D), getattr(torch, dt))
+
+            def kernel():
+                return fused_mlp(x, wg, wu, wd, activation=act)
+
+            def plain():
+                return fused_mlp_plain(x, wg, wu, wd, activation=act)
+
+            def library():
+                xf = x.float()
+                up = torch.matmul(xf, wu)
+                if gated:
+                    h = F.gelu(torch.matmul(xf, wg), approximate="tanh") * up
+                else:
+                    h = torch.relu(up).square()
+                return torch.matmul(h, wd)
+            got = kernel()
+            torch.cuda.synchronize()
+            err, rel = _hold(f"fused_mlp {arch}", got, plain(), dt)
+            times = measure(kernel, plain, library)
+            flops = (6 if gated else 4) * m * D * F_
+            record(results, "B6 mlp    ", kernel="fused_mlp",
+                   case=f"{arch} {'gated ' if gated else ''}{act} M={m} "
+                   f"D={D} F={F_}", dtype=dt, err=err, rel_err=rel,
+                   tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding",
+                   nbytes=((3 if gated else 2) * D * F_ * 4
+                           + 2 * x.numel() * x.element_size()),
+                   flops=flops, times=times, math="float32",
+                   bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+
+
+def _eager_times(kernel, plain):
+    """The kernel's device and eager times; the plain version's eager time
+    (a Python loop over t: the host issues its launches, so a CUDA graph
+    of it would hold tens of thousands of nodes)."""
+    return dict(ms=graph_ms(kernel), call_ms=cuda_ms(kernel),
+                plain_ms=cuda_ms(plain, reps=2, warmup=1), library_ms=None)
+
+
+def check_rglru(results):
+    """B8 at recurrentgemma-2b's prefill shape (B 1, S 4096, D 2560), bf16
+    and fp32, with and without an initial state; y held as ``_hold`` holds
+    an output, the fp32 final state within ``KERNEL_TOL``.  No one torch
+    call computes the scan."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru import rglru, rglru_plain
+    B, S, D = 1, HYBRID_SEQ, get_config(HYBRID_ARCH).d_model
+    rng = np.random.default_rng(24)
+    a_param = _rand(rng, (D,), torch.float32)
+    h0 = _rand(rng, (B, D), torch.float32)
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        x, gr, gi = (_rand(rng, (B, S, D), tdt) for _ in range(3))
+        for init in (None, h0):
+            def kernel():
+                return rglru(x, gr, gi, a_param, init)
+
+            def plain():
+                return rglru_plain(x, gr, gi, a_param, init)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err, rel = _hold("rglru y", got[0], want[0], dt)
+            h_err, h_rel = _hold("rglru hT", got[1], want[1], "float32")
+            times = _eager_times(kernel, plain)
+            es = x.element_size()
+            nbytes = (4 * es * B * S * D + 4 * D
+                      + 4 * B * D * (1 if init is None else 2))
+            record(results, "B8 rglru  ", kernel="rglru",
+                   case=f"{HYBRID_ARCH} B={B} S={S} D={D} "
+                   f"h0={'none' if init is None else 'given'}", dtype=dt,
+                   err=err, rel_err=rel,
+                   tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding", nbytes=nbytes,
+                   flops=16 * B * S * D, times=times, math="float32",
+                   plain_timing="eager", state_max_abs_err=h_err,
+                   state_rel_err=h_rel)
+
+
+def check_wkv6(results):
+    """B9 at rwkv6-7b's prefill shape (B 1, H 64, S 1024, E 64) on the
+    model's layout (r, k, v, w as (B, H, S, E) views of (B, S, H, E)
+    tensors), bf16 and fp32, with and without an initial state; y held as
+    ``_hold`` holds an output, the fp32 final state within
+    ``KERNEL_TOL``.  No one torch call computes the recurrence."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
+    cfg = get_config(SSM_ARCH)
+    B, S, H = 1, SSM_SEQ, cfg.n_heads
+    E = cfg.d_model // H
+    rng = np.random.default_rng(25)
+    u = _rand(rng, (H, E), torch.float32, 0.1)
+    s0 = _rand(rng, (B, H, E, E), torch.float32, 0.2)
+    # the model's log decay: w_bias ~ -0.5 plus a small projection
+    w = (_rand(rng, (B, S, H, E), torch.float32, 0.3) - 0.5).transpose(1, 2)
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        r, k, v = (_rand(rng, (B, S, H, E), tdt, sc).transpose(1, 2)
+                   for sc in (1.0, 0.3, 1.0))
+        for init in (None, s0):
+            def kernel():
+                return wkv6(r, k, v, w, u, init)
+
+            def plain():
+                return wkv6_plain(r, k, v, w, u, init)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err, rel = _hold("wkv6 y", got[0], want[0], dt)
+            s_err, s_rel = _hold("wkv6 sT", got[1], want[1], "float32")
+            times = _eager_times(kernel, plain)
+            es = r.element_size()
+            # the fewest operations: per state element and step, 2 for y's
+            # Σ_i r_i·S_ij and 3 for S_ij ← d_i·S_ij + k_i·v_j; per lane
+            # and step, 3 for Σ_i r_i·u_i·k_i, 2 for y_j += v_j·(that) and
+            # 2 for the decay exp(−exp(w_i))
+            n = B * H * S * E
+            nbytes = (4 * es * n + 4 * n + 4 * H * E
+                      + 4 * B * H * E * E * (1 if init is None else 2))
+            record(results, "B9 wkv6   ", kernel="wkv6",
+                   case=f"{SSM_ARCH} B={B} H={H} S={S} E={E} "
+                   f"s0={'none' if init is None else 'given'}", dtype=dt,
+                   err=err, rel_err=rel,
+                   tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding", nbytes=nbytes,
+                   flops=5 * n * E + 7 * n, times=times, math="float32",
+                   plain_timing="eager", state_max_abs_err=s_err,
+                   state_rel_err=s_rel)
 
 
 # --------------------------------------------------------------------------
@@ -1098,19 +1361,22 @@ def drive_overbooked(plans, feeds, dtypes, paths, profile=False):
 # --------------------------------------------------------------------------
 
 class plain_kernels:
-    """Within the block, every LLM kernel entry point (B5, B6, B7) is its
-    plain version: the model imports each wrapper from its module at call
-    time, so swapping the module attribute swaps the path.  Only this
-    script does this; the package has no such switch."""
+    """Within the block, every LLM kernel entry point (B5, B6, B7, B8, B9)
+    is its plain version: the model imports each wrapper from its module
+    at call time, so swapping the module attribute swaps the path.  Only
+    this script does this; the package has no such switch."""
 
     def __enter__(self):
-        from repro_torch.kernels import flash_attention, fused_mlp, rmsnorm
+        from repro_torch.kernels import (flash_attention, fused_mlp, rglru,
+                                         rmsnorm, rwkv6)
         self._saved = []
         for mod, name, plain in (
                 (flash_attention, "flash_attention",
                  flash_attention.flash_attention_plain),
                 (fused_mlp, "fused_mlp", fused_mlp.fused_mlp_plain),
-                (rmsnorm, "rmsnorm", rmsnorm.rmsnorm_plain)):
+                (rmsnorm, "rmsnorm", rmsnorm.rmsnorm_plain),
+                (rglru, "rglru", rglru.rglru_plain),
+                (rwkv6, "wkv6", rwkv6.wkv6_plain)):
             self._saved.append((mod, name, getattr(mod, name)))
             setattr(mod, name, plain)
         return self
@@ -1118,6 +1384,29 @@ class plain_kernels:
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+        return False
+
+
+class compute_dtype:
+    """Within the block, the models compute in ``dtype`` instead of bf16:
+    each model module reads ``COMPUTE_DTYPE`` at call time, so swapping
+    the module attribute swaps the activations' type.  Only this script
+    does this (for the fp32 witness); the package has no such switch."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import common, recurrent, transformer
+        self._saved = [(m, m.COMPUTE_DTYPE)
+                       for m in (common, recurrent, transformer)]
+        for m, _ in self._saved:
+            m.COMPUTE_DTYPE = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        for m, dt in self._saved:
+            m.COMPUTE_DTYPE = dt
         return False
 
 
@@ -1148,21 +1437,93 @@ def _first_split(toks, toks_plain, plain_logits_at):
             "top2_gap": gap, "near_tie_limit": NEAR_TIE * scale}
 
 
-def drive_serving(results_paths, profile=False):
-    """Phase 5: granite-3-8b at full width through ``Session -> serve()``;
-    returns the launch counts of the kernel run (prefill + generate)."""
+def _decode_vs_prefill(bundle, params, cfg, gen_prompt):
+    """Decode logits at the last prompt position vs prefill logits there,
+    and, as a control, vs the prefill logits one position earlier, each
+    over max |prefill logits| there."""
+    from repro_torch.models import init_cache
+    cache = init_cache(cfg, GEN_BATCH, GEN_PROMPT, device="cuda")
+    for t in range(GEN_PROMPT):
+        dec, cache = bundle.decode_fn(params, cache, gen_prompt[:, t:t + 1],
+                                      t)
+    pre = bundle.prefill_fn(params, gen_prompt)
+    scale = float(pre[:, -1].abs().max())
+    return (max_err(dec[:, -1], pre[:, -1]) / scale,
+            max_err(dec[:, -1], pre[:, -2]) / scale)
+
+
+def serve_witness(bundle, params, cfg, seq, llm_tol):
+    """The second witness for a path held to more than ``LLM_TOL``: at a
+    second prompt seed, the kernel run against the plain run in bf16
+    (held to ``llm_tol``) and in fp32 activations (held to
+    ``FP32_WITNESS_TOL``, with the bf16 kernel run against the fp32 plain
+    run as the control it must reject); decode vs prefill in each, for
+    both runs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).cuda()
+    gen_prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
+
+    def readings():
+        logits = bundle.prefill_fn(params, prompt)
+        dec, _ = _decode_vs_prefill(bundle, params, cfg, gen_prompt)
+        with plain_kernels():
+            plain = bundle.prefill_fn(params, prompt)
+            dec_plain, _ = _decode_vs_prefill(bundle, params, cfg,
+                                              gen_prompt)
+        rel = max_err(logits, plain) / float(plain.abs().max())
+        return logits, plain, dict(prefill_rel_err_vs_plain=rel,
+                                   decode_vs_prefill_rel_err=dec,
+                                   decode_vs_prefill_rel_err_plain=dec_plain)
+    bf_logits, _, bf = readings()
+    with compute_dtype(torch.float32):
+        f32_logits, f32_plain, f32 = readings()
+    control = (max_err(bf_logits, f32_plain)
+               / float(f32_plain.abs().max()))
+    out = dict(prompt_seed=1, bf16=bf, fp32=f32, fp32_tol=FP32_WITNESS_TOL,
+               bf16_kernel_vs_fp32_plain_rel_err=control)
+    log(f"  witness, prompt seed 1: bf16 prefill vs plain "
+        f"{bf['prefill_rel_err_vs_plain']:.3e}, decode vs prefill "
+        f"{bf['decode_vs_prefill_rel_err']:.3e} (plain run "
+        f"{bf['decode_vs_prefill_rel_err_plain']:.3e}; tol {llm_tol:g}); "
+        f"fp32 activations: prefill vs plain "
+        f"{f32['prefill_rel_err_vs_plain']:.3e}, decode vs prefill "
+        f"{f32['decode_vs_prefill_rel_err']:.3e} (plain run "
+        f"{f32['decode_vs_prefill_rel_err_plain']:.3e}; tol "
+        f"{FP32_WITNESS_TOL:g}; bf16 kernel run vs fp32 plain run "
+        f"{control:.3e}, must exceed it)")
+    assert bf["prefill_rel_err_vs_plain"] <= llm_tol, ("witness bf16", bf)
+    assert bf["decode_vs_prefill_rel_err"] <= llm_tol, ("witness bf16", bf)
+    assert max(f32.values()) <= FP32_WITNESS_TOL, ("witness fp32", f32)
+    assert control > FP32_WITNESS_TOL, ("the fp32 witness limit passes the "
+                                        "bf16 run", control)
+    return out
+
+
+def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
+                  profile=False):
+    """One serving path at full width through ``Session(arch) ->
+    trace("prefill", seq=seq, layer_kind=layer_kind) -> ... -> serve()``:
+    a 1 x ``seq`` prefill and ``generate``, the launches of each held to
+    ``want_prefill`` and its decode-step twin, against the same run on the
+    plain versions within ``tols`` (the LLM and decode limits).  Returns
+    the launch counts of the kernel run (prefill + generate); frees the
+    model before it returns."""
+    llm_tol, decode_tol = tols
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.models import init_cache, init_params
     t0 = time.perf_counter()
-    plan = (Session(LLM_ARCH, device="cuda")
-            .trace("prefill", batch=1, seq=PREFILL_SEQ)
+    plan = (Session(arch, device="cuda")
+            .trace("prefill", batch=1, seq=seq, layer_kind=layer_kind)
             .analyze().codesign().lower())
     p = plan.plan
-    assert p.use_flash_attention and p.use_fused_mlp and \
-        p.use_fused_rmsnorm, p
+    assert p.use_fused_mlp and p.use_fused_rmsnorm, p
+    assert p.use_flash_attention == (want_prefill["flash_attention"] > 0), p
     cfg = plan.cfg
     log(f"  plan: {plan!r} ({p.notes}), made in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1175,8 +1536,7 @@ def drive_serving(results_paths, profile=False):
         f"{init_s:.2f} s")
     bundle = plan.serve()
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, PREFILL_SEQ))
-                              ).cuda()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).cuda()
     gen_prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
     steps = GEN_PROMPT + GEN_NEW - 1
@@ -1193,32 +1553,22 @@ def drive_serving(results_paths, profile=False):
     toks, first_gen_s = _sync_s(gen)
     per_gen = kernels.launches()
     counts = {k: per_prefill[k] + per_gen[k] for k in per_prefill}
-    L = cfg.n_layers
-    want_prefill = {"flash_attention": L, "fused_mlp": L, "rmsnorm": 2 * L + 1}
-    want_step = {"flash_attention": 0, "fused_mlp": L, "rmsnorm": 2 * L + 1}
+    want_step = {k: (n if k in ("fused_mlp", "rmsnorm") else 0)
+                 for k, n in want_prefill.items()}
     got_step = {k: per_gen[k] / steps for k in want_step}
     assert {k: per_prefill[k] for k in want_prefill} == want_prefill, \
         per_prefill
     assert got_step == want_step, per_gen
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
-    assert logits.shape == (1, PREFILL_SEQ, cfg.padded_vocab)
+    assert logits.shape == (1, seq, cfg.padded_vocab)
     assert toks.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
     assert bool((toks[:, GEN_PROMPT:] < cfg.padded_vocab).all())
     log(f"  launches per prefill {want_prefill}, per decode step "
         f"{want_step} (as expected; {steps} decode steps per generate)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # decode logits at the last prompt position vs prefill logits there
-    # (and, as a control, vs the prefill logits one position earlier)
     def decode_vs_prefill():
-        cache = init_cache(cfg, GEN_BATCH, GEN_PROMPT, device="cuda")
-        for t in range(GEN_PROMPT):
-            dec, cache = bundle.decode_fn(params, cache,
-                                          gen_prompt[:, t:t + 1], t)
-        pre = bundle.prefill_fn(params, gen_prompt)
-        scale = float(pre[:, -1].abs().max())
-        return (max_err(dec[:, -1], pre[:, -1]) / scale,
-                max_err(dec[:, -1], pre[:, -2]) / scale)
+        return _decode_vs_prefill(bundle, params, cfg, gen_prompt)
     dec_err, dec_control = decode_vs_prefill()
 
     # timing, warm
@@ -1254,26 +1604,26 @@ def drive_serving(results_paths, profile=False):
     agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean()
     smi = smi_line()
     out = dict(
-        path=f"serve {cfg.name} prefill 1x{PREFILL_SEQ}, generate "
+        path=f"serve {cfg.name} prefill 1x{seq}, generate "
         f"{GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW})", nvidia_smi=smi,
         plan=dataclasses.asdict(p), launches=counts,
         launches_per_prefill={k: per_prefill[k] for k in want_prefill},
         launches_per_decode_step=got_step,
         prefill_ms=prefill_s * 1e3, prefill_ms_all=[t * 1e3 for t in pre_times],
-        prefill_tokens_per_s=PREFILL_SEQ / prefill_s,
+        prefill_tokens_per_s=seq / prefill_s,
         decode_ms_per_step=step_s * 1e3,
         decode_tokens_per_s=GEN_BATCH / step_s,
         generate_ms=gen_s * 1e3, first_prefill_ms=first_prefill_s * 1e3,
         first_generate_ms=first_gen_s * 1e3,
         plain_prefill_ms=plain_prefill_s * 1e3,
         plain_generate_ms=plain_gen_s * 1e3,
-        prefill_rel_err_vs_plain=rel, llm_tol=LLM_TOL,
+        prefill_rel_err_vs_plain=rel, llm_tol=llm_tol,
         prefill_vs_next_position_rel_err=rel_control,
         prefill_argmax_agreement=float(agree),
         decode_vs_prefill_rel_err=dec_err,
         decode_vs_prefill_rel_err_plain=plain_dec_err,
         decode_vs_previous_position_rel_err=dec_control,
-        decode_tol=DECODE_TOL, peak_memory_gb=peak_gb, **split)
+        decode_tol=decode_tol, peak_memory_gb=peak_gb, **split)
     if profile:
         out["profile_prefill"] = profile_fn(
             lambda: bundle.prefill_fn(params, prompt), top=6)
@@ -1281,26 +1631,30 @@ def drive_serving(results_paths, profile=False):
         out["profile_decode_step"] = profile_fn(
             lambda: bundle.decode_fn(params, c0, gen_prompt[:, :1], 0), top=6)
     results_paths.append(out)
-    log(f"  {smi}: prefill 1x{PREFILL_SEQ} {prefill_s * 1e3:.1f} ms "
-        f"({PREFILL_SEQ / prefill_s:.0f} tokens/s; plain versions "
+    log(f"  {cfg.name} on {smi}: prefill 1x{seq} {prefill_s * 1e3:.1f} ms "
+        f"({seq / prefill_s:.0f} tokens/s; plain versions "
         f"{plain_prefill_s * 1e3:.1f} ms); decode {step_s * 1e3:.2f} ms per "
         f"step at batch {GEN_BATCH} ({GEN_BATCH / step_s:.1f} tokens/s; "
         f"plain generate {plain_gen_s * 1e3:.0f} ms against "
         f"{gen_s * 1e3:.0f} ms)")
     log(f"  prefill logits vs the plain run: rel err {rel:.3e} (tol "
-        f"{LLM_TOL:g}; shifted one position: {rel_control:.3e}, must "
+        f"{llm_tol:g}; shifted one position: {rel_control:.3e}, must "
         f"exceed it), argmax agreement {float(agree):.4f}; generated "
         f"tokens {split}; decode vs prefill logits at the last prompt "
         f"position: rel err {dec_err:.3e} (plain run {plain_dec_err:.3e}, "
-        f"tol {DECODE_TOL:g}; against the position before: "
+        f"tol {decode_tol:g}; against the position before: "
         f"{dec_control:.3e}, must exceed it); peak memory {peak_gb:.1f} GB")
     assert not any(plain_launches.values()), plain_launches
-    assert rel <= LLM_TOL, ("prefill logits vs the plain run", rel)
-    assert rel_control > LLM_TOL, ("LLM_TOL passes shifted logits",
+    assert rel <= llm_tol, ("prefill logits vs the plain run", rel)
+    assert rel_control > llm_tol, ("the LLM limit passes shifted logits",
                                    rel_control)
-    assert dec_err <= DECODE_TOL, ("decode vs prefill logits", dec_err)
-    assert dec_control > DECODE_TOL, ("DECODE_TOL passes the wrong "
+    assert dec_err <= decode_tol, ("decode vs prefill logits", dec_err)
+    assert dec_control > decode_tol, ("the decode limit passes the wrong "
                                       "position", dec_control)
+    del logits, logits_plain
+    if llm_tol > LLM_TOL or decode_tol > DECODE_TOL:
+        out["witness"] = serve_witness(bundle, params, cfg, seq,
+                                       max(llm_tol, decode_tol))
     del params
     torch.cuda.empty_cache()
     return counts
@@ -1394,7 +1748,11 @@ def main(argv=None) -> int:
     check_off_path(dtypes)
     check_rmsnorm(results)
     check_flash(results)
+    check_flash_hybrid(results)
     check_mlp(results)
+    check_mlp_recurrent(results)
+    check_rglru(results)
+    check_wkv6(results)
     log(f"  kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 4: the main path
@@ -1423,13 +1781,18 @@ def main(argv=None) -> int:
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
     log(f"  launches over the HPC path: {totals}")
 
-    # ---- phase 5: the LLM serving path
-    log(f"== phase 5: the LLM serving path, Session({LLM_ARCH!r}, "
-        "device='cuda') -> trace('prefill') -> codesign -> lower -> serve()")
-    counts = drive_serving(paths, profile=args.profile)
-    for k, v in counts.items():
-        totals[k] += v
-    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
+    # ---- phases 5 and 6: the LLM serving paths
+    for arch, seq, layer_kind, want, tols in SERVE_PATHS:
+        phase = ("5: the LLM serving path" if arch == LLM_ARCH else
+                 "6: a recurrent family's serving path")
+        log(f"== phase {phase}, Session({arch!r}, device='cuda') -> "
+            f"trace('prefill', seq={seq}, layer_kind={layer_kind!r}) -> "
+            "codesign -> lower -> serve()")
+        counts = drive_serving(arch, seq, layer_kind, want, tols, paths,
+                               profile=args.profile)
+        for k, v in counts.items():
+            totals[k] += v
+    for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -1453,6 +1816,10 @@ def main(argv=None) -> int:
                       "bfloat16"),
         "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:21", "bfloat16"),
+        "rglru": ("cuda", "src/repro_torch/csrc/rglru.cu",
+                  "src/repro/kernels/rglru/kernel.py:27", "bfloat16"),
+        "wkv6": ("cuda", "src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/rwkv6/kernel.py:26", "bfloat16"),
     }
     table = []
     for k, (route, source, replaces, path_dt) in meta.items():

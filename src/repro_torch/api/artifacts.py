@@ -151,7 +151,8 @@ class CompiledPlan:
     An LLM plan (``cfg`` set) serves: :meth:`serve` returns the prefill
     and decode entry points and the greedy driver bound to ``(cfg,
     plan)``; the plan's kernel flags pick the hand-written kernels (B5
-    flash attention, B6 fused MLP, B7 RMSNorm) for tensors on the card.
+    flash attention, B6 fused MLP, B7 RMSNorm) for tensors on the card,
+    and a prefill's recurrences run on B8 (RG-LRU) and B9 (WKV6).
 
     A frontend (HPC) plan (``cfg=None``) runs: :meth:`run` hands it to a
     registered execution backend (``repro_torch.exec``): ``cuda`` (the

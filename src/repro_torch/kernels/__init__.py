@@ -14,7 +14,10 @@ torch version.
                  (``csrc/flash_attention.cu``),
   ``fused_mlp`` — B6, the fused (gated) MLP, CUDA C++
                  (``csrc/fused_mlp.cu``),
-  ``rmsnorm``  — B7, RMSNorm, CUDA C++ (``csrc/rmsnorm.cu``).
+  ``rmsnorm``  — B7, RMSNorm, CUDA C++ (``csrc/rmsnorm.cu``),
+  ``rglru``    — B8, the RG-LRU scan, CUDA C++ (``csrc/rglru.cu``),
+  ``rwkv6``    — B9, the WKV6 recurrence, CUDA C++ (``csrc/wkv6.cu``),
+                 counted as ``wkv6``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises — it never falls back.  ``LAUNCHES`` counts
@@ -26,7 +29,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
                             "flash_attention": 0,
-                            "fused_mlp": 0, "rmsnorm": 0}
+                            "fused_mlp": 0, "rmsnorm": 0, "rglru": 0,
+                            "wkv6": 0}
 
 
 def reset_launches() -> None:

@@ -13,6 +13,19 @@ COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
 
+def dense_init(gen: torch.Generator, shape, scale: float, device,
+               dtype=PARAM_DTYPE) -> torch.Tensor:
+    """``scale`` times standard normal draws from ``gen``, in ``dtype``."""
+    out = torch.randn(shape, generator=gen, device=device,
+                      dtype=torch.float32)
+    return out.mul_(scale).to(dtype)
+
+
+def bf16(w: torch.Tensor) -> torch.Tensor:
+    """A weight in the compute dtype, as the JAX package casts it."""
+    return w.to(COMPUTE_DTYPE)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

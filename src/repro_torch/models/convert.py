@@ -4,8 +4,12 @@ The JAX package stacks each period slot's layers along a leading
 ``n_periods`` axis (``params["periods"]["slot{s}"]``) and keeps a
 remainder in ``params["rest"]``; the port keeps one dict per layer in
 ``params["layers"]``, in layer order (layer ``p·len(period) + s``, then
-the remainder).  The tree comes in as numpy arrays (``np.asarray`` of each
-JAX leaf), so the port imports nothing of the JAX package.
+the remainder).  The slots of a period may be of mixed kinds
+(recurrentgemma's ``[rglru, rglru, attn]``, whose remainder is two
+``rglru`` layers); each layer keeps its own sub-dict (``attn``, ``rglru``
+or ``rwkv``, and ``mlp``).  The tree comes in as numpy arrays
+(``np.asarray`` of each JAX leaf), so the port imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from .transformer import Params, _dense_only, period_structure
+from .transformer import Params, _check_family, period_structure
 
 
 def _to_torch(tree: Any, device, index=None) -> Any:
@@ -30,8 +34,9 @@ def _to_torch(tree: Any, device, index=None) -> Any:
 def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, *,
                       device="cuda") -> Params:
     """The port's parameter dict from a JAX ``init_params`` tree of numpy
-    arrays; dtypes are kept (fp32 weights stay fp32)."""
-    _dense_only(cfg)
+    arrays; dtypes are kept (fp32 weights, and the recurrences' fp32
+    ``a_param``, ``u`` and ``w_bias``, stay fp32)."""
+    _check_family(cfg)
     period, n_periods, rest = period_structure(cfg)
     layers = []
     for p_ in range(n_periods):

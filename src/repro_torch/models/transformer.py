@@ -1,9 +1,12 @@
-"""Config-driven model assembly, dense family.
+"""Config-driven model assembly: the dense, hybrid and ssm families.
 
-The counterpart of ``repro.models.transformer`` for ``family == "dense"``
-archs (granite-3-8b, gemma-7b, minitron-8b, h2o-danube-1.8b): the other
-families (moe, hybrid, ssm, vlm, audio) raise ``NotImplementedError``;
-they are queued in ROADMAP.md.
+The counterpart of ``repro.models.transformer`` for ``family`` "dense"
+(granite-3-8b, gemma-7b, minitron-8b, h2o-danube-1.8b), "hybrid"
+(recurrentgemma-2b: ``[rglru, rglru, attn]`` periods, local attention) and
+"ssm" (rwkv6-7b: ``rwkv`` layers).  Each layer dispatches on its kind,
+``cfg.layer_kinds()[i]``: ``attn``, ``rglru`` or ``rwkv``.  The other
+families (moe, vlm, audio) raise ``NotImplementedError``; they are queued
+in ROADMAP.md.
 
 Parameters are a plain dict, ``{"embed", "final_norm", "lm_head",
 "layers": [per-layer dict]}``: the JAX package's ``lax.scan`` over stacked
@@ -18,9 +21,20 @@ tensors on the card and runs its plain version for tensors on the CPU.
 and otherwise takes jnp paths of its own.)  B6 gets the fp32 weights
 uncast, as the JAX package passes them to its kernel.
 
+The recurrences of the prefill always go through their kernel wrappers,
+B8 (RG-LRU) and B9 (WKV6): ``apply_block`` calls the sequence forms,
+whose ``use_kernel`` flag is fixed to True in the port.  This is the
+port's form of the selection that ``repro/core/policy.py:7`` states ("RG-LRU / WKV scan ops select their
+dedicated kernels") and that the JAX model never makes: its
+``apply_block`` (``repro/models/transformer.py:255``, ``:258``) passes no
+``use_kernel``, so it runs the ``lax.scan`` references, and only behind
+``use_kernel=True`` (``repro/models/recurrent.py:54``, ``:127``) are the
+Pallas kernels reached.  The same function is computed, by a kernel.
+Decode steps stay plain torch ops, as in the JAX package.
+
 Modes:
   forward(..., mode="prefill") — full sequence; also returns each layer's
-    (k, v).
+    cache entry: (k, v), the RG-LRU's hT or the WKV state sT.
   decode_step(...) — one token against the cache (ring-buffered when the
     arch uses a bounded attention window).
 """
@@ -36,16 +50,20 @@ from ..configs.base import ArchConfig
 from ..core.policy import CelloPlan
 from .attention import flash_attention_bshe, naive_attention
 from .common import (COMPUTE_DTYPE, PARAM_DTYPE, activation_fn, apply_rope,
-                     is_gated, rms_norm)
+                     bf16, dense_init, is_gated, rms_norm)
+from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
+                        apply_rwkv_step, init_rglru_params, init_rwkv_params)
 
 Params = Dict[str, Any]
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (ROADMAP.md); only 'dense' archs run")
+            "repro_torch yet (ROADMAP.md); 'dense', 'hybrid' and 'ssm' "
+            "archs run")
 
 
 # ---------------------------------------------------------------------------
@@ -69,34 +87,35 @@ def period_structure(cfg: ArchConfig) -> Tuple[List[str], int, List[str]]:
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _dense(gen: torch.Generator, shape, scale: float, device,
-           dtype=PARAM_DTYPE) -> torch.Tensor:
-    out = torch.randn(shape, generator=gen, device=device,
-                      dtype=torch.float32)
-    return out.mul_(scale).to(dtype)
-
-
-def init_block_params(gen: torch.Generator, cfg: ArchConfig, *, device,
-                      dtype=PARAM_DTYPE) -> Params:
-    """One attention block (every layer of a dense arch)."""
+def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str, *,
+                      device, dtype=PARAM_DTYPE) -> Params:
+    """One block of ``kind`` (``attn``, ``rglru`` or ``rwkv``) and its
+    MLP."""
     D, H, KVH, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     s = D ** -0.5
     p: Params = {
         "ln1": torch.zeros((D,), dtype=dtype, device=device),
         "ln2": torch.zeros((D,), dtype=dtype, device=device),
-        "attn": {
-            "wq": _dense(gen, (D, H * E), s, device, dtype),
-            "wk": _dense(gen, (D, KVH * E), s, device, dtype),
-            "wv": _dense(gen, (D, KVH * E), s, device, dtype),
-            "wo": _dense(gen, (H * E, D), (H * E) ** -0.5, device, dtype),
-        },
     }
+    if kind == "attn":
+        p["attn"] = {
+            "wq": dense_init(gen, (D, H * E), s, device, dtype),
+            "wk": dense_init(gen, (D, KVH * E), s, device, dtype),
+            "wv": dense_init(gen, (D, KVH * E), s, device, dtype),
+            "wo": dense_init(gen, (H * E, D), (H * E) ** -0.5, device, dtype),
+        }
+    elif kind == "rglru":
+        p["rglru"] = init_rglru_params(gen, D, dtype, device=device)
+    elif kind == "rwkv":
+        p["rwkv"] = init_rwkv_params(gen, D, H, dtype, device=device)
+    else:
+        raise ValueError(kind)
     F = cfg.d_ff
-    p["mlp"] = {"w_up": _dense(gen, (D, F), s, device, dtype),
-                "w_down": _dense(gen, (F, D), F ** -0.5, device, dtype)}
+    p["mlp"] = {"w_up": dense_init(gen, (D, F), s, device, dtype),
+                "w_down": dense_init(gen, (F, D), F ** -0.5, device, dtype)}
     if is_gated(cfg.activation):
-        p["mlp"]["w_gate"] = _dense(gen, (D, F), s, device, dtype)
+        p["mlp"]["w_gate"] = dense_init(gen, (D, F), s, device, dtype)
     return p
 
 
@@ -105,20 +124,20 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     """Random weights from ``seed``, with the JAX package's shapes and
     scales (its numbers differ: a ``torch.Generator`` on ``device`` draws
     them).  ``device`` is ``"cuda"`` unless the caller asks for the CPU."""
-    _dense_only(cfg)
+    _check_family(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     D = cfg.d_model
     params: Params = {
-        "embed": _dense(gen, (cfg.padded_vocab, D), D ** -0.5, device,
+        "embed": dense_init(gen, (cfg.padded_vocab, D), D ** -0.5, device,
                         dtype),
         "final_norm": torch.zeros((D,), dtype=dtype, device=device),
-        "lm_head": _dense(gen, (D, cfg.padded_vocab), D ** -0.5, device,
+        "lm_head": dense_init(gen, (D, cfg.padded_vocab), D ** -0.5, device,
                           dtype),
     }
-    params["layers"] = [init_block_params(gen, cfg, device=device,
+    params["layers"] = [init_block_params(gen, cfg, kind, device=device,
                                           dtype=dtype)
-                        for _ in range(cfg.n_layers)]
+                        for kind in cfg.layer_kinds()]
     return params
 
 
@@ -126,19 +145,15 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 # block application — full sequence
 # ---------------------------------------------------------------------------
 
-def _bf16(w: torch.Tensor) -> torch.Tensor:
-    return w.to(COMPUTE_DTYPE)
-
-
 def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
             positions: torch.Tensor
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     B, S, D = x.shape
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
-    q = (xc @ _bf16(p_attn["wq"])).reshape(B, S, H, E)
-    k = (xc @ _bf16(p_attn["wk"])).reshape(B, S, KVH, E)
-    v = (xc @ _bf16(p_attn["wv"])).reshape(B, S, KVH, E)
+    q = (xc @ bf16(p_attn["wq"])).reshape(B, S, H, E)
+    k = (xc @ bf16(p_attn["wk"])).reshape(B, S, KVH, E)
+    v = (xc @ bf16(p_attn["wv"])).reshape(B, S, KVH, E)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if plan.use_flash_attention:
@@ -146,7 +161,7 @@ def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
     else:
         ctx = naive_attention(q, k, v, causal=causal, window=cfg.window)
     out = (ctx.reshape(B, S, H * E).to(COMPUTE_DTYPE)
-           @ _bf16(p_attn["wo"]))
+           @ bf16(p_attn["wo"]))
     return out.to(x.dtype), (k, v)
 
 
@@ -164,27 +179,35 @@ def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan) -> torch.Tensor:
     else:
         xc = flat.to(COMPUTE_DTYPE)
         act = activation_fn(cfg.activation)
-        up = xc @ _bf16(m["w_up"])
+        up = xc @ bf16(m["w_up"])
         if gated:
-            g = xc @ _bf16(m["w_gate"])
+            g = xc @ bf16(m["w_gate"])
             h = act(g.to(torch.float32)).to(COMPUTE_DTYPE) * up
         else:
             h = act(up.to(torch.float32)).to(COMPUTE_DTYPE)
-        out = h @ _bf16(m["w_down"])
+        out = h @ bf16(m["w_down"])
     return out.reshape(B, S, D).to(x.dtype)
 
 
-def apply_block(p, x, *, cfg: ArchConfig, plan: CelloPlan,
+def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
                 positions: torch.Tensor):
-    """Full-sequence attention block. Returns (x_out, (k, v))."""
+    """Full-sequence block of ``kind``.  Returns (x_out, cache entry):
+    (k, v), hT or sT."""
     fused = plan.use_fused_rmsnorm
     h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
-    y, kv = _attend(p["attn"], h, cfg=cfg, plan=plan,
-                    causal=not cfg.encoder_only, positions=positions)
+    if kind == "attn":
+        y, entry = _attend(p["attn"], h, cfg=cfg, plan=plan,
+                           causal=not cfg.encoder_only, positions=positions)
+    elif kind == "rglru":
+        y, entry = apply_rglru_seq(p["rglru"], h)
+    elif kind == "rwkv":
+        y, entry = apply_rwkv_seq(p["rwkv"], h, cfg.n_heads)
+    else:
+        raise ValueError(kind)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps, fused=fused)
     x = x + _mlp(p, h2, cfg, plan)
-    return x, kv
+    return x, entry
 
 
 # ---------------------------------------------------------------------------
@@ -204,15 +227,17 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor
 def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  fused=plan.use_fused_rmsnorm)
-    return (x.to(COMPUTE_DTYPE) @ _bf16(params["lm_head"])
+    return (x.to(COMPUTE_DTYPE) @ bf16(params["lm_head"])
             ).to(torch.float32)
 
 
 def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
             *, mode: str = "prefill"):
     """Full-sequence forward.  tokens: (B, S) int.  Returns (logits
-    (B, S, padded_vocab) fp32, [(k, v) per layer])."""
-    _dense_only(cfg)
+    (B, S, padded_vocab) fp32, [cache entry per layer]): (k, v) for an
+    attention layer, hT (B, D) fp32 for an RG-LRU layer, sT (B, H, E, E)
+    fp32 for an RWKV layer."""
+    _check_family(cfg)
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r}: forward runs 'prefill' (a "
                          "training step is not ported yet)")
@@ -220,10 +245,10 @@ def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     caches = []
-    for p_layer in params["layers"]:
-        x, kv = apply_block(p_layer, x, cfg=cfg, plan=plan,
-                            positions=positions)
-        caches.append(kv)
+    for p_layer, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, entry = apply_block(p_layer, x, kind, cfg=cfg, plan=plan,
+                               positions=positions)
+        caches.append(entry)
     return _logits(params, cfg, plan, x), caches
 
 
@@ -246,45 +271,54 @@ class CacheSpec:
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                device="cuda") -> Dict[str, List[Dict[str, torch.Tensor]]]:
-    """Zero cache, one ``{"k", "v", "pos_idx"}`` entry per layer."""
-    _dense_only(cfg)
+    """Zero cache, one entry per layer by its kind: ``{"k", "v",
+    "pos_idx"}`` (attention), ``{"h"}`` (B, D) fp32 (RG-LRU) or ``{"s"}``
+    (B, H, E, E) fp32 (RWKV)."""
+    _check_family(cfg)
     spec = CacheSpec(cfg, seq_len)
     E = cfg.resolved_head_dim
 
-    def entry():
-        Z = spec.z_for("attn")
-        return {
-            "k": torch.zeros((batch, Z, cfg.n_kv_heads, E),
-                             dtype=COMPUTE_DTYPE, device=device),
-            "v": torch.zeros((batch, Z, cfg.n_kv_heads, E),
-                             dtype=COMPUTE_DTYPE, device=device),
-            "pos_idx": torch.full((Z,), -1, dtype=torch.int32,
-                                  device=device),
-        }
+    def entry(kind: str):
+        if kind == "attn":
+            Z = spec.z_for(kind)
+            return {
+                "k": torch.zeros((batch, Z, cfg.n_kv_heads, E),
+                                 dtype=COMPUTE_DTYPE, device=device),
+                "v": torch.zeros((batch, Z, cfg.n_kv_heads, E),
+                                 dtype=COMPUTE_DTYPE, device=device),
+                "pos_idx": torch.full((Z,), -1, dtype=torch.int32,
+                                      device=device),
+            }
+        if kind == "rglru":
+            return {"h": torch.zeros((batch, cfg.d_model),
+                                     dtype=torch.float32, device=device)}
+        if kind == "rwkv":
+            return {"s": torch.zeros((batch, cfg.n_heads, E, E),
+                                     dtype=torch.float32, device=device)}
+        raise ValueError(kind)
 
-    return {"layers": [entry() for _ in range(cfg.n_layers)]}
+    return {"layers": [entry(kind) for kind in cfg.layer_kinds()]}
 
 
-def _decode_block(p, cache, x, pos: int, *, cfg: ArchConfig,
-                  plan: CelloPlan):
-    B = x.shape[0]
+def _decode_attend(a, cache, h, pos: int, *, cfg: ArchConfig,
+                   plan: CelloPlan):
+    """One query token against the (ring-buffered) cache.  Returns (y, new
+    cache entry)."""
+    B = h.shape[0]
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    fused = plan.use_fused_rmsnorm
-    h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
     xc = h.to(COMPUTE_DTYPE)
-    a = p["attn"]
-    q = (xc @ _bf16(a["wq"])).reshape(B, 1, H, E)
-    k_new = (xc @ _bf16(a["wk"])).reshape(B, 1, KVH, E)
-    v_new = (xc @ _bf16(a["wv"])).reshape(B, 1, KVH, E)
+    q = (xc @ bf16(a["wq"])).reshape(B, 1, H, E)
+    k_new = (xc @ bf16(a["wk"])).reshape(B, 1, KVH, E)
+    v_new = (xc @ bf16(a["wv"])).reshape(B, 1, KVH, E)
     # a fill on the device: a tensor from a host list would copy from
     # pageable memory, which synchronizes the stream at every layer
-    pos_t = torch.full((1,), pos, device=x.device)
+    pos_t = torch.full((1,), pos, device=h.device)
     q = apply_rope(q, pos_t, cfg.rope_theta)
     k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
     Z = cache["k"].shape[1]
     slot = pos % Z
     if plan.cache_select_update:
-        hit = (torch.arange(Z, device=x.device) == slot)
+        hit = (torch.arange(Z, device=h.device) == slot)
         k_c = torch.where(hit[None, :, None, None],
                           k_new.to(cache["k"].dtype), cache["k"])
         v_c = torch.where(hit[None, :, None, None],
@@ -309,12 +343,30 @@ def _decode_block(p, cache, x, pos: int, *, cfg: ArchConfig,
     pr = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bkgt,btke->bkge", pr.to(v_c.dtype).float(),
                        v_c.float())
-    y = (ctx.reshape(B, 1, H * E).to(COMPUTE_DTYPE) @ _bf16(a["wo"])
-         ).to(x.dtype)
+    y = (ctx.reshape(B, 1, H * E).to(COMPUTE_DTYPE) @ bf16(a["wo"])
+         ).to(h.dtype)
+    return y, {"k": k_c, "v": v_c, "pos_idx": pos_idx}
+
+
+def _decode_block(p, cache, x, kind: str, pos: int, *, cfg: ArchConfig,
+                  plan: CelloPlan):
+    fused = plan.use_fused_rmsnorm
+    h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
+    if kind == "attn":
+        y, new_cache = _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
+                                      plan=plan)
+    elif kind == "rglru":
+        y, h_new = apply_rglru_step(p["rglru"], h, cache["h"])
+        new_cache = {"h": h_new}
+    elif kind == "rwkv":
+        y, s_new = apply_rwkv_step(p["rwkv"], h, cache["s"], cfg.n_heads)
+        new_cache = {"s": s_new}
+    else:
+        raise ValueError(kind)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps, fused=fused)
     x = x + _mlp(p, h2, cfg, plan)
-    return x, {"k": k_c, "v": v_c, "pos_idx": pos_idx}
+    return x, new_cache
 
 
 def decode_step(params, cache, cfg: ArchConfig, plan: CelloPlan,
@@ -322,11 +374,12 @@ def decode_step(params, cache, cfg: ArchConfig, plan: CelloPlan,
     """One decode step.  tokens: (B, 1) int; pos: the current position.
     Returns (logits (B, 1, padded_vocab) fp32, new cache); the input cache
     is left as it was."""
-    _dense_only(cfg)
+    _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     new_layers = []
-    for p_layer, c_layer in zip(params["layers"], cache["layers"]):
-        x, nc = _decode_block(p_layer, c_layer, x, int(pos), cfg=cfg,
+    for p_layer, c_layer, kind in zip(params["layers"], cache["layers"],
+                                      cfg.layer_kinds()):
+        x, nc = _decode_block(p_layer, c_layer, x, kind, int(pos), cfg=cfg,
                               plan=plan)
         new_layers.append(nc)
     return _logits(params, cfg, plan, x), {"layers": new_layers}

@@ -60,6 +60,38 @@ print("ok", plan.backend)
     assert res.stdout.strip() == "ok cuda"
 
 
+def test_recurrent_families_serve_with_jax_absent():
+    """The recurrent models and the B8/B9 modules import and serve a
+    reduced recurrentgemma-2b and rwkv6-7b with jax absent."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+from repro_torch.api import Session
+from repro_torch.configs import get_config
+from repro_torch.kernels import rglru, rwkv6
+from repro_torch.models import init_params, recurrent
+for name, kind in (("recurrentgemma-2b", "attn"), ("rwkv6-7b", None)):
+    cfg = get_config(name).reduced()
+    bundle = (Session(cfg, device="cpu")
+              .trace("prefill", batch=1, seq=32, layer_kind=kind)
+              .analyze().codesign().lower().serve())
+    params = init_params(cfg, seed=0, device="cpu")
+    logits = bundle.prefill_fn(params, torch.zeros((1, 6), dtype=torch.long))
+    toks = bundle.generate(params, torch.zeros((1, 4), dtype=torch.long), 3)
+    assert bool(torch.isfinite(logits).all()) and toks.shape == (1, 7)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_session_without_cuda_raises(monkeypatch):
     from repro_torch.api import Session
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

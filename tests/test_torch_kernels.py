@@ -179,7 +179,7 @@ def test_build_dir_and_digest(monkeypatch, tmp_path):
     assert (tmp_path / "b").is_dir()
     assert {s.name for s in build._sources()} == {
         "spmv.cu", "stencil.cu", "flash_attention.cu", "fused_mlp.cu",
-        "rmsnorm.cu"}
+        "rmsnorm.cu", "rglru.cu", "wkv6.cu"}
     assert build._digest() == build._digest()
 
 

@@ -232,8 +232,8 @@ def test_init_params_is_seeded():
     assert a["lm_head"].shape == (cfg.d_model, cfg.padded_vocab)
 
 
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "rwkv6-7b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "hubert-xlarge",
+                                  "llama-3.2-vision-11b"])
 def test_other_families_are_not_ported(name):
     cfg = pt_get(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
