@@ -8,7 +8,8 @@ Phases, each of which raises (exit code 1) on failure:
 1. environment: the card's name and power limit, torch/Triton versions,
    TF32 off;
 2. build: the CUDA C++ kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
-   and their ``-Xptxas -v`` resource lines;
+   and their ``-Xptxas -v`` resource lines; the tensor-core kernels (B5
+   bf16, B6) and B6's rows kernel must not spill;
 3. every kernel against its plain torch version on the card, at the shapes
    of the main path, in fp32 and fp64, with its time, the plain version's
    time, one library call's time as a yardstick and its bytes bound:
@@ -22,7 +23,11 @@ Phases, each of which raises (exit code 1) on failure:
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
    d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
-   and a TF32 control that B6's fp32 limit must reject; B5 at
+   and a TF32 control that B6's fp32 limit must reject (B5 in bf16 runs
+   bf16 ``mma.sync`` with P split in two bf16 halves, B6 from 17 rows up
+   3xTF32 ``mma.sync``: each record names its arithmetic, gives its
+   achieved TFLOP/s and bounds it at the tensor cores' rate, the fp32
+   CUDA-core bound beside it); B5 at
    recurrentgemma-2b's prefill (S 4096, 10 heads over 1 kv head of 256,
    causal, window 2048) and B6 at the recurrent paths' prefill shapes
    (gated tanh-gelu M 4096, D 2560, F 7680; relu² M 1024, D 4096, F
@@ -89,10 +94,11 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the non-tensor
-#: fp32 / fp64 rates
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the non-tensor
+#: fp32 / fp64 rates and the dense tensor-core rates (bf16, TF32)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12,
+              "tf32": 495e12}
 #: timed run() calls per main path
 RUN_REPS = 10
 #: the overbooked cells: a banded operand whose CSR triple (35.1 MB in
@@ -122,9 +128,6 @@ KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 PATH_TOL = {"float32": 1e-5, "float64": 1e-13}
 #: |relative residual of the cuda backend's x - the reference's|
 RESIDUAL_GAP = 1e-6
-#: bf16 peak of the tensor cores, for later kernels that use them (B5/B6
-#: here compute in fp32 on the CUDA cores and are bounded at 67 TFLOP/s)
-PEAK_BF16_FLOPS = 989e12
 #: the LLM path, full width: granite-3-8b's prefill and decode shapes
 LLM_ARCH = "granite-3-8b"
 PREFILL_SEQ = 1024
@@ -254,10 +257,22 @@ def measure(kernel_fn, plain_fn, library_fn=None):
 
 
 def record(results, label, *, kernel, case, dtype, err, rel_err, tol,
-           nbytes, flops, times, math=None, **extra):
-    """``math``: the type the kernel computes in, when it differs from the
-    operands' (B5/B6 run fp32 arithmetic on bf16 operands)."""
-    b_ms, b_by = bound_ms(nbytes, flops, math or dtype)
+           nbytes, flops, times, peak=None, arith=None, **extra):
+    """``peak``: the type whose peak bounds the kernel, when it differs
+    from the operands' (fp32 arithmetic on bf16 operands; "bfloat16" or
+    "tf32" on the tensor cores, whose bound then has the fp32 CUDA-core
+    bound beside it).  The bound counts the function's ``flops``, not
+    what a design issues on top of them.  ``arith``: the arithmetic in
+    words, kept as ``math``.  Every record gives its achieved TFLOP/s, the
+    function's operations over its device time."""
+    kind = peak or dtype
+    b_ms, b_by = bound_ms(nbytes, flops, kind)
+    if kind in ("bfloat16", "tf32"):
+        extra["bound_ms_fp32_cuda_cores"] = bound_ms(nbytes, flops,
+                                                     "float32")[0]
+    if arith:
+        extra["math"] = arith
+    extra["tflops"] = flops / (times["ms"] * 1e9)
     results.append(dict(kernel=kernel, case=case, dtype=dtype,
                         max_abs_err=err, max_rel_err=rel_err, rel_tol=tol,
                         bound_ms=b_ms, bound_by=b_by,
@@ -269,7 +284,8 @@ def record(results, label, *, kernel, case, dtype, err, rel_err, tol,
         f"{tol_s})  kernel {times['ms']:.4f} ms"
         f" (eager call {times['call_ms']:.4f} ms)  plain "
         f"{times['plain_ms']:.4f} ms  library {lib}  bound {b_ms:.4f} ms "
-        f"by {b_by} ({nbytes / 1e6:.2f} MB)")
+        f"by {b_by} ({nbytes / 1e6:.2f} MB)  {extra['tflops']:.1f} TFLOP/s"
+        + (f"  [{arith}]" if arith else ""))
 
 
 def max_err(got, want) -> float:
@@ -294,6 +310,29 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: the B5/B6 kernels that must not spill (mangled names contain these)
+NO_SPILL = ("flash_bf16_kernel", "mlp_tc_kernel", "mlp_rows_kernel")
+
+
+def tensor_core_spills(log_text):
+    """{entry: spill store + load bytes} from ``-Xptxas -v``, for every
+    instantiation of the ``NO_SPILL`` kernels."""
+    import re
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1)
+                                      for k in NO_SPILL) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out[entry] = int(m.group(1)) + int(m.group(2))
+            entry = None
+    return out
 
 
 def _cu(name, *args):
@@ -698,7 +737,7 @@ def check_rmsnorm(results, d=4096, eps=1e-6):
                    case=f"rows={rows} d={d}", dtype=dt, err=err,
                    rel_err=rel, tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=4 * x.numel(), times=times, math="float32")
+                   flops=4 * x.numel(), times=times, peak="float32")
 
 
 def _attn_pairs(S, T, causal, window):
@@ -712,6 +751,31 @@ def _attn_pairs(S, T, causal, window):
     if window is not None:
         keep &= kj > qi - window
     return int(keep.sum())
+
+
+#: B5's arithmetic per operand type, and the peak that bounds it: bf16 on
+#: the tensor cores (the function's operations at the bf16 rate), fp32 on
+#: the CUDA cores
+B5_MATH = {
+    "bfloat16": dict(peak="bfloat16", arith="bf16 mma.sync, P split hi/lo"),
+    "float32": dict(peak="float32", arith="fp32 CUDA cores, q scaled "
+                    "before the product"),
+}
+
+
+def b6_math(rows, d, f, gated, dt):
+    """B6's arithmetic at ``rows`` rows: from ``TC_MIN_ROWS`` up, 3xTF32 on
+    the tensor cores, bounded by the function's operations at the TF32
+    peak; ``mma_flops`` (data only) counts the MMAs the split issues: two
+    terms for x·W with a bf16 x, three with an fp32 x, three for h·Wd.
+    Below, exact fp32 on the CUDA cores."""
+    from repro_torch.kernels.fused_mlp import TC_MIN_ROWS
+    if rows < TC_MIN_ROWS:
+        return dict(peak="float32", arith="fp32 CUDA cores (rows kernel)")
+    terms = 2 if dt == "bfloat16" else 3
+    return dict(peak="tf32", arith="3xTF32 mma.sync",
+                mma_flops=2 * rows * d * f * ((2 if gated else 1) * terms
+                                              + 3))
 
 
 def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
@@ -747,8 +811,7 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding",
                nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
-               flops=flops, times=times, math="float32",
-               bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+               flops=flops, times=times, **B5_MATH[dt])
     for name, (h, kvh, s, t, e, causal, window) in {
             "E=256 (gemma-7b)": (16, 16, 200, 200, 256, True, None),
             "E=80 window=96 (h2o-danube)": (8, 2, 300, 300, 80, True, 96),
@@ -811,8 +874,7 @@ def check_flash_hybrid(results):
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding",
                nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
-               flops=flops, times=times, math="float32",
-               bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+               flops=flops, times=times, **B5_MATH[dt])
 
 
 def check_mlp(results, D=4096, F_=12800):
@@ -859,13 +921,15 @@ def check_mlp(results, D=4096, F_=12800):
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding",
                    nbytes=(3 * D * F_ * 4 + 2 * x.numel() * x.element_size()),
-                   flops=flops, times=times, math="float32",
-                   bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3,
+                   flops=flops, times=times,
+                   **b6_math(rows, D, F_, True, dt),
                    tf32_control_rel_err=controls.get(rows))
     for name, (m, f, gated, act) in {
             "relu2 no gate (minitron-8b)": (300, 1000, False, "relu2"),
             "gelu gated, ragged M and F (gemma-7b)": (77, 1000, True,
-                                                      "gelu")}.items():
+                                                      "gelu"),
+            "silu gated, 7 rows (rows kernel, 16-row pad)": (7, 1000, True,
+                                                             "silu")}.items():
         for dt in ("float32", "bfloat16"):
             x = _rand(rng, (m, D), getattr(torch, dt))
             g = wg[:, :f].contiguous() if gated else None
@@ -927,8 +991,8 @@ def check_mlp_recurrent(results):
                    else "1 bf16 rounding",
                    nbytes=((3 if gated else 2) * D * F_ * 4
                            + 2 * x.numel() * x.element_size()),
-                   flops=flops, times=times, math="float32",
-                   bound_ms_bf16_tensor_cores=flops / PEAK_BF16_FLOPS * 1e3)
+                   flops=flops, times=times,
+                   **b6_math(m, D, F_, gated, dt))
 
 
 def _eager_times(kernel, plain):
@@ -976,7 +1040,7 @@ def check_rglru(results):
                    err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=16 * B * S * D, times=times, math="float32",
+                   flops=16 * B * S * D, times=times, peak="float32",
                    plain_timing="eager", state_max_abs_err=h_err,
                    state_rel_err=h_rel)
 
@@ -1029,7 +1093,7 @@ def check_wkv6(results):
                    err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=5 * n * E + 7 * n, times=times, math="float32",
+                   flops=5 * n * E + 7 * n, times=times, peak="float32",
                    plain_timing="eager", state_max_abs_err=s_err,
                    state_rel_err=s_rel)
 
@@ -1711,8 +1775,13 @@ def main(argv=None) -> int:
     log(f"  CUDA C++ kernels built in {build.build_seconds:.2f} s "
         f"({build.build_dir()})")
     for line in build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             log(f"  ptxas: {line.strip()}")
+    spills = tensor_core_spills(build.build_log())
+    log(f"  spill bytes (stores + loads) of the tensor-core and rows "
+        f"kernels: {spills}")
+    assert spills and not any(spills.values()), ("B5/B6 spill", spills)
 
     dtypes = ("float32", "float64")
     # ---- phase 3: kernels vs plain versions

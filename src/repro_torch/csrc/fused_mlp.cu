@@ -9,56 +9,70 @@
 // an (m_block × D) fp32 accumulator in VMEM scratch (:104), so the hidden
 // tensor (tokens × d_ff, the largest activation of a block) never reached HBM.
 //
-// The TPU's accumulator does not carry over: at D = 4096 it is 16 KB a row,
-// and blocks run in parallel, not in order.  Of the two ways to keep the
-// hidden tensor on chip, this kernel takes split-F partials folded in a
-// fixed order by a second pass:
-//   * pass 1 — one block per (BM-row tile, f-chunk of 128·n columns): the
-//     block computes its hidden tile act(x·Wg)⊙(x·Wu) into shared memory
-//     (never HBM), then multiplies it by the chunk's rows of Wd, 128 output
-//     columns at a time, and stores an fp32 partial (BM × D) for its chunk;
-//   * pass 2 — out = Σ partials over the chunks in ascending order, cast to
-//     the output type once.
-// The other way, a block owning a few rows × all of D and looping over F,
-// needs no second pass but gives only ceil(M / rows) blocks — one block at
-// a decode step's M = 4 — and every block would read all of the weights.
-// Split-F gives M/BM × F/chunk blocks (400 at the prefill's M = 1024, 100 at
-// M = 4), reads each weight once per row tile, and costs the partials'
-// write and read (~0.8 GB at M = 1024, D = 4096, 50 chunks: well under the
-// products' time; 26 MB at M = 4).
+// Blocks run in parallel here, so the accumulator cannot carry over; the
+// kernel splits F into chunks instead.  A block owns (rows × one F-chunk):
+// it computes its hidden tile act(x·Wg)⊙(x·Wu) on chip, multiplies it by
+// the chunk's rows of Wd and stores an fp32 partial (rows × D).  A second
+// pass (`fold_kernel`) sums the partials over the chunks in ascending order
+// and casts once.  No atomics: results repeat bitwise from run to run.  The
+// weights stay fp32 in the JAX layout (Wg, Wu: (D, F); Wd: (F, D)).  Ragged
+// M and F are masked (rows ≥ M and columns ≥ F load as zeros and are not
+// stored).  Two regimes, chosen by the wrapper (`launch_shape`):
 //
-// Arithmetic: fp32 on the fp32 weights, x converted to fp32, as the TPU
-// kernel's dots in preferred_element_type=f32 (:45-52); no TF32, no tensor
-// cores.  Each output is a sum over k in ascending order inside a block and
-// over chunks in ascending order in pass 2: no atomics, so results repeat
-// bitwise from run to run.  Ragged M and F are masked (rows ≥ M and weight
-// columns ≥ F load as zeros and are not stored), the TPU kernel's padding
-// (:87-96) without the copies.
-//
-// Bound on the H100: operations at the prefill (M = 1024, D = 4096,
-// F = 12800, gated: 6·M·D·F ≈ 322 GFLOP, ~4.8 ms at 67 TFLOP/s fp32, against
-// 629 MB of weights, ~0.19 ms), bytes at a decode step (M = 4: 629 MB of
-// fp32 weights, ~0.19 ms, against 1.3 GFLOP).  This first version runs the
-// products on the fp32 CUDA cores from shared-memory tiles; tensor cores
-// (which would need the weights in bf16/TF32, a different function) and TMA
-// are later work.
+// * Rows ≥ 17 (every prefill): bound by operations.  `mlp_tc_kernel` runs
+//   the products on the tensor cores, `mma.sync.m16n8k8` with TF32 operands
+//   and fp32 accumulators, in the 3×TF32 split (CUTLASS's "tfloat32x3"):
+//   each fp32 operand a is split in registers, as its fragment is loaded,
+//   into a_hi = tf32(a) and a_lo = tf32(a - a_hi) (the rounding of
+//   `cvt.rna.tf32.f32`, done in two integer operations: on the card that
+//   ran faster than the instruction), and a·b is taken as a_lo·b_hi +
+//   a_hi·b_lo + a_hi·b_hi, relative error ~2^-21, inside the 1e-5 limit
+//   that rejects a one-pass TF32 product.  A bf16 x is exact in TF32, so
+//   x·W takes two terms; the hidden tile (fp32) takes three against Wd.
+//   The MMAs' own fp32 accumulation truncates: summed over the 1,536 MMAs
+//   of a 4096-deep product that bias reached 5.6e-5 of the output's scale
+//   on the card, so each 32-deep ring stage sums into fresh registers from
+//   zero and is added to the running sum by an IEEE fp32 add (as fp8 GEMMs
+//   promote their partial sums); that brought it to ~5e-6.
+//   A block is 64 rows × a 256-column chunk, 8 warps.  For x·Wg and x·Wu a
+//   warp owns 64 rows × 16 hidden columns, so each weight split serves
+//   four row tiles; for h·Wd it owns 32 rows × 64 of each 256 output
+//   columns.  An fp32 x, whose third term needs the registers, takes 64
+//   hidden columns a pass and keeps h·Wd's k-steps rolled (unrolled, it
+//   spilled).  x, Wg/Wu, then Wd tiles (32 deep) stream through one 3-stage
+//   shared-memory ring filled by 16-byte `cp.async.cg` copies, so two
+//   tiles' loads are in flight during each tile's products, the down
+//   product's first tiles during the last up tiles; row pitches are padded
+//   so that fragment loads are free of bank conflicts.  The activation is
+//   applied in registers before the hidden tile goes to shared memory.  At
+//   granite's prefill (M 1024, D 4096, F 12800, bf16 x) the function is
+//   322 GFLOP, 0.65 ms at TF32's 495 TFLOP/s; the split issues 2.33× that
+//   in MMAs (751 GFLOP, 1.52 ms at that rate); the fold takes 0.28 ms.
+//   What binds it, from variants of this kernel timed on an H100 (700 W)
+//   at that shape, with its MMAs, its global copies or its splits left
+//   out in turn: none of the three alone sets its time.  With one block of
+//   8 warps an SM (186 KB of shared memory, ~220 registers a thread) it is
+//   bound by latency and issue, not by the tensor cores.  `wgmma` and TMA
+//   are the step after this one: TF32 `wgmma` needs K-major B in shared
+//   memory, which the (D, F) layout of Wg/Wu is not.
+// * Rows ≤ 16 (a decode step): bound by reading the weights (629 MB of fp32
+//   at granite, 0.188 ms).  `mlp_rows_kernel` keeps exact fp32 FMAs on the
+//   CUDA cores and is built for bandwidth: the chunk is 64 (or 32) columns,
+//   so F/chunk ≥ 200 blocks run two to an SM; each thread reads 16-byte
+//   vectors of a weight row and keeps four of them (eight with the gate) in
+//   flight; rows are padded to 4 (or 16), not to a 16-row tile.  The hidden
+//   sums over D are split over thread groups and folded in a fixed order in
+//   shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 16;     // depth of one shared-memory tile
-constexpr int kBN = 128;    // columns of one hidden sub-chunk / output tile
-constexpr int kMaxChunk = 256;  // hidden columns per block, at most
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // the activations of repro/kernels/fused_mlp/kernel.py:26 `_act`, in fp32
 __device__ __forceinline__ float act_fn(float h, int kind) {
@@ -71,6 +85,44 @@ __device__ __forceinline__ float act_fn(float h, int kind) {
   return r * r;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; the bytes past src_bytes (all 16 when it is
+// 0) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// v rounded to TF32 (10-bit mantissa, to nearest, ties away from zero),
+// low 13 bits zero: the bits of `cvt.rna.tf32.f32` for finite v, in two
+// integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+// an operand that is exact in TF32 (a bf16 value): its bits as they are
+__device__ __forceinline__ uint32_t exact_tf32(float v) { return __float_as_uint(v); }
+
+// c += a·b on one 16×8×8 TF32 tile, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 struct Args {
   const void* x;          // (M, D), T
   const float* wg;        // (D, F) or nullptr (plain MLP)
@@ -80,170 +132,561 @@ struct Args {
   int m, d, f, chunk, act;
 };
 
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*RM .. ty*RM+RM-1 and
-// columns tx + 16 j (j < 8) of every 128-column tile.
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-mlp_partial_kernel(Args a) {
-  constexpr int RM = BM / 16;
-  constexpr int RN = kBN / 16;
-  constexpr int X_LD = BM + 4;
-  extern __shared__ float smem[];
+// ===========================================================================
+// rows ≥ 17: 3×TF32 on the tensor cores
+// ===========================================================================
+
+constexpr int kBM = 64;          // rows per block
+constexpr int kBN = 128;         // hidden columns per first-product pass
+constexpr int kBD = 256;         // output columns per down-product pass
+constexpr int kBK = 32;          // depth of one ring stage
+constexpr int kStages = 3;
+constexpr int kWLd = kBN + 8;    // W tile pitches (floats): B fragment loads hit 32 banks
+constexpr int kDLd = kBD + 8;
+constexpr int kMaxChunk = 256;   // hidden columns per block, at most
+
+// the x tile's pitch (elements), so that A fragment loads hit distinct banks
+template <typename T> struct XLd;
+template <> struct XLd<float> { static constexpr int v = kBK + 4; };
+template <> struct XLd<__nv_bfloat16> { static constexpr int v = kBK + 8; };
+// hidden columns per first-product pass: 128 for a bf16 x; 64 for an fp32 x,
+// whose third term needs registers that a 128-column pass would spill
+template <typename T>
+__host__ __device__ constexpr int pass_cols() { return sizeof(T) == 2 ? kBN : kBN / 2; }
+
+// a ring stage holds an x tile, a Wu and a Wg tile (the first product) or
+// a Wd tile (the down product)
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() {
+  return kBM * XLd<T>::v * static_cast<int>(sizeof(T)) + 2 * kBK * kWLd * 4;
+}
+static_assert(kBK * kDLd * 4 <= stage_bytes<__nv_bfloat16>(), "Wd tile fits a stage");
+template <typename T>
+constexpr size_t tc_smem_bytes(int chunk) {
+  return static_cast<size_t>(kStages) * stage_bytes<T>() +
+         static_cast<size_t>(kBM) * (chunk + 4) * 4;
+}
+
+// A block's work is one sequence of ring steps, kBK deep each: for every
+// 128 hidden columns of its chunk, x·Wg and x·Wu over all of D; then, for
+// every 256 output columns, h·Wd over the chunk.  One ring carries the
+// tiles of both, so the down product's first loads are in flight while the
+// last first-product steps run.  A cursor walks the steps without
+// divisions.
+struct Cursor {
+  int kt, pass;    // step within the pass, pass
+  bool first;      // a first-product pass (else a down-product pass)
+};
+__device__ __forceinline__ void advance(Cursor& c, int kd, int n_sub, int kc) {
+  if (++c.kt == (c.first ? kd : kc)) {
+    c.kt = 0;
+    if (++c.pass == n_sub && c.first) {
+      c.first = false;
+      c.pass = 0;
+    }
+  }
+}
+
+// One thread's share of a ring stage's 16-byte copies: its rows and
+// columns within each tile follow from its index; a step moves the tile's
+// origin.  Nothing is kept per copy, to spare registers.
+template <typename T>
+struct Copier {
+  static constexpr int XP = 16 / sizeof(T);                 // x elements per copy
+  static constexpr int XR = kBK / XP;                       // copies per x row
+  static constexpr int XC = kBM * XR / kThreads;            // x copies per thread
+  static constexpr int PC = pass_cols<T>();
+  static constexpr int WC = kBK * PC / 4 / kThreads;        // Wg / Wu copies per thread
+  static constexpr int DC = kBK * kBD / 4 / kThreads;       // Wd copies per thread
+  int tid, m0;
+
+  // x rows m0.., columns k0..; Wu (Wg) rows k0.., columns f0..
+  __device__ __forceinline__ void first(const Args& a, char* stage, int k0, int f0) const {
+    T* sX = reinterpret_cast<T*>(stage);
+    float* sWu = reinterpret_cast<float*>(stage + kBM * XLd<T>::v * sizeof(T));
+    const int x_col = (tid % XR) * XP, col_x = k0 + x_col;
+#pragma unroll
+    for (int i = 0; i < XC; ++i) {
+      const int r = tid / XR + i * (kThreads / XR), row = m0 + r;
+      const bool ok = row < a.m && col_x < a.d;
+      const T* x = static_cast<const T*>(a.x);
+      cp_async16(sX + r * XLd<T>::v + x_col, ok ? x + static_cast<size_t>(row) * a.d + col_x : x,
+                 ok ? min(16, (a.d - col_x) * static_cast<int>(sizeof(T))) : 0);
+    }
+    const int w_row = tid / (PC / 4), w_col = (tid % (PC / 4)) * 4;
+    const int col = f0 + w_col;
+    const bool col_ok = col < a.f;
+    const int bytes = col_ok ? min(16, (a.f - col) * 4) : 0;
+#pragma unroll
+    for (int i = 0; i < WC; ++i) {
+      const int r = w_row + i * (kThreads / (PC / 4)), kr = k0 + r;
+      const bool ok = col_ok && kr < a.d;
+      const size_t off = ok ? static_cast<size_t>(kr) * a.f + col : 0;
+      cp_async16(sWu + r * kWLd + w_col, a.wu + off, ok ? bytes : 0);
+      if (a.wg != nullptr)
+        cp_async16(sWu + kBK * kWLd + r * kWLd + w_col, a.wg + off, ok ? bytes : 0);
+    }
+  }
+
+  // Wd rows fr0.. (< f_end), columns d0..
+  __device__ __forceinline__ void down(const Args& a, char* stage, int fr0, int f_end,
+                                       int d0) const {
+    float* sW = reinterpret_cast<float*>(stage);
+    const int d_row = tid / (kBD / 4), d_col = (tid % (kBD / 4)) * 4;
+    const int col = d0 + d_col;
+    const bool col_ok = col < a.d;
+    const int bytes = col_ok ? min(16, (a.d - col) * 4) : 0;
+#pragma unroll
+    for (int i = 0; i < DC; ++i) {
+      const int r = d_row + i * (kThreads / (kBD / 4)), fr = fr0 + r;
+      const bool ok = col_ok && fr < f_end;
+      const size_t off = ok ? static_cast<size_t>(fr) * a.d + col : 0;
+      cp_async16(sW + r * kDLd + d_col, a.wd + off, ok ? bytes : 0);
+    }
+  }
+};
+
+template <int A, int B>
+__device__ __forceinline__ void zero(float (&v)[A][B][4]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[i][j][e] = 0.f;
+}
+// acc += tmp by IEEE fp32 adds: the MMAs' own fp32 accumulation truncates,
+// so a stage's terms are summed from zero and promoted here
+template <int A, int B>
+__device__ __forceinline__ void promote(float (&acc)[A][B][4], const float (&tmp)[A][B][4]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += tmp[i][j][e];
+}
+
+// Lane (g, t) = (lane / 4, lane % 4).  First product: warp w owns all 64
+// rows and hidden columns 16w .. 16w + 15 of each 128 (4 × 2 MMA tiles of
+// 16 × 8, for Wg and for Wu; for an fp32 x, 8w .. 8w + 7 of each 64), so
+// that each split of a weight serves four row tiles.  Down product: warp (wm, wn) = (w / 4, w % 4) owns rows
+// 32·wm .. +32 and output columns 64·wn .. +64 of each 256 (2 × 8 tiles).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_tc_kernel(Args a) {
+  constexpr int XL = XLd<T>::v;
+  constexpr int SB = stage_bytes<T>();
+  constexpr bool kExactX = sizeof(T) == 2;               // a bf16 x is exact in TF32
+  constexpr int PC = pass_cols<T>();                     // hidden columns per pass
+  constexpr int NT = PC / 64;                            // 8-column tiles per warp
+  constexpr int kDownUnroll = kExactX ? kBK / 8 : 1;
+  extern __shared__ __align__(16) char smem[];
   const int h_ld = a.chunk + 4;
-  float* sH = smem;                          // [BM][chunk + 4]: the hidden tile
-  float* sX = sH + BM * h_ld;                // [kBK][BM + 4]: x tile, transposed
-  float* sA = sX + kBK * X_LD;               // [kBK][128]: Wg (pass 1) / Wd tile
-  float* sB = sA + kBK * kBN;                // [kBK][128]: Wu tile
+  float* sH = reinterpret_cast<float*>(smem + kStages * SB);   // [64][chunk + 4]
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM;
-  const int fc = blockIdx.y;
-  const int f_base = fc * a.chunk;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * kBM;
+  const int f_base = blockIdx.y * a.chunk;
+  const int f_end = min(a.f, f_base + a.chunk);
   const bool gated = a.wg != nullptr;
-  const T* x = static_cast<const T*>(a.x);
+  const int kd = (a.d + kBK - 1) / kBK, n_sub = a.chunk / PC;
+  const int kc = a.chunk / kBK, n_dt = (a.d + kBD - 1) / kBD;
+  const int n1 = n_sub * kd, n = n1 + n_dt * kc;
 
-  // ---- hidden tile: sH = act(x·Wg) ⊙ (x·Wu), one 128-column sub-chunk at a time
-  for (int n0 = 0; n0 < a.chunk; n0 += kBN) {
-    float acc_g[RM][RN], acc_u[RM][RN];
+  const Copier<T> cp{tid, m0};
+  Cursor ld{0, 0, true};               // the next step to load
+  auto load = [&](int s) {             // step s (the cursor's) into its stage
+    char* stage = smem + (s % kStages) * SB;
+    if (ld.first)
+      cp.first(a, stage, ld.kt * kBK, f_base + ld.pass * PC);
+    else
+      cp.down(a, stage, f_base + ld.kt * kBK, f_end, ld.pass * kBD);
+    advance(ld, kd, n_sub, kc);
+  };
+  auto next = [&](int s) {             // wait for step s; start step s + kStages - 1
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                   // step s landed; step s - 1's stage is free
+    if (s + kStages - 1 < n) load(s + kStages - 1);
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) load(s);
+    cp_async_commit();
+  }
+
+  int s = 0;
+  // ---- hidden tile: sH = act(x·Wg) ⊙ (x·Wu), PC columns at a time
+  for (int sub = 0; sub < n_sub; ++sub) {
+    float acc_u[4][NT][4], acc_g[4][NT][4];
+    zero(acc_u);
+    zero(acc_g);
+    for (int kt = 0; kt < kd; ++kt, ++s) {
+      next(s);
+      const char* stage = smem + (s % kStages) * SB;
+      const T* sX = reinterpret_cast<const T*>(stage);
+      const float* sWu = reinterpret_cast<const float*>(stage + kBM * XL * sizeof(T));
+      const float* sWg = sWu + kBK * kWLd;
+      float tu[4][NT][4], tg[4][NT][4];
+      zero(tu);
+      zero(tg);
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc_g[i][j] = acc_u[i][j] = 0.f;
-    for (int k0 = 0; k0 < a.d; k0 += kBK) {
-      for (int l = tid; l < kBK * BM; l += kThreads) {
-        const int kk = l % kBK, r = l / kBK;
-        const int row = m0 + r, col = k0 + kk;
-        sX[kk * X_LD + r] = (row < a.m && col < a.d)
-                                ? to_f32(x[static_cast<size_t>(row) * a.d + col]) : 0.f;
-      }
-      for (int l = tid; l < kBK * kBN; l += kThreads) {
-        const int n = l % kBN, kk = l / kBN;
-        const int kr = k0 + kk, fcol = f_base + n0 + n;
-        const bool ok = kr < a.d && fcol < a.f && n0 + n < a.chunk;
-        const size_t off = static_cast<size_t>(kr) * a.f + fcol;
-        sB[kk * kBN + n] = ok ? a.wu[off] : 0.f;
-        if (gated) sA[kk * kBN + n] = ok ? a.wg[off] : 0.f;
-      }
-      __syncthreads();
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ah[4][4], al[4][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float xv[RM];
+        for (int mt = 0; mt < 4; ++mt) {
+          const int r = mt * 16 + g;
+          const float v[4] = {to_f32(sX[r * XL + ks + t]), to_f32(sX[(r + 8) * XL + ks + t]),
+                              to_f32(sX[r * XL + ks + t + 4]),
+                              to_f32(sX[(r + 8) * XL + ks + t + 4])};
 #pragma unroll
-        for (int i = 0; i < RM; ++i) xv[i] = sX[kk * X_LD + ty * RM + i];
+          for (int e = 0; e < 4; ++e) {
+            if (kExactX) {
+              ah[mt][e] = exact_tf32(v[e]);
+              al[mt][e] = 0u;
+            } else {
+              split_tf32(v[e], ah[mt][e], al[mt][e]);
+            }
+          }
+        }
 #pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const float u = sB[kk * kBN + tx + 16 * j];
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = warp * 8 * NT + nt * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(sWu[(ks + t) * kWLd + col], bh0, bl0);
+          split_tf32(sWu[(ks + t + 4) * kWLd + col], bh1, bl1);
 #pragma unroll
-          for (int i = 0; i < RM; ++i) acc_u[i][j] = fmaf(xv[i], u, acc_u[i][j]);
+          for (int mt = 0; mt < 4; ++mt) {
+            if (!kExactX) mma_tf32(tu[mt][nt], al[mt], bh0, bh1);
+            mma_tf32(tu[mt][nt], ah[mt], bl0, bl1);
+            mma_tf32(tu[mt][nt], ah[mt], bh0, bh1);
+          }
           if (gated) {
-            const float g = sA[kk * kBN + tx + 16 * j];
+            split_tf32(sWg[(ks + t) * kWLd + col], bh0, bl0);
+            split_tf32(sWg[(ks + t + 4) * kWLd + col], bh1, bl1);
 #pragma unroll
-            for (int i = 0; i < RM; ++i) acc_g[i][j] = fmaf(xv[i], g, acc_g[i][j]);
+            for (int mt = 0; mt < 4; ++mt) {
+              if (!kExactX) mma_tf32(tg[mt][nt], al[mt], bh0, bh1);
+              mma_tf32(tg[mt][nt], ah[mt], bl0, bl1);
+              mma_tf32(tg[mt][nt], ah[mt], bh0, bh1);
+            }
           }
         }
       }
-      __syncthreads();
+      promote(acc_u, tu);
+      if (gated) promote(acc_g, tg);
     }
+    // PC hidden columns are complete: the activation, in registers, to sH
+    const int c0 = sub * PC + warp * 8 * NT + 2 * t;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n < a.chunk) {
-          sH[(ty * RM + i) * h_ld + n] =
-              gated ? act_fn(acc_g[i][j], a.act) * acc_u[i][j] : act_fn(acc_u[i][j], a.act);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float u0 = acc_u[mt][nt][2 * half], u1 = acc_u[mt][nt][2 * half + 1];
+          const float g0 = acc_g[mt][nt][2 * half], g1 = acc_g[mt][nt][2 * half + 1];
+          *reinterpret_cast<float2*>(sH + (mt * 16 + g + 8 * half) * h_ld + c0 + nt * 8) =
+              gated ? make_float2(act_fn(g0, a.act) * u0, act_fn(g1, a.act) * u1)
+                    : make_float2(act_fn(u0, a.act), act_fn(u1, a.act));
+        }
+  }
+
+  // ---- partial = sH · Wd[f_base : f_end, :], 256 output columns at a time
+  const int wm = warp >> 2, wn = warp & 3;
+  float* part = a.partial + static_cast<size_t>(blockIdx.y) * a.m * a.d;
+  for (int dt = 0; dt < n_dt; ++dt) {
+    float acc[2][8][4];
+    zero(acc);
+    for (int kt = 0; kt < kc; ++kt, ++s) {
+      next(s);                         // its barrier also publishes sH
+      const float* sW = reinterpret_cast<const float*>(smem + (s % kStages) * SB);
+      float tmp[2][8][4];
+      zero(tmp);
+      // an fp32 x's kernel keeps these k-steps rolled: unrolled, it spills
+#pragma unroll(kDownUnroll)
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = wm * 32 + mt * 16 + g, c = kt * kBK + ks + t;
+          split_tf32(sH[r * h_ld + c], ah[mt][0], al[mt][0]);
+          split_tf32(sH[(r + 8) * h_ld + c], ah[mt][1], al[mt][1]);
+          split_tf32(sH[r * h_ld + c + 4], ah[mt][2], al[mt][2]);
+          split_tf32(sH[(r + 8) * h_ld + c + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = wn * 64 + nt * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(sW[(ks + t) * kDLd + col], bh0, bl0);
+          split_tf32(sW[(ks + t + 4) * kDLd + col], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(tmp[mt][nt], al[mt], bh0, bh1);
+            mma_tf32(tmp[mt][nt], ah[mt], bl0, bl1);
+            mma_tf32(tmp[mt][nt], ah[mt], bh0, bh1);
+          }
         }
       }
+      promote(acc, tmp);
+    }
+    // the output tile is complete: store it
+    const int c0 = dt * kBD + wn * 64 + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int r = m0 + wm * 32 + mt * 16 + g, c = c0 + nt * 8;
+        if (c < a.d) {                 // d is even: c + 1 < d as well
+          if (r < a.m)
+            *reinterpret_cast<float2*>(part + static_cast<size_t>(r) * a.d + c) =
+                make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+          if (r + 8 < a.m)
+            *reinterpret_cast<float2*>(part + static_cast<size_t>(r + 8) * a.d + c) =
+                make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
+// ===========================================================================
+// rows ≤ 16: exact fp32 on the CUDA cores, built for the weights' bytes
+// ===========================================================================
+
+constexpr int kLoadsAhead = 4;   // weight vectors in flight per thread and matrix
+
+// MR: rows padded to 4 or 16; CF: hidden columns per block (32 or 64).
+// Thread (dg, cg) = (tid / (CF/4), tid % (CF/4)) sums d ≡ dg (mod DG) for
+// the four hidden columns 4·cg .. 4·cg + 3; the DG partial sums are folded
+// in ascending dg in shared memory.
+template <typename T, int MR, int CF>
+__global__ void __launch_bounds__(kThreads, (MR <= 4 ? 2 : 1))
+mlp_rows_kernel(Args a) {
+  constexpr int CG = CF / 4;
+  constexpr int DG = kThreads / CG;
+  constexpr int XS = 4096 / MR;                  // d values per x slice
+  extern __shared__ __align__(16) char smem[];
+  float* sX = reinterpret_cast<float*>(smem);    // [XS][MR]: x slice, transposed
+  float* sRed = sX + XS * MR;                    // [DG][MR][CF]
+  float* sG = sRed + DG * MR * CF;               // [MR][CF]
+  float* sH = sG + MR * CF;                      // [MR][CF]
+
+  const int tid = threadIdx.x;
+  const int cg = tid % CG, dg = tid / CG;
+  const int f0 = blockIdx.x * CF;
+  const int col = f0 + cg * 4;
+  const bool col_ok = col < a.f;                 // f is a multiple of 4
+  const bool gated = a.wg != nullptr;
+  const T* x = static_cast<const T*>(a.x);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float acc_g[MR][4], acc_u[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_g[m][j] = acc_u[m][j] = 0.f;
+
+  for (int x0 = 0; x0 < a.d; x0 += XS) {
+    const int dn = min(XS, a.d - x0);
+    __syncthreads();
+    for (int l = tid; l < XS * MR; l += kThreads) {
+      const int m = l / XS, dd = l % XS;
+      sX[dd * MR + m] = (m < a.m && dd < dn)
+                            ? to_f32(x[static_cast<size_t>(m) * a.d + x0 + dd]) : 0.f;
+    }
+    __syncthreads();
+    for (int base = dg; base < dn; base += DG * kLoadsAhead) {
+      float4 wu[kLoadsAhead], wg[kLoadsAhead];
+#pragma unroll
+      for (int j = 0; j < kLoadsAhead; ++j) {
+        const int dd = base + j * DG;
+        const bool ok = col_ok && dd < dn;
+        const size_t off = static_cast<size_t>(x0 + dd) * a.f + col;
+        wu[j] = ok ? __ldg(reinterpret_cast<const float4*>(a.wu + off)) : zero;
+        wg[j] = ok && gated ? __ldg(reinterpret_cast<const float4*>(a.wg + off)) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < kLoadsAhead; ++j) {
+        const int dd = base + j * DG;
+        if (dd >= dn) break;
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const float xv = sX[dd * MR + m];
+          acc_u[m][0] = fmaf(xv, wu[j].x, acc_u[m][0]);
+          acc_u[m][1] = fmaf(xv, wu[j].y, acc_u[m][1]);
+          acc_u[m][2] = fmaf(xv, wu[j].z, acc_u[m][2]);
+          acc_u[m][3] = fmaf(xv, wu[j].w, acc_u[m][3]);
+          if (gated) {
+            acc_g[m][0] = fmaf(xv, wg[j].x, acc_g[m][0]);
+            acc_g[m][1] = fmaf(xv, wg[j].y, acc_g[m][1]);
+            acc_g[m][2] = fmaf(xv, wg[j].z, acc_g[m][2]);
+            acc_g[m][3] = fmaf(xv, wg[j].w, acc_g[m][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // fold the DG partial sums of x·Wu (into sH) and x·Wg (into sG) in order
+  for (int pass = gated ? 0 : 1; pass < 2; ++pass) {
+    float* dst = pass == 0 ? sG : sH;
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+      *reinterpret_cast<float4*>(sRed + (dg * MR + m) * CF + cg * 4) =
+          pass == 0 ? make_float4(acc_g[m][0], acc_g[m][1], acc_g[m][2], acc_g[m][3])
+                    : make_float4(acc_u[m][0], acc_u[m][1], acc_u[m][2], acc_u[m][3]);
+    __syncthreads();
+    for (int l = tid; l < MR * CF; l += kThreads) {
+      float s = 0.f;
+      for (int q = 0; q < DG; ++q) s += sRed[q * MR * CF + l];
+      dst[l] = s;
+    }
   }
   __syncthreads();
+  for (int l = tid; l < MR * CF; l += kThreads)
+    sH[l] = gated ? act_fn(sG[l], a.act) * sH[l] : act_fn(sH[l], a.act);
+  __syncthreads();
 
-  // ---- partial = sH · Wd[f_base : f_base + chunk, :], 128 output columns at a time
-  float* part = a.partial + static_cast<size_t>(fc) * a.m * a.d;
-  for (int d0 = 0; d0 < a.d; d0 += kBN) {
-    float acc[RM][RN];
+  // partial = h · Wd[f0 : f0 + kn, :], four output columns a thread
+  const int kn = min(CF, a.f - f0);
+  float* part = a.partial + static_cast<size_t>(blockIdx.x) * a.m * a.d;
+  for (int d0 = tid * 4; d0 < a.d; d0 += kThreads * 4) {
+    float acc[MR][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < a.chunk; k0 += kBK) {
-      for (int l = tid; l < kBK * kBN; l += kThreads) {
-        const int n = l % kBN, kk = l / kBN;
-        const int frow = f_base + k0 + kk, dcol = d0 + n;
-        sA[kk * kBN + n] = (frow < a.f && k0 + kk < a.chunk && dcol < a.d)
-                               ? a.wd[static_cast<size_t>(frow) * a.d + dcol] : 0.f;
-      }
-      __syncthreads();
+      for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+    for (int k = 0; k < kn; k += 2 * kLoadsAhead) {
+      float4 w[2 * kLoadsAhead];
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float hv[RM];
+      for (int j = 0; j < 2 * kLoadsAhead; ++j)
+        w[j] = k + j < kn ? __ldg(reinterpret_cast<const float4*>(
+                                a.wd + static_cast<size_t>(f0 + k + j) * a.d + d0))
+                          : zero;
 #pragma unroll
-        for (int i = 0; i < RM; ++i) hv[i] = sH[(ty * RM + i) * h_ld + k0 + kk];
+      for (int j = 0; j < 2 * kLoadsAhead; ++j) {
+        if (k + j >= kn) break;
 #pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const float w = sA[kk * kBN + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(hv[i], w, acc[i][j]);
+        for (int m = 0; m < MR; ++m) {
+          const float h = sH[m * CF + k + j];
+          acc[m][0] = fmaf(h, w[j].x, acc[m][0]);
+          acc[m][1] = fmaf(h, w[j].y, acc[m][1]);
+          acc[m][2] = fmaf(h, w[j].z, acc[m][2]);
+          acc[m][3] = fmaf(h, w[j].w, acc[m][3]);
         }
       }
-      __syncthreads();
     }
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = m0 + ty * RM + i;
-      if (row >= a.m) continue;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = d0 + tx + 16 * j;
-        if (col < a.d) part[static_cast<size_t>(row) * a.d + col] = acc[i][j];
-      }
-    }
+    for (int m = 0; m < MR; ++m)
+      if (m < a.m)
+        *reinterpret_cast<float4*>(part + static_cast<size_t>(m) * a.d + d0) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   }
+}
+
+template <int MR, int CF>
+constexpr size_t rows_smem_bytes() {
+  return sizeof(float) * (4096 + (kThreads / (CF / 4)) * MR * CF + 2 * MR * CF);
+}
+
+// ===========================================================================
+// pass 2: out = Σ_c partial[c] in ascending c, cast once; four elements a thread
+// ===========================================================================
+
+__device__ __forceinline__ void store4(float* out, float4 s) {
+  *reinterpret_cast<float4*>(out) = s;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 s) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out);
+  o[0] = __floats2bfloat162_rn(s.x, s.y);
+  o[1] = __floats2bfloat162_rn(s.z, s.w);
 }
 
 template <typename T>
-__global__ void fold_kernel(const float* __restrict__ partial, T* __restrict__ out,
-                            long long elems, int n_chunks) {
+__global__ void fold_kernel(const float4* __restrict__ partial, T* __restrict__ out,
+                            long long quads, int n_chunks) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= elems) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[c * elems + i];
-  out[i] = from_f32<T>(s);
+  if (i >= quads) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < n_chunks; ++c) {
+    const float4 p = __ldg(partial + c * quads + i);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  store4(out + 4 * i, s);
 }
 
-template <typename T, int BM>
-int launch_bm(const Args& a, T* out, void* stream) {
-  const int n_chunks = (a.f + a.chunk - 1) / a.chunk;
-  const size_t smem = sizeof(float) * (BM * (a.chunk + 4) + kBK * (BM + 4) + 2 * kBK * kBN);
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T>
+cudaError_t launch_tc(const Args& a, int n_chunks, cudaStream_t s) {
   // once per instantiation, at the first call (not during a CUDA-graph
-  // capture), for the largest chunk the wrapper uses (256 columns)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mlp_partial_kernel<T, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * (BM * (kMaxChunk + 4) + kBK * (BM + 4) + 2 * kBK * kBN)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (a.chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((a.m + BM - 1) / BM, n_chunks);
-  mlp_partial_kernel<T, BM><<<grid, kThreads, smem, s>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long elems = static_cast<long long>(a.m) * a.d;
-  const int threads = 256;
-  fold_kernel<T><<<static_cast<unsigned>((elems + threads - 1) / threads), threads, 0, s>>>(
-      a.partial, out, elems, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+  // capture), for the largest chunk
+  static const cudaError_t attr = allow_smem(mlp_tc_kernel<T>, tc_smem_bytes<T>(kMaxChunk));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.m + kBM - 1) / kBM, n_chunks);
+  mlp_tc_kernel<T><<<grid, kThreads, tc_smem_bytes<T>(a.chunk), s>>>(a);
+  return cudaGetLastError();
 }
 
+template <typename T, int MR, int CF>
+cudaError_t launch_rows(const Args& a, int n_chunks, cudaStream_t s) {
+  static const cudaError_t attr = allow_smem(mlp_rows_kernel<T, MR, CF>,
+                                             rows_smem_bytes<MR, CF>());
+  if (attr != cudaSuccess) return attr;
+  mlp_rows_kernel<T, MR, CF><<<n_chunks, kThreads, rows_smem_bytes<MR, CF>(), s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int MR>
+cudaError_t launch_rows_mr(const Args& a, int n_chunks, cudaStream_t s) {
+  if (a.chunk == 64) return launch_rows<T, MR, 64>(a, n_chunks, s);
+  if (a.chunk == 32) return launch_rows<T, MR, 32>(a, n_chunks, s);
+  return cudaErrorInvalidValue;
+}
+
+// block_m 64: the tensor-core kernel (chunk a multiple of 128, at most 256);
+// block_m 4 or 16 (≥ m): the rows kernel (chunk 32 or 64).  d must be a
+// multiple of 8 and f of 4, the pointers 16-byte aligned (the wrapper checks).
 template <typename T>
 int launch(const void* x, const void* wg, const void* wu, const void* wd, void* partial,
            void* out, int m, int d, int f, int chunk, int block_m, int act, void* stream) {
   Args a{x, static_cast<const float*>(wg), static_cast<const float*>(wu),
          static_cast<const float*>(wd), static_cast<float*>(partial), m, d, f, chunk, act};
   if (m <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
-  if (chunk <= 0 || chunk % kBN != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (block_m == 64) return launch_bm<T, 64>(a, static_cast<T*>(out), stream);
-  if (block_m == 16) return launch_bm<T, 16>(a, static_cast<T*>(out), stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk <= 0 || d % 8 != 0 || f % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (f + chunk - 1) / chunk;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (block_m == kBM) {
+    if (chunk % kBN != 0 || chunk > kMaxChunk) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_tc<T>(a, n_chunks, s);
+  } else if (block_m == 4 && m <= 4) {
+    err = launch_rows_mr<T, 4>(a, n_chunks, s);
+  } else if (block_m == 16 && m <= 16) {
+    err = launch_rows_mr<T, 16>(a, n_chunks, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long quads = static_cast<long long>(m) * d / 4;
+  const int threads = 256;
+  fold_kernel<T><<<static_cast<unsigned>((quads + threads - 1) / threads), threads, 0, s>>>(
+      static_cast<const float4*>(partial), static_cast<T*>(out), quads, n_chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

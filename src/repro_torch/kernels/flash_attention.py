@@ -5,9 +5,16 @@ Replaces ``repro/kernels/flash_attention/kernel.py:30`` ``_flash_kernel`` /
 ``:90`` ``flash_attention`` (with ``ops.py``'s lane padding and ``ref.py``'s
 semantics): online-softmax attention, causal and/or a sliding window, GQA
 (query head h reads kv head h·KVH/H), queries aligned to the end of the keys
-(``q_offset = T - S``), fp32 math on bf16 or fp32 operands.  Layout as in
-the TPU kernel: q ``(B, H, S, E)``, k and v ``(B, KVH, T, E)``; any strides
-over the first three axes, unit stride over E.  E may be up to 256.
+(``q_offset = T - S``), fp32 softmax and accumulators on bf16 or fp32
+operands.  Layout as in the TPU kernel: q ``(B, H, S, E)``, k and v ``(B,
+KVH, T, E)``; any strides over the first three axes, unit stride over E.  E
+may be up to 256.
+
+bf16 operands run on the tensor cores: the scores are the exact products
+of the bf16 values summed in fp32, then scaled; P·V takes P split into two
+bf16 halves, ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)``.  fp32
+operands run on the CUDA cores with q scaled before the product.  The plain
+version repeats whichever arithmetic the kernel runs.
 """
 from __future__ import annotations
 
@@ -18,22 +25,32 @@ import torch
 
 from . import LAUNCHES, on_cuda
 
-#: keys per kv tile, in the kernel and in the plain version
+#: keys per kv tile of the plain version and of the fp32 kernel (the bf16
+#: kernel takes 64, or 32 where E > 128)
 TILE = 64
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
+def split_bf16(p: torch.Tensor):
+    """``(P_hi, P_lo)``: fp32 ``p`` rounded to bf16, and the remainder
+    rounded to bf16, both as fp32 (the kernel's A fragments of P·V)."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's arithmetic in torch: q scaled in fp32, an online
-    softmax over 64-key tiles with the TPU kernel's -1e30 mask, fp32 m, l
-    and accumulator, ``acc / max(l, 1e-30)``.  It runs every kv tile (the
-    kernel skips fully masked ones, which changes nothing: a masked tile
-    adds p = 0 to a row that has seen a key, and a row that has not is
+    """The kernel's arithmetic in torch: an online softmax over 64-key
+    tiles with the TPU kernel's -1e30 mask, fp32 m, l and accumulator,
+    ``acc / max(l, 1e-30)``.  fp32 operands: q scaled in fp32 before the
+    product.  bf16 operands: the scale after the product, and P·V as
+    ``P_lo·V + P_hi·V`` (``split_bf16``).  It runs every kv tile
+    (the kernel skips fully masked ones, which changes nothing: a masked
+    tile adds p = 0 to a row that has seen a key, and a row that has not is
     reset by the first key it sees)."""
     B, H, S, E = q.shape
     KVH, T = k.shape[1], k.shape[2]
@@ -41,7 +58,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {KVH} kv heads")
     G = H // KVH
     scale = E ** -0.5 if scale is None else scale
-    qf = (q.float() * scale).reshape(B, KVH, G, S, E)
+    tensor_cores = q.dtype == torch.bfloat16
+    qf = q.float().reshape(B, KVH, G, S, E)
+    if not tensor_cores:
+        qf = qf * scale
     q_pos = torch.arange(S, device=q.device)[:, None] + (T - S)
     m = torch.full((B, KVH, G, S, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
@@ -50,6 +70,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kt = k[:, :, k0:k0 + TILE].float()
         vt = v[:, :, k0:k0 + TILE].float()
         s = torch.einsum("bkgse,bkte->bkgst", qf, kt)
+        if tensor_cores:
+            s = s * scale
         k_pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
         mask = torch.ones((S, kt.shape[2]), dtype=torch.bool,
                           device=q.device)
@@ -62,7 +84,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bkgst,bkte->bkgse", p, vt)
+        if tensor_cores:
+            p_hi, p_lo = split_bf16(p)
+            pv = (torch.einsum("bkgst,bkte->bkgse", p_lo, vt)
+                  + torch.einsum("bkgst,bkte->bkgse", p_hi, vt))
+        else:
+            pv = torch.einsum("bkgst,bkte->bkgse", p, vt)
+        acc = acc * alpha + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, H, S, E).to(q.dtype)
@@ -93,6 +121,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes unit stride over E")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v, out)):
+        raise ValueError("flash_attention bf16 kernel copies 16-byte rows: "
+                         "it takes 16-byte aligned pointers and strides over "
+                         "(B, H, S) that are multiples of 8 elements")
     strides = (ctypes.c_longlong * 12)(
         *[st for t in (q, k, v, out) for st in t.stride()[:3]])
     fn = (cuda_library().cello_flash_attention_bf16

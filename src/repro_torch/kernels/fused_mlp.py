@@ -1,14 +1,20 @@
-"""B6 · fused MLP: the CUDA C++ kernel ``csrc/fused_mlp.cu`` and its plain
-version.
+"""B6 · fused MLP: the CUDA C++ kernels ``csrc/fused_mlp.cu`` and their
+plain version.
 
 Replaces ``repro/kernels/fused_mlp/kernel.py:37`` ``_mlp_kernel_gated``,
 ``:59`` ``_mlp_kernel_plain`` and ``:78`` ``fused_mlp`` (with ``ops.py``
 and ``ref.py``): ``act(x·Wg)·(x·Wu)·Wd``, or ``act(x·Wu)·Wd`` without a
-gate, act one of silu, tanh-gelu or relu², computed in fp32 on the fp32
-weights and cast to x's dtype once.  The hidden tensor stays on chip: the
-kernel splits F into chunks whose fp32 partial outputs a second pass folds
+gate, act one of silu, tanh-gelu or relu², on the fp32 weights with fp32
+accumulation, cast to x's dtype once.  The hidden tensor stays on chip: the
+kernels split F into chunks whose fp32 partial outputs a second pass folds
 in a fixed order (see the source for the design and its bound).  One call
 launches both passes and counts one launch.
+
+Two regimes (``launch_shape``): from 17 rows up the products run on the
+tensor cores in the 3×TF32 split (``matmul_3xtf32``: each fp32 operand as a
+TF32 high part and a TF32 remainder; a bf16 x is exact in TF32 and takes two
+terms, an fp32 x three); up to 16 rows, a decode step, in exact fp32 on the
+CUDA cores.  The plain version repeats the regime's arithmetic.
 """
 from __future__ import annotations
 
@@ -35,24 +41,74 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+#: the tensor-core (3×TF32) kernel from this many rows up; fewer rows run
+#: the exact fp32 rows kernel
+TC_MIN_ROWS = 17
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to TF32's 10-bit mantissa, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` (low 13 bits zero)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """``(hi, lo)``: ``t`` rounded to TF32 and the remainder rounded to
+    TF32."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor,
+                  terms: int = 3) -> torch.Tensor:
+    """``a @ b`` for fp32 ``a``, ``b`` as the kernel takes it: ``a_lo·b_hi +
+    a_hi·b_lo + a_hi·b_hi`` (``terms=3``), or ``a·b_lo + a·b_hi`` when ``a``
+    is exact in TF32 (``terms=2``: a bf16 x).  Each product of TF32 values
+    is exact in fp32; the sums are fp32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    if terms == 2:
+        return a_hi @ b_lo + a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def fused_mlp_plain(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                     w_up: torch.Tensor, w_down: torch.Tensor, *,
                     activation: str = "silu") -> torch.Tensor:
     """``(act(x·Wg) ⊙ (x·Wu))·Wd`` (``act(x·Wu)·Wd`` when ``w_gate`` is None)
-    with fp32 operands and products, in x's dtype."""
+    with fp32 accumulation, in x's dtype: the products in the 3×TF32 split
+    from ``TC_MIN_ROWS`` rows up (two terms for a bf16 x), exact fp32 below."""
     xf = x.float()
-    if w_gate is not None:
-        h = _act(xf @ w_gate.float(), activation) * (xf @ w_up.float())
+    if xf.numel() // max(x.shape[-1], 1) >= TC_MIN_ROWS:
+        terms = 2 if x.dtype == torch.bfloat16 else 3
+
+        def up(w):
+            return matmul_3xtf32(xf, w.float(), terms)
+
+        def down(h):
+            return matmul_3xtf32(h, w_down.float())
     else:
-        h = _act(xf @ w_up.float(), activation)
-    return (h @ w_down.float()).to(x.dtype)
+        def up(w):
+            return xf @ w.float()
+
+        def down(h):
+            return h @ w_down.float()
+    if w_gate is not None:
+        h = _act(up(w_gate), activation) * up(w_up)
+    else:
+        h = _act(up(w_up), activation)
+    return down(h).to(x.dtype)
 
 
-def launch_shape(m: int):
-    """(rows per block, hidden columns per chunk) for ``m`` token rows: 64
-    rows and 256-column chunks for a prefill; 16 rows and 128-column chunks
-    for a few rows (a decode step), so that F/128 chunks fill the card."""
-    return (64, 256) if m > 16 else (16, 128)
+def launch_shape(m: int, f: int):
+    """(block_m, hidden columns per chunk) for ``m`` token rows and ``f``
+    hidden columns.  From ``TC_MIN_ROWS`` up, the tensor-core kernel: 64
+    rows × 256 columns.  Below, the rows kernel with rows padded to 4 or 16
+    and 64-column chunks, or 32 where F/64 would give fewer than 200 blocks,
+    so that two or more blocks run on each of the 132 SMs."""
+    if m >= TC_MIN_ROWS:
+        return 64, 256
+    return (4 if m <= 4 else 16), (64 if f >= 64 * 200 else 32)
 
 
 def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
@@ -82,8 +138,12 @@ def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                             else f", w_gate {tuple(w_gate.shape)}"))
     if not (x.is_contiguous() and all(w.is_contiguous() for w in weights)):
         raise ValueError("fused_mlp kernel takes contiguous tensors")
+    if d % 8 or f % 4 or any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError(f"fused_mlp kernel copies 16-byte vectors: it takes "
+                         f"D a multiple of 8 (got {d}), F a multiple of 4 "
+                         f"(got {f}) and 16-byte aligned tensors")
     m = x.numel() // d if d else 0
-    block_m, chunk = launch_shape(m)
+    block_m, chunk = launch_shape(m, f)
     n_chunks = -(-f // chunk)
     partial = torch.empty((n_chunks, m, d), dtype=torch.float32,
                           device=x.device)

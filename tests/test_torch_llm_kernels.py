@@ -283,13 +283,15 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype):
         else:
             _bf16_close(got.cpu(), want.float().cpu().numpy())
 
-    q, k, v = (rnd(1, 8, 100, 128).to(dtype), rnd(1, 2, 164, 128).to(dtype),
-               rnd(1, 2, 164, 128).to(dtype))
-    hold(flash_attention(q, k, v, causal=True, window=50),
-         flash_attention_plain(q, k, v, causal=True, window=50))
-    x = rnd(37, 256).to(dtype)
+    for e in (128, 80, 256):
+        q, k, v = (rnd(1, 8, 100, e).to(dtype), rnd(1, 2, 164, e).to(dtype),
+                   rnd(1, 2, 164, e).to(dtype))
+        hold(flash_attention(q, k, v, causal=True, window=50),
+             flash_attention_plain(q, k, v, causal=True, window=50))
     wg, wu = rnd(256, 300, scale=0.06), rnd(256, 300, scale=0.06)
     wd = rnd(300, 256, scale=0.06)
-    hold(fused_mlp(x, wg, wu, wd), fused_mlp_plain(x, wg, wu, wd))
+    for rows in (37, 77, 5, 3):      # the tensor-core and the rows kernel
+        x = rnd(rows, 256).to(dtype)
+        hold(fused_mlp(x, wg, wu, wd), fused_mlp_plain(x, wg, wu, wd))
     w = rnd(256, scale=0.1)
     hold(rmsnorm(x, w), rmsnorm_plain(x, w))
