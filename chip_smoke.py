@@ -14,12 +14,16 @@ Phases, each of which raises (exit code 1) on failure:
    of the main path, in fp32 and fp64, with its time, the plain version's
    time, one library call's time as a yardstick and its bytes bound:
    B1 (generated Triton stream passes: cg's Ap/pAp and r/rs passes at
-   n=4096), B2 (CSR SpMV, 5-point Laplacian, n=2^20), B3 (CSR SpMV whose
-   row prefix loads evict_last in L2, bitwise, on the overbooked path's
-   operand: banded n=131072, bandwidth 16, the 40 MiB plan's prefix;
-   beside it B2 on the same operand, both with the L2 flushed before each
-   call, and both with the persisting-L2 set-aside raised toward the
-   prefix's bytes, then restored), B4 (periodic stencil, 4096x4096);
+   n=4096), B2 (CSR SpMV, 5-point Laplacian, n=2^20), B3 (tile-staged
+   CSR SpMV whose prefix tiles' copies carry an L2 evict_last hint,
+   bitwise, on the overbooked path's operand: banded n=131072, bandwidth
+   16, the 40 MiB plan's prefix; beside it B3 with no hint (prefix 0), B2
+   and cuSPARSE on the same operand, B3 and B2 with the L2 flushed before
+   each call, and with the persisting-L2 set-aside raised toward the
+   prefix's bytes, then restored; then B3 bitwise against its plain
+   version and B2 on the 5-point Laplacian, a random pattern and a skewed
+   one whose longest rows exceed a staged window, with prefixes of none,
+   part and all rows), B4 (periodic stencil, 4096x4096);
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
    d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
@@ -33,7 +37,8 @@ Phases, each of which raises (exit code 1) on failure:
    (gated tanh-gelu M 4096, D 2560, F 7680; relu² M 1024, D 4096, F
    14336); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D 2560) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
-   layout), in bf16 and fp32, each with and without an initial state;
+   layout), in bf16 and fp32, each with and without an initial state (B9
+   also with strong decays, w over [-8, 3]);
 4. the HPC path, ``Session(device="cuda") -> trace -> analyze -> codesign
    -> lower(backend="cuda") -> run()``: cg(n=4096, iters=64),
    cg_sparse(n=2^20, iters=64, laplacian5) in fp32 and fp64, and
@@ -51,7 +56,9 @@ Phases, each of which raises (exit code 1) on failure:
    limits must reject; the launch counts of
    B1, B2, B3 and B4 over these runs must be > 0; the warm, synchronized
    wall time per ``run()`` and its time as one CUDA graph are printed (the
-   overbooked cells' graphs also with the set-aside raised);
+   overbooked cells' graphs also with the set-aside raised).  Then cg and
+   jacobi2d run at once on two threads (``check_two_threads``): each
+   program's ``stats`` must count its own runs and launches only;
 5. the LLM serving path at full width, ``Session("granite-3-8b",
    device="cuda").trace("prefill", batch=1, seq=1024) -> analyze ->
    codesign -> lower() -> serve()``, random fp32 weights from seed 0
@@ -75,8 +82,10 @@ Phases, each of which raises (exit code 1) on failure:
    its plain run in bf16 and with fp32 activations, the latter within
    ``FP32_WITNESS_TOL``.
 
-The last two lines are the kernel table and the device summary as JSON; the
-line before them is ``nvidia-smi``'s name and power limit.  Without CUDA the
+Each phase's header, every kernel record and every path record carry the
+card's name and power limit as ``nvidia-smi`` gives them.  The last two
+lines are the kernel table and the device summary as JSON; the line before
+them is ``nvidia-smi``'s name and power limit.  Without CUDA the
 script exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -194,6 +203,19 @@ def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
+#: ``nvidia-smi``'s name and power limit of the card, read again at the head
+#: of every phase (``card_phase``) and written beside every number
+CARD = ""
+
+
+def card_phase(title: str) -> None:
+    """A phase's header, with the card's name and power limit as they are
+    now."""
+    global CARD
+    CARD = smi_line()
+    log(f"== phase {title} [{CARD}]")
+
+
 def smi_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -273,7 +295,7 @@ def record(results, label, *, kernel, case, dtype, err, rel_err, tol,
     if arith:
         extra["math"] = arith
     extra["tflops"] = flops / (times["ms"] * 1e9)
-    results.append(dict(kernel=kernel, case=case, dtype=dtype,
+    results.append(dict(kernel=kernel, case=case, dtype=dtype, card=CARD,
                         max_abs_err=err, max_rel_err=rel_err, rel_tol=tol,
                         bound_ms=b_ms, bound_by=b_by,
                         bytes=nbytes, flops=flops, **times, **extra))
@@ -554,8 +576,15 @@ def check_spmv_sliced(csr, prefix_rows, results, dtypes):
         want_aside = min(l2["max_persisting_bytes"], resident)
         held_rows = min(prefix_rows, int(np.searchsorted(
             indptr_np, want_aside // (4 + es), side="right")) - 1)
-        extra = dict(spmv_b2_ms=graph_ms(b2), cold_ms=cold_ms(b3, flush),
-                     spmv_b2_cold_ms=cold_ms(b2, flush))
+        # B3 with the prefix hinted (``ms``), with no hint (prefix 0), and
+        # B2, back to back in turns
+        extra = dict(spmv_b2_ms=graph_ms(b2), unhinted_ms=graph_ms(
+            lambda: b3(0)), cold_ms=cold_ms(b3, flush),
+            unhinted_cold_ms=cold_ms(lambda: b3(0), flush),
+            spmv_b2_cold_ms=cold_ms(b2, flush))
+        extra.update(hinted_again_ms=graph_ms(b3),
+                     unhinted_again_ms=graph_ms(lambda: b3(0)),
+                     spmv_b2_again_ms=graph_ms(b2))
         with persisting_set_aside(want_aside) as aside:
             extra.update(set_aside_ms=graph_ms(lambda: b3(held_rows)),
                          set_aside_whole_prefix_ms=graph_ms(b3),
@@ -573,8 +602,13 @@ def check_spmv_sliced(csr, prefix_rows, results, dtypes):
         log(f"  B3 {dt}: bitwise equal to its plain version and to B2; "
             f"resident prefix {prefix_rows}/{n} rows, {resident / 1e6:.2f} of "
             f"{all_bytes / 1e6:.2f} MB; back to back B3 {times['ms']:.4f} "
-            f"ms, B2 {extra['spmv_b2_ms']:.4f} ms; L2 flushed before each "
-            f"call: B3 {extra['cold_ms']:.4f} ms, B2 "
+            f"/ {extra['hinted_again_ms']:.4f} ms, unhinted (prefix 0) "
+            f"{extra['unhinted_ms']:.4f} / {extra['unhinted_again_ms']:.4f}"
+            f" ms, B2 {extra['spmv_b2_ms']:.4f} / "
+            f"{extra['spmv_b2_again_ms']:.4f} ms, cuSPARSE "
+            f"{times['library_ms']:.4f} ms; L2 flushed before each "
+            f"call: B3 {extra['cold_ms']:.4f} ms, unhinted "
+            f"{extra['unhinted_cold_ms']:.4f} ms, B2 "
             f"{extra['spmv_b2_cold_ms']:.4f} ms; bound with the prefix in L2 "
             f"{(all_bytes - resident) / PEAK_BYTES_S * 1e3:.4f} ms, all "
             f"operand bytes {all_bytes / PEAK_BYTES_S * 1e3:.4f} ms.  L2 "
@@ -588,6 +622,67 @@ def check_spmv_sliced(csr, prefix_rows, results, dtypes):
             f"with the whole prefix marked "
             f"{extra['set_aside_whole_prefix_ms']:.4f} ms, B2 "
             f"{extra['set_aside_b2_ms']:.4f} ms; restored")
+
+
+def b3_patterns(laplacian_csr):
+    """B3's further operands, ``{name: (indptr, indices)}``: the 5-point
+    Laplacian at n = 2^20 (the cg_sparse path's), a random pattern (0-39
+    entries a row, columns drawn with repeats) and a skewed one whose
+    first rows are longer than one staged window (``B3_WINDOW``), each
+    from a seeded numpy generator."""
+    import numpy as np
+    from repro_torch.kernels.spmv import B3_WINDOW
+    rng = np.random.default_rng(7)
+
+    def with_counts(n, counts):
+        indptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int32)
+        return indptr, rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    n_skew = 16384
+    skew = np.clip((4 * B3_WINDOW / np.sqrt(np.arange(n_skew) + 1.0)
+                    ).astype(np.int64), 1, n_skew)
+    assert skew.max() > B3_WINDOW
+    return {"laplacian5": laplacian_csr[:2],
+            "random": with_counts(65536, rng.integers(0, 40, 65536)),
+            "skewed": with_counts(n_skew, skew)}
+
+
+def check_spmv_sliced_shapes(patterns, dtypes):
+    """B3 bitwise against its plain version and B2 on each pattern, with a
+    resident prefix of no rows, about half the rows (whole tiles) and all
+    rows.  Returns one record a case."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spmv import (B3_TILE_ROWS, B3_WINDOW, spmv,
+                                          spmv_sliced_plain)
+    out = []
+    rng = np.random.default_rng(8)
+    for name, (indptr_np, indices_np) in patterns.items():
+        n, nnz = indptr_np.shape[0] - 1, indices_np.shape[0]
+        longest = int(np.diff(indptr_np).max())
+        indptr = torch.from_numpy(indptr_np).cuda()
+        indices = torch.from_numpy(indices_np).cuda()
+        for dt in dtypes:
+            tdt = getattr(torch, dt)
+            data = torch.from_numpy(rng.standard_normal(nnz)).to("cuda", tdt)
+            x = torch.from_numpy(rng.standard_normal(n)).to("cuda", tdt)
+            b2 = spmv(indptr, indices, data, x, n)
+            for where, pre in (("none", 0), ("part", n // 2 // B3_TILE_ROWS
+                                              * B3_TILE_ROWS), ("all", n)):
+                got = spmv(indptr, indices, data, x, n, pre)
+                torch.cuda.synchronize()
+                want = spmv_sliced_plain(indptr, indices, data, x, n, pre)
+                assert torch.equal(got, want), ("spmv_sliced", name, dt, pre,
+                                                max_err(got, want))
+                assert torch.equal(got, b2), ("spmv_sliced vs spmv", name,
+                                              dt, pre)
+                out.append(dict(pattern=name, n=n, nnz=nnz, dtype=dt,
+                                prefix_rows=pre, longest_row=longest,
+                                window=B3_WINDOW, bitwise=True, card=CARD))
+        log(f"  B3 {name} n={n} nnz={nnz} (longest row {longest}, window "
+            f"{B3_WINDOW}): bitwise equal to its plain version and to B2 "
+            f"in {', '.join(dtypes)} with prefixes of none, part and all "
+            "rows")
+    return out
 
 
 def check_stencil(results, dtypes, n=4096):
@@ -997,8 +1092,8 @@ def check_mlp_recurrent(results):
 
 def _eager_times(kernel, plain):
     """The kernel's device and eager times; the plain version's eager time
-    (a Python loop over t: the host issues its launches, so a CUDA graph
-    of it would hold tens of thousands of nodes)."""
+    (a Python loop over t, B8, or over chunks, B9: the host issues its
+    launches, so a CUDA graph of it would hold thousands of nodes)."""
     return dict(ms=graph_ms(kernel), call_ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(plain, reps=2, warmup=1), library_ms=None)
 
@@ -1063,16 +1158,20 @@ def check_wkv6(results):
     s0 = _rand(rng, (B, H, E, E), torch.float32, 0.2)
     # the model's log decay: w_bias ~ -0.5 plus a small projection
     w = (_rand(rng, (B, S, H, E), torch.float32, 0.3) - 0.5).transpose(1, 2)
+    # strong decays: w over [-8, 3], a step's decay from ~0.9997 to ~2e-9
+    w_strong = torch.from_numpy(np.random.default_rng(26).uniform(
+        -8.0, 3.0, (B, S, H, E)).astype(np.float32)).cuda().transpose(1, 2)
     for dt in ("bfloat16", "float32"):
         tdt = getattr(torch, dt)
         r, k, v = (_rand(rng, (B, S, H, E), tdt, sc).transpose(1, 2)
                    for sc in (1.0, 0.3, 1.0))
-        for init in (None, s0):
+        for decay, w_, init in (("model", w, None), ("model", w, s0),
+                                ("strong, w over [-8, 3]", w_strong, s0)):
             def kernel():
-                return wkv6(r, k, v, w, u, init)
+                return wkv6(r, k, v, w_, u, init)
 
             def plain():
-                return wkv6_plain(r, k, v, w, u, init)
+                return wkv6_plain(r, k, v, w_, u, init)
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
@@ -1089,7 +1188,8 @@ def check_wkv6(results):
                       + 4 * B * H * E * E * (1 if init is None else 2))
             record(results, "B9 wkv6   ", kernel="wkv6",
                    case=f"{SSM_ARCH} B={B} H={H} S={S} E={E} "
-                   f"s0={'none' if init is None else 'given'}", dtype=dt,
+                   f"s0={'none' if init is None else 'given'} decay {decay}",
+                   dtype=dt,
                    err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
@@ -1248,7 +1348,7 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
         extra["profile"] = prof = profile_fn(lambda: plan.run(feeds))
         log(f"  {name} {dt} profiled: {json.dumps(prof)}")
     ep = plan.exec_plan
-    paths.append(dict(path=name, dtype=dt, launches=counts,
+    paths.append(dict(path=name, dtype=dt, card=CARD, launches=counts,
                       max_rel_err_vs_reference=rel, units=len(ep.units),
                       rolled=(ep.roll.n_iters if ep.roll else 0),
                       run_ms=mean_s * 1e3, run_ms_min=min_s * 1e3,
@@ -1259,6 +1359,86 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
         f"{min_s * 1e3:.3f}; as one CUDA graph {graph_run:.3f})  "
         f"reference run() {ref_mean * 1e3:.3f} ms")
     return counts
+
+
+def check_two_threads(cases, reps=4):
+    """Compiled ``cuda`` plans run at once, each ``reps`` times on a thread
+    of its own and a CUDA stream of its own, released together by a
+    barrier.  Each program's ``stats`` must grow by exactly ``reps`` times
+    what one lone run of it adds (runs and launches per kernel), the
+    process-wide counts by the sum, and every run's outputs must equal the
+    lone run's bitwise.  Returns one record a plan."""
+    import threading
+    import torch
+    from repro_torch import kernels
+    from repro_torch.frontends import feeds_from_numpy
+
+    def grown(before, after):
+        return {"runs": after["runs"] - before["runs"],
+                "launches": {k: after["launches"][k] - before["launches"][k]
+                             for k in after["launches"]}}
+    jobs = []
+    for name, plan, feeds_np in cases:
+        prog = plan.compiled()
+        feeds = feeds_from_numpy(feeds_np, "cuda")
+        before = prog.stats
+        alone = plan.run(feeds)
+        torch.cuda.synchronize()
+        one = grown(before, prog.stats)
+        assert one["runs"] == 1 and sum(one["launches"].values()) > 0, one
+        jobs.append(dict(name=name, plan=plan, prog=prog, feeds=feeds,
+                         alone=alone, one=one))
+    barrier = threading.Barrier(len(jobs))
+    errors = []
+
+    def work(job):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                t0 = time.perf_counter()
+                job["outs"] = [job["plan"].run(job["feeds"])
+                               for _ in range(reps)]
+                stream.synchronize()
+                job["seconds"] = time.perf_counter() - t0
+        except BaseException as exc:          # re-raised on the main thread
+            errors.append(exc)
+            barrier.abort()
+    starts = [job["prog"].stats for job in jobs]
+    g0 = kernels.launches()
+    threads = [threading.Thread(target=work, args=(job,)) for job in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    g1 = kernels.launches()
+    records = []
+    for job, start in zip(jobs, starts):
+        got = grown(start, job["prog"].stats)
+        want = {"runs": reps, "launches": {k: reps * v for k, v in
+                                           job["one"]["launches"].items()}}
+        assert got == want, ("stats under two threads", job["name"], got,
+                             want)
+        for out in job["outs"]:
+            for k, v in job["alone"].items():
+                assert torch.equal(out[k], v), (job["name"], k)
+        records.append(dict(path=job["name"], reps=reps, card=CARD,
+                            launches_per_run=job["one"]["launches"],
+                            stats_growth=got, thread_seconds=job["seconds"]))
+    for k in g1:
+        assert g1[k] - g0[k] == sum(r["stats_growth"]["launches"][k]
+                                    for r in records), (k, g0, g1)
+    log(f"  two threads, {reps} run()s each, at once: "
+        + "; ".join(f"{r['path']}: stats grew by {r['reps']} runs and "
+                    f"{sum(r['stats_growth']['launches'].values())} launches"
+                    f", as {r['reps']} lone runs do, outputs bitwise equal "
+                    f"to its lone run ({r['thread_seconds'] * 1e3:.1f} ms)"
+                    for r in records)
+        + "; process-wide counts grew by the sum")
+    return records
 
 
 def _solution(out):
@@ -1757,9 +1937,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     # ---- phase 1: environment
-    smi = smi_line()
     triton = build.import_triton()
-    log("== phase 1: environment")
+    card_phase("1: environment")
+    smi = CARD
     log(f"  nvidia-smi: {smi}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), triton "
         f"{triton.__version__}, repro_torch {repro_torch.__version__}, "
@@ -1770,7 +1950,7 @@ def main(argv=None) -> int:
     log("  TF32 off (cuBLAS, cuDNN), float32 matmul precision 'highest'")
 
     # ---- phase 2: build
-    log("== phase 2: build")
+    card_phase("2: build")
     build.cuda_library()
     log(f"  CUDA C++ kernels built in {build.build_seconds:.2f} s "
         f"({build.build_dir()})")
@@ -1785,7 +1965,7 @@ def main(argv=None) -> int:
 
     dtypes = ("float32", "float64")
     # ---- phase 3: kernels vs plain versions
-    log("== phase 3: kernels vs their plain versions on the card")
+    card_phase("3: kernels vs their plain versions on the card")
     t0 = time.perf_counter()
     sess = Session(device="cuda")
     cg_traced = sess.trace(workload="cg", n=4096, iters=64)
@@ -1813,6 +1993,7 @@ def main(argv=None) -> int:
     check_spmv_sliced(ob_csr,
                       prefix_rows(ob_plans["cg_sparse", 0.25, "float64"]),
                       results, dtypes)
+    b3_shapes = check_spmv_sliced_shapes(b3_patterns(csr), dtypes)
     check_stencil(results, dtypes)
     check_off_path(dtypes)
     check_rmsnorm(results)
@@ -1825,8 +2006,8 @@ def main(argv=None) -> int:
     log(f"  kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 4: the main path
-    log("== phase 4: the HPC path, Session(device='cuda') "
-        "-> lower(backend='cuda') -> run()")
+    card_phase("4: the HPC path, Session(device='cuda') "
+               "-> lower(backend='cuda') -> run()")
     paths = []
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
     for name, plan, feeds, dt, check in (
@@ -1849,14 +2030,17 @@ def main(argv=None) -> int:
     for k in ("stream", "spmv", "spmv_sliced", "stencil2d"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
     log(f"  launches over the HPC path: {totals}")
+    two_threads = check_two_threads(
+        (("cg(n=4096, iters=64) float32", cg_plan, cg_feeds["float32"]),
+         ("jacobi2d(n=4096, sweeps=8) float32", jc_plan, jc_feeds)))
 
     # ---- phases 5 and 6: the LLM serving paths
     for arch, seq, layer_kind, want, tols in SERVE_PATHS:
         phase = ("5: the LLM serving path" if arch == LLM_ARCH else
                  "6: a recurrent family's serving path")
-        log(f"== phase {phase}, Session({arch!r}, device='cuda') -> "
-            f"trace('prefill', seq={seq}, layer_kind={layer_kind!r}) -> "
-            "codesign -> lower -> serve()")
+        card_phase(f"{phase}, Session({arch!r}, device='cuda') -> "
+                   f"trace('prefill', seq={seq}, layer_kind={layer_kind!r}) "
+                   "-> codesign -> lower -> serve()")
         counts = drive_serving(arch, seq, layer_kind, want, tols, paths,
                                profile=args.profile)
         for k, v in counts.items():
@@ -1909,8 +2093,9 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"nvidia_smi": smi, "kernels": table, "paths": paths,
+                       "b3_shapes": b3_shapes, "two_threads": two_threads,
                        "build_seconds": build.build_seconds}, fh, indent=1)
-    log(smi)
+    log(smi_line())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in table]}))
     print(json.dumps({"ok": True, "device": {

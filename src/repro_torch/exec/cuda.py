@@ -24,7 +24,8 @@ per unit on the current CUDA stream:
 
 Nothing in ``run()`` waits for the device: scalars stay 1-element device
 tensors and no value is read back on the host, so the host enqueues the
-whole plan and returns.  ``stats`` counts runs and kernel launches.
+whole plan and returns.  ``stats`` counts runs and kernel launches,
+each run's launches on its own thread (``kernels.counting``).
 
 On CPU tensors every kernel wrapper runs its plain version, so the same
 driver runs here on the CPU (the tests use it that way, with
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import threading
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
@@ -260,11 +262,15 @@ class CudaProgram:
                                  for sl in roll.slots]
         self._runs = 0
         self._launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        self._stats_lock = threading.Lock()
 
     @property
     def stats(self) -> Dict[str, Any]:
-        """Runs of this program and the kernel launches they made."""
-        return {"runs": self._runs, "launches": dict(self._launches)}
+        """Runs of this program and the kernel launches they made, each
+        run's counted on the thread that made it (``kernels.counting``),
+        so runs on other threads at the same time do not mix in."""
+        with self._stats_lock:
+            return {"runs": self._runs, "launches": dict(self._launches)}
 
     def _leaves(self, feeds) -> Tuple[Dict[str, torch.Tensor], torch.dtype]:
         env: Dict[str, torch.Tensor] = {}
@@ -285,7 +291,15 @@ class CudaProgram:
         return env, dtype
 
     def __call__(self, feeds) -> Dict[str, torch.Tensor]:
-        before = kernels.launches()
+        with kernels.counting() as made:
+            out = self._run(feeds)
+        with self._stats_lock:
+            self._runs += 1
+            for k, v in made.items():
+                self._launches[k] += v
+        return out
+
+    def _run(self, feeds) -> Dict[str, torch.Tensor]:
         env, dtype = self._leaves(feeds)
         for call in self._pro:
             env.update(call(env))
@@ -309,9 +323,6 @@ class CudaProgram:
                 env[sl.final] = v
         for call in self._epi:
             env.update(call(env))
-        self._runs += 1
-        for k, v in kernels.launches().items():
-            self._launches[k] += v - before[k]
         return {o: env[o] for o in self.out_names}
 
 

@@ -3,11 +3,12 @@ torch version.
 
   ``stream``   — B1, the fused row-streaming pass, generated as Triton
                  source per pass (plus its reduction-finalize kernel),
-  ``spmv``     — B2, CSR SpMV, and B3, the same over an operand with an
-                 overbooked pin (its row prefix's loads marked
-                 evict_last in L2), CUDA C++ (``csrc/spmv.cu``), with B3's
-                 arrangement (which op runs sliced, and where the prefix
-                 ends); B3 counts as ``spmv_sliced``,
+  ``spmv``     — B2, CSR SpMV, and B3, CSR SpMV over an operand with an
+                 overbooked pin (row tiles staged in shared memory, the
+                 prefix tiles' copies marked evict_last in L2), CUDA C++
+                 (``csrc/spmv.cu``), with B3's arrangement (which op runs
+                 sliced, and where the prefix ends); B3 counts as
+                 ``spmv_sliced``,
   ``stencil``  — B4, the periodic 5-point stencil, CUDA C++
                  (``csrc/stencil.cu``),
   ``flash_attention`` — B5, online-softmax attention, CUDA C++
@@ -16,15 +17,24 @@ torch version.
                  (``csrc/fused_mlp.cu``),
   ``rmsnorm``  — B7, RMSNorm, CUDA C++ (``csrc/rmsnorm.cu``),
   ``rglru``    — B8, the RG-LRU scan, CUDA C++ (``csrc/rglru.cu``),
-  ``rwkv6``    — B9, the WKV6 recurrence, CUDA C++ (``csrc/wkv6.cu``),
-                 counted as ``wkv6``.
+  ``rwkv6``    — B9, the WKV6 recurrence in its chunked form, CUDA C++
+                 (``csrc/wkv6.cu``), counted as ``wkv6``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises — it never falls back.  ``LAUNCHES`` counts
-kernel launches, one per launch, incremented in the wrappers and nowhere
-else, so a run can show that its path went through the kernels.
+launches its kernel or raises — it never falls back.  Every wrapper calls
+:func:`count` once per launch, right where it launches, and nowhere else,
+so a run can show that its path went through the kernels:
+
+* ``LAUNCHES`` holds the process-wide counts (incremented under a lock;
+  :func:`launches` copies them, :func:`reset_launches` zeroes them);
+* :func:`counting` opens a counter for the calling thread alone and
+  yields it: it sees the launches that this thread makes while it is
+  open, whatever other threads launch meanwhile.  Scopes nest, and every
+  open one counts.  ``exec.cuda.CudaProgram`` counts its runs so.
 """
-from typing import Dict
+import contextlib
+import threading
+from typing import Dict, Iterator
 
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
@@ -33,14 +43,42 @@ LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "wkv6": 0}
 
 
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``: the process-wide count and every
+    counter that the calling thread has open."""
+    with _lock:
+        LAUNCHES[name] += 1
+    for open_counter in getattr(_local, "open", ()):
+        open_counter[name] += 1
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[Dict[str, int]]:
+    """A counter of the launches that the calling thread makes inside the
+    block, one entry per kernel of ``LAUNCHES``."""
+    stack = _local.__dict__.setdefault("open", [])
+    counter = dict.fromkeys(LAUNCHES, 0)
+    stack.append(counter)
+    try:
+        yield counter
+    finally:
+        stack.pop()                  # scopes close innermost first
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launches() -> Dict[str, int]:
     """A copy of the launch counts."""
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)
 
 
 def on_cuda(*tensors) -> bool:

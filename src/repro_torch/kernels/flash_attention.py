@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 #: keys per kv tile of the plain version and of the fp32 kernel (the bf16
 #: kernel takes 64, or 32 where E > 128)
@@ -134,7 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           else cuda_library().cello_flash_attention_f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = E ** -0.5 if scale is None else scale
-    LAUNCHES["flash_attention"] += 1
+    count("flash_attention")
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              ctypes.addressof(strides), B, H, KVH, S, T, E, float(scale),
              int(causal), int(window or 0), stream), "flash_attention")

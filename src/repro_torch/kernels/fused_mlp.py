@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 #: activation name -> the kernel's code
 ACTIVATIONS = {"silu": 0, "gelu": 1, "relu2": 2}
@@ -151,7 +151,7 @@ def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     fn = (cuda_library().cello_fused_mlp_bf16 if x.dtype == torch.bfloat16
           else cuda_library().cello_fused_mlp_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES["fused_mlp"] += 1
+    count("fused_mlp")
     check(fn(x.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
              w_up.data_ptr(), w_down.data_ptr(), partial.data_ptr(),
              out.data_ptr(), m, d, f, chunk, block_m,

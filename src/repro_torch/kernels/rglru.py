@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 #: the RG-LRU's fixed scale of the log decay (``RGLRU_C``)
 RGLRU_C = 8.0
@@ -83,7 +83,7 @@ def rglru(x: torch.Tensor, gate_r: torch.Tensor, gate_i: torch.Tensor,
     fn = (cuda_library().cello_rglru_bf16 if x.dtype == torch.bfloat16
           else cuda_library().cello_rglru_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES["rglru"] += 1
+    count("rglru")
     check(fn(x.data_ptr(), gate_r.data_ptr(), gate_i.data_ptr(),
              a_param.data_ptr(), None if h0 is None else h0.data_ptr(),
              y.data_ptr(), h_out.data_ptr(), B, S, D, stream), "rglru")

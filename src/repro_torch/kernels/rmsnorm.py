@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -45,7 +45,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     fn = (cuda_library().cello_rmsnorm_bf16 if x.dtype == torch.bfloat16
           else cuda_library().cello_rmsnorm_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES["rmsnorm"] += 1
+    count("rmsnorm")
     check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, float(eps),
              stream), "rmsnorm")
     return y

@@ -11,11 +11,16 @@ B3 replaces ``:616`` ``_spmv_sliced_tile`` together with its arrangement,
 ``:300`` ``_StreamCall._arrange``.  An overbooked pin keeps an
 indptr-aligned row prefix of a CSR operand resident and streams the rest.
 :func:`arrange` decides, as the JAX package does, whether an spmv op runs
-sliced at all and where the resident prefix ends; B3 is B2's kernel with
-the prefix rows' loads marked evict_last in the card's L2 (a hint: see the
-source for what the card measured of it).  The prefix is the leading range
-of the CSR arrays themselves, so no packed layout is built: the arrangement
-is static (pattern meta only) and is made once, when the plan compiles.
+sliced at all and where the resident prefix ends.  B3 is a kernel of its
+own, shaped like the TPU kernel: a block stages each tile of
+``B3_TILE_ROWS`` rows' entries in shared memory with coalesced 16-byte
+copies (windows of ``B3_WINDOW`` entries, double-buffered), then each
+thread sums its row from there in B2's order, so the two agree bitwise.
+The copies of tiles inside the prefix carry an L2 evict_last hint, the
+tail's evict_first (see the source for the design and what the card
+measured of the hint).  The prefix is the leading range of the CSR arrays
+themselves, so no packed layout is built: the arrangement is static
+(pattern meta only) and is made once, when the plan compiles.
 """
 from __future__ import annotations
 
@@ -23,7 +28,12 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
+
+#: B3's rows a tile and entries a staged window (``kTileRows``, ``kWindow``
+#: in ``csrc/spmv.cu``); a row longer than a window spans several
+B3_TILE_ROWS = 128
+B3_WINDOW = 4608
 
 
 def csr_row_ids(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -92,11 +102,14 @@ def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     for t in (indptr, indices, data, x):
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous tensors")
+    if sliced and (indices.data_ptr() | data.data_ptr()) % 16:
+        raise ValueError("spmv_sliced kernel stages 16-byte chunks: indices "
+                         "and data must start 16-byte aligned")
     y = torch.empty(rows, dtype=x.dtype, device=x.device)
     suffix = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(cuda_library(), f"cello_{name}_{suffix}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES[name] += 1
+    count(name)
     check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
              x.data_ptr(), y.data_ptr(), rows,
              *((prefix_rows,) if sliced else ()), stream), name)

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 
 def stencil2d_plain(u: torch.Tensor, f: Optional[torch.Tensor] = None,
@@ -56,7 +56,7 @@ def stencil2d(u: torch.Tensor, f: Optional[torch.Tensor] = None,
     fn = (cuda_library().cello_stencil2d_f32 if u.dtype == torch.float32
           else cuda_library().cello_stencil2d_f64)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    LAUNCHES["stencil2d"] += 1
+    count("stencil2d")
     check(fn(u.data_ptr(), None if f is None else f.data_ptr(),
              out.data_ptr(), u.shape[0], u.shape[1], 0.25 * float(h2),
              stream), "stencil2d")

@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from ..core.lowering import STREAM_EINSUMS
-from . import LAUNCHES, on_cuda
+from . import count, on_cuda
 
 #: widest ``(rows, C)`` tile a program holds in registers
 MAX_TILE_WIDTH = 256
@@ -253,12 +253,12 @@ class StreamKernel:
         part = torch.empty((max(len(self.red_out), 1), self.n_prog),
                            dtype=dtype, device=dev)
         warps = 8 if self.block_r >= 2048 else 4
-        LAUNCHES["stream"] += 1
+        count("stream")
         main[(self.n_prog,)](*ins, *[outs[n] for n in self.stream_out], part,
                              num_warps=warps, enable_fp_fusion=False)
         if self.scalar_out:
             fin_ins = [env[n] for n in self._fin_scalar_in]
-            LAUNCHES["stream_finalize"] += 1
+            count("stream_finalize")
             fin[(1,)](part, *fin_ins, *[outs[n] for n in self.scalar_out],
                       num_warps=4, enable_fp_fusion=False)
         return outs

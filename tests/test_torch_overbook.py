@@ -40,8 +40,8 @@ import repro_torch.frontends as pt_fe
 from repro.exec.pallas import _StreamCall
 from repro_torch import kernels
 from repro_torch.exec import cuda as pt_cuda
-from repro_torch.kernels.spmv import (arrange, spmv, spmv_plain,
-                                      spmv_sliced_plain)
+from repro_torch.kernels.spmv import (B3_TILE_ROWS, B3_WINDOW, arrange,
+                                      spmv, spmv_plain, spmv_sliced_plain)
 
 TOL = {np.float32: dict(rtol=2e-4, atol=1e-5),
        np.float64: dict(rtol=1e-9, atol=1e-12)}
@@ -321,21 +321,78 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_pattern(rng, pattern):
+    """(rows, indptr, indices) of one B3 operand for the card: the 5-point
+    Laplacian, a random pattern, a skewed one whose first rows are longer
+    than one staged window (``B3_WINDOW``), and a banded one."""
+    if pattern == "laplacian5":
+        g = 64
+        r, c = np.divmod(np.arange(g * g), g)
+        counts = 1 + (r > 0) + (r < g - 1) + (c > 0) + (c < g - 1)
+        return g * g, *_with_counts(rng, g * g, counts)
+    if pattern == "random":
+        rows = 5000
+        return rows, *_csr(rng, rows, empty_every=13)
+    if pattern == "skewed":
+        rows = 3000
+        counts = np.clip((2 * B3_WINDOW / np.sqrt(np.arange(rows) + 1.0)
+                          ).astype(np.int64), 1, rows)
+        assert counts.max() > B3_WINDOW
+        return rows, *_with_counts(rng, rows, counts)
+    rows, bw = 4096, 16
+    counts = (np.minimum(np.arange(rows), bw)
+              + np.minimum(rows - 1 - np.arange(rows), bw) + 1)
+    return rows, *_with_counts(rng, rows, counts)
+
+
+def _with_counts(rng, rows, counts):
+    indptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int32)
+    indices = rng.integers(0, rows, int(indptr[-1])).astype(np.int32)
+    return indptr, indices
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("where", ["none", "middle", "all"])
+@pytest.mark.parametrize("pattern",
+                         ["laplacian5", "random", "skewed", "banded"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=DT_IDS)
-def test_b3_matches_plain_version_on_the_card(cuda_device, dtype):
+def test_b3_matches_plain_version_on_the_card(cuda_device, dtype, pattern,
+                                              where):
+    """B3 bitwise against its plain version and B2, with a resident prefix
+    of no rows, whole tiles up to the middle, or all rows."""
     rng = np.random.default_rng(12)
-    rows = 5000
-    indptr, indices = _csr(rng, rows, empty_every=13)
+    rows, indptr, indices = _card_pattern(rng, pattern)
     t = [torch.from_numpy(v).to(cuda_device) for v in (indptr, indices)]
     data = torch.from_numpy(rng.standard_normal(indices.shape[0])).to(
         cuda_device, dtype)
     x = torch.from_numpy(rng.standard_normal(rows)).to(cuda_device, dtype)
+    prefix = {"none": 0, "middle": rows // 2 // B3_TILE_ROWS * B3_TILE_ROWS,
+              "all": rows}[where]
     before = kernels.launches()["spmv_sliced"]
-    for prefix in (0, 2500, rows):
-        got = spmv(t[0], t[1], data, x, rows, prefix)
-        torch.cuda.synchronize()
-        assert torch.equal(got, spmv_sliced_plain(t[0], t[1], data, x, rows,
-                                                  prefix))
-    assert kernels.launches()["spmv_sliced"] == before + 3
+    got = spmv(t[0], t[1], data, x, rows, prefix)
+    torch.cuda.synchronize()
+    assert kernels.launches()["spmv_sliced"] == before + 1
+    assert torch.equal(got, spmv_sliced_plain(t[0], t[1], data, x, rows,
+                                              prefix))
+    assert torch.equal(got, spmv(t[0], t[1], data, x, rows))
+
+
+@pytest.mark.gpu
+def test_b3_refuses_unaligned_operands_on_the_card(cuda_device):
+    """B3 stages 16-byte chunks: an operand that does not start 16-byte
+    aligned raises; it does not run B2 instead."""
+    rows = 8
+    dev = cuda_device
+    indptr = torch.arange(rows + 1, dtype=torch.int32, device=dev)
+    indices = torch.zeros(rows, dtype=torch.int32, device=dev)
+    data, x = torch.ones(rows, device=dev), torch.ones(rows, device=dev)
+    # views one element into a fresh allocation: 4 bytes past alignment
+    off_indices = torch.zeros(rows + 1, dtype=torch.int32, device=dev)[1:]
+    off_data = torch.ones(rows + 1, device=dev)[1:]
+    assert torch.equal(spmv(indptr, indices, data, x, rows, 4),
+                       torch.ones(rows, device=dev))
+    for bad in ((indptr, off_indices, data, x), (indptr, indices, off_data,
+                                                  x)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            spmv(*bad, rows, 4)

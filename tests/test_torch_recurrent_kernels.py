@@ -6,8 +6,10 @@
   a multiple of the JAX kernel's ``d_block`` (which pads D, the port does
   not), and a sequence split in two whose second half starts from the
   first half's state;
-* B9 — ``wkv6_plain`` against ``repro.kernels.rwkv6.wkv6`` and
-  ``wkv6_reference`` with the same cases (E = 16, 32, 64);
+* B9 — ``wkv6_plain`` (the kernel's chunked form) against
+  ``repro.kernels.rwkv6.wkv6`` and ``wkv6_reference`` with the same cases
+  (E = 16, 32, 64; S within one chunk, below one, over several with a
+  ragged end; strong decays, w over [-8, 3]; a split inside a chunk);
 * ``softplus`` against ``jax.nn.softplus``.
 
 Tolerances: fp32 outputs and the fp32 states within ``TOL`` = 1e-5 of the
@@ -35,7 +37,7 @@ from repro.kernels.rwkv6 import wkv6 as jx_wkv6
 from repro.kernels.rwkv6 import wkv6_reference as jx_wkv6_ref
 from repro_torch import kernels
 from repro_torch.kernels.rglru import rglru, rglru_plain, softplus
-from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6 import CHUNK, wkv6, wkv6_plain
 
 TOL = 1e-5
 DTYPES = {"fp32": (jnp.float32, torch.float32),
@@ -137,16 +139,24 @@ def test_rglru_split_sequence_carries_the_state(dtype_id):
 # B9 · WKV6
 # ---------------------------------------------------------------------------
 
-#: (B, H, S, E)
+#: (B, H, S, E): the port's plain version runs chunks of ``CHUNK`` steps,
+#: so S spans one chunk, below one chunk, and several with a ragged end
 WKV6_CASES = {"e32": (1, 2, 16, 32), "e64": (2, 3, 9, 64),
-              "e16-long": (1, 1, 40, 16)}
+              "e16-long": (1, 1, 40, 16),
+              "multi-chunk": (1, 2, 2 * CHUNK + 5, 32),
+              "below-chunk": (2, 2, CHUNK - 11, 64),
+              "strong-decay": (1, 2, 2 * CHUNK + 5, 64)}
+#: the log decay's draw per case (default: normal, sd 0.5): strong decays,
+#: w over [-8, 3], make a step's decay run from ~0.9997 to ~2e-9
+WKV6_W_RANGE = {"strong-decay": (-8.0, 3.0)}
 
 
-def _wkv6_inputs(rng, B, H, S, E, dtype_id, with_s0):
+def _wkv6_inputs(rng, B, H, S, E, dtype_id, with_s0, w_range=None):
     r = _randn(rng, (B, H, S, E))
     k = _randn(rng, (B, H, S, E), 0.3)
     v = _randn(rng, (B, H, S, E))
-    w = _randn(rng, (B, H, S, E), 0.5)
+    w = (_randn(rng, (B, H, S, E), 0.5) if w_range is None else
+         rng.uniform(*w_range, (B, H, S, E)).astype(np.float32))
     u = _randn(rng, (H, E), 0.3)
     s0 = _randn(rng, (B, H, E, E), 0.2) if with_s0 else None
     jx = [_pair(t, dtype_id)[0] for t in (r, k, v)] + [
@@ -164,7 +174,8 @@ def _wkv6_inputs(rng, B, H, S, E, dtype_id, with_s0):
 def test_wkv6_plain_matches_pallas_and_reference(case, dtype_id, with_s0):
     B, H, S, E = WKV6_CASES[case]
     rng = np.random.default_rng(33)
-    jx, js0, pt, ps0 = _wkv6_inputs(rng, B, H, S, E, dtype_id, with_s0)
+    jx, js0, pt, ps0 = _wkv6_inputs(rng, B, H, S, E, dtype_id, with_s0,
+                                    WKV6_W_RANGE.get(case))
     y, sT = wkv6_plain(*pt, ps0)
     assert y.dtype == pt[0].dtype and sT.dtype == torch.float32
     for jy, jsT in (jx_wkv6(*jx, js0), jx_wkv6_ref(*jx, js0)):
@@ -183,6 +194,24 @@ def test_wkv6_split_sequence_carries_the_state(dtype_id):
     y2, s2 = wkv6_plain(*[t[:, :, cut:] for t in pt[:4]], pt[4], s1)
     _hold(torch.cat([y1, y2], 2), jy, dtype_id)
     _close(s2.numpy(), np.asarray(jsT))
+
+
+@pytest.mark.parametrize("dtype_id", list(DTYPES))
+def test_wkv6_split_inside_a_chunk_carries_the_state(dtype_id):
+    """Cut in the middle of the plain version's second chunk, with strong
+    decays: the second call's chunks start at the cut, so the two halves
+    are chunked differently from the whole; both agree with JAX's
+    interpret-mode kernel and its sequential reference."""
+    B, H, S, E = 1, 2, 3 * CHUNK + 3, 64
+    rng = np.random.default_rng(36)
+    jx, _, pt, _ = _wkv6_inputs(rng, B, H, S, E, dtype_id, False,
+                                (-8.0, 3.0))
+    cut = CHUNK + 7
+    y1, s1 = wkv6_plain(*[t[:, :, :cut] for t in pt[:4]], pt[4])
+    y2, s2 = wkv6_plain(*[t[:, :, cut:] for t in pt[:4]], pt[4], s1)
+    for jy, jsT in (jx_wkv6(*jx), jx_wkv6_ref(*jx)):
+        _hold(torch.cat([y1, y2], 2), jy, dtype_id)
+        _close(s2.numpy(), np.asarray(jsT))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +275,8 @@ def cuda_device():
                          ids=["fp32", "bf16"])
 def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype):
     """B8 at a D that no block divides, B9 at E = 16 and 64 on the model's
-    transposed (B, S, H, E) views, both with and without a state."""
+    transposed (B, S, H, E) views (at E = 64 also with strong decays, w
+    over [-8, 3]), both with and without a state."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*shape, scale=1.0):
@@ -268,10 +298,12 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype):
                              rglru_plain(x, gr, gi, ap, init)):
             hold(got, want)
         assert kernels.launches()["rglru"] == before + 1
-    for H, E in ((3, 16), (2, 64)):
+    for H, E, strong in ((3, 16, False), (2, 64, False), (2, 64, True)):
         r, k, v = (rnd(B, S, H, E, scale=sc).to(dtype).transpose(1, 2)
                    for sc in (1.0, 0.3, 1.0))
-        w = rnd(B, S, H, E, scale=0.5).transpose(1, 2)
+        w = (torch.rand((B, S, H, E), generator=g, device=cuda_device)
+             * 11.0 - 8.0 if strong else rnd(B, S, H, E, scale=0.5)
+             ).transpose(1, 2)
         u, s0 = rnd(H, E, scale=0.3), rnd(B, H, E, E, scale=0.2)
         for init in (None, s0):
             got = wkv6(r, k, v, w, u, init)
