@@ -23,7 +23,9 @@ Phases, each of which raises (exit code 1) on failure:
    prefix's bytes, then restored; then B3 bitwise against its plain
    version and B2 on the 5-point Laplacian, a random pattern and a skewed
    one whose longest rows exceed a staged window, with prefixes of none,
-   part and all rows), B4 (periodic stencil, 4096x4096);
+   part and all rows), B4 (periodic stencil, 4096x4096, timed; bitwise
+   also without f, at odd and tiny grids and with an operand not 16-byte
+   aligned);
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
    d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
@@ -37,8 +39,11 @@ Phases, each of which raises (exit code 1) on failure:
    (gated tanh-gelu M 4096, D 2560, F 7680; relu² M 1024, D 4096, F
    14336); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D 2560) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
-   layout), in bf16 and fp32, each with and without an initial state (B9
-   also with strong decays, w over [-8, 3]);
+   layout), in bf16 and fp32, each with and without an initial state (B8
+   also with long memory, Λ over [-12, -7], and at sequences that are no
+   multiple of its chunk or below one, each call's CUDA launches counted
+   by the profiler and a second call repeating bitwise; B9 also with
+   strong decays, w over [-8, 3]);
 4. the HPC path, ``Session(device="cuda") -> trace -> analyze -> codesign
    -> lower(backend="cuda") -> run()``: cg(n=4096, iters=64),
    cg_sparse(n=2^20, iters=64, laplacian5) in fp32 and fp64, and
@@ -685,8 +690,19 @@ def check_spmv_sliced_shapes(patterns, dtypes):
     return out
 
 
+#: B4's bitwise checks beside the timed 4096² sweep, (n0, n1, what they
+#: reach): a width no vector divides, a ragged last column tile on the
+#: vector path, a strip cut short, and grids whose neighbours coincide
+B4_SHAPES = ((1000, 1003, "scalar path: n1 odd"),
+             (37, 1004, "vector path, ragged last tile and strip"),
+             (1, 1, "tiny"), (1, 5, "tiny"), (2, 3, "tiny"), (3, 2, "tiny"))
+
+
 def check_stencil(results, dtypes, n=4096):
-    """B4 on one jacobi2d sweep at n x n."""
+    """B4 on one jacobi2d sweep at n x n, timed; then bitwise checks with
+    and without f at ``B4_SHAPES``, at n x n without f, and with u or out
+    offset by one element (not 16-byte aligned: the scalar path).  Returns
+    the bitwise checks' records."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -695,6 +711,18 @@ def check_stencil(results, dtypes, n=4096):
     u_np, f_np = rng.standard_normal((2, n, n))
     w = torch.zeros(1, 1, 3, 3)
     w[0, 0, 0, 1] = w[0, 0, 2, 1] = w[0, 0, 1, 0] = w[0, 0, 1, 2] = 0.25
+    shapes = []
+
+    def bitwise(u, f, what, h2=1.0, out=None):
+        got = stencil2d(u, f, h2, out=out)
+        torch.cuda.synchronize()
+        want = stencil2d_plain(u, f, h2)
+        assert torch.equal(got, want), ("stencil2d", what, u.dtype,
+                                        max_err(got, want))
+        shapes.append(dict(shape=list(u.shape), dtype=str(u.dtype)[6:],
+                           f=f is not None, case=what, bitwise=True,
+                           card=CARD))
+
     for dt in dtypes:
         tdt = getattr(torch, dt)
         u = torch.from_numpy(u_np).to("cuda", tdt)
@@ -715,6 +743,26 @@ def check_stencil(results, dtypes, n=4096):
                case=f"jacobi2d sweep {n}x{n}", dtype=dt, err=err,
                rel_err=err, tol=0.0, nbytes=3 * u.numel() * u.element_size(),
                flops=6 * u.numel(), times=times)
+        bitwise(u, None, "path shape, no f")
+        for n0, n1, what in B4_SHAPES:
+            a, b = (torch.from_numpy(rng.standard_normal((n0, n1)))
+                    .to("cuda", tdt) for _ in range(2))
+            bitwise(a, b, what, h2=0.5)
+            bitwise(a, None, what)
+        m0, m1 = 1000, 1004
+        buf = torch.from_numpy(rng.standard_normal(m0 * m1 + 1)).to(
+            "cuda", tdt)
+        shifted = buf[1:].view(m0, m1)
+        assert shifted.data_ptr() % 16, "the offset operand is aligned"
+        a = torch.from_numpy(rng.standard_normal((m0, m1))).to("cuda", tdt)
+        bitwise(shifted, a, "u offset one element (scalar path)")
+        out = torch.empty_like(buf)[1:].view(m0, m1)
+        bitwise(a, shifted, "out offset one element (scalar path)", out=out)
+    grids = ", ".join(f"{a}x{b}" for a, b, _ in B4_SHAPES)
+    log(f"  B4 bitwise equal to its plain version at {len(shapes)} more "
+        f"checks: {n}x{n} without f, {grids} with and without f, u or out "
+        f"offset one element; {', '.join(dtypes)}")
+    return shapes
 
 
 def relax_program(pkg, n):
@@ -1092,52 +1140,99 @@ def check_mlp_recurrent(results):
 
 def _eager_times(kernel, plain):
     """The kernel's device and eager times; the plain version's eager time
-    (a Python loop over t, B8, or over chunks, B9: the host issues its
-    launches, so a CUDA graph of it would hold thousands of nodes)."""
+    (Python loops over a chunk's steps and over chunks: the host issues
+    its launches, so a CUDA graph of it would hold hundreds of nodes)."""
     return dict(ms=graph_ms(kernel), call_ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(plain, reps=2, warmup=1), library_ms=None)
 
 
+def cuda_launches(fn, needle):
+    """The CUDA kernels whose names contain ``needle`` that one call of
+    ``fn`` launches, as ``torch.profiler`` traces them on the card.  ``fn``
+    must launch no other kernel: a one-element add before and after it
+    shows that the trace covered the call, and a trace that lost either
+    (CUPTI can miss the first kernels it traces) is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros(1, device="cuda")
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mark.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            mark.add_(1)
+            torch.cuda.synchronize()
+        seen = [ev.name for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(needle not in n for n in seen) == 2:
+            return sum(needle in n for n in seen)
+    raise AssertionError(("the trace lost its markers", needle, seen))
+
+
 def check_rglru(results):
     """B8 at recurrentgemma-2b's prefill shape (B 1, S 4096, D 2560), bf16
-    and fp32, with and without an initial state; y held as ``_hold`` holds
-    an output, the fp32 final state within ``KERNEL_TOL``.  No one torch
-    call computes the scan."""
+    and fp32, with and without an initial state; then long memory (Λ over
+    [-12, -7], a from ~0.993 to ~0.99995: the carries between chunks decide
+    the result), a sequence that is no multiple of ``CHUNK`` and one below
+    a chunk.  y held as ``_hold`` holds an output, the fp32 final state
+    within ``KERNEL_TOL``; a second call must repeat both bitwise; each
+    record gives the CUDA launches of one call (two, one below a chunk).
+    No one torch call computes the scan."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rglru import rglru, rglru_plain
-    B, S, D = 1, HYBRID_SEQ, get_config(HYBRID_ARCH).d_model
+    from repro_torch.kernels.rglru import CHUNK, rglru, rglru_plain
+    B, D = 1, get_config(HYBRID_ARCH).d_model
     rng = np.random.default_rng(24)
     a_param = _rand(rng, (D,), torch.float32)
+    a_long = torch.from_numpy(np.random.default_rng(27).uniform(
+        -12.0, -7.0, D).astype(np.float32)).cuda()
     h0 = _rand(rng, (B, D), torch.float32)
-    for dt in ("bfloat16", "float32"):
+    cases = [(dt, HYBRID_SEQ, a_param, init, "")
+             for dt in ("bfloat16", "float32") for init in (None, h0)]
+    cases += [(dt, HYBRID_SEQ, a_long, h0, " long memory, Λ over [-12, -7]")
+              for dt in ("bfloat16", "float32")]
+    cases += [("bfloat16", HYBRID_SEQ - 27, a_param, h0,
+               f" S no multiple of CHUNK {CHUNK}"),
+              ("bfloat16", CHUNK - 27, a_param, h0,
+               f" S below CHUNK {CHUNK}")]
+    for dt, S, ap, init, what in cases:
         tdt = getattr(torch, dt)
         x, gr, gi = (_rand(rng, (B, S, D), tdt) for _ in range(3))
-        for init in (None, h0):
-            def kernel():
-                return rglru(x, gr, gi, a_param, init)
 
-            def plain():
-                return rglru_plain(x, gr, gi, a_param, init)
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            err, rel = _hold("rglru y", got[0], want[0], dt)
-            h_err, h_rel = _hold("rglru hT", got[1], want[1], "float32")
-            times = _eager_times(kernel, plain)
-            es = x.element_size()
-            nbytes = (4 * es * B * S * D + 4 * D
-                      + 4 * B * D * (1 if init is None else 2))
-            record(results, "B8 rglru  ", kernel="rglru",
-                   case=f"{HYBRID_ARCH} B={B} S={S} D={D} "
-                   f"h0={'none' if init is None else 'given'}", dtype=dt,
-                   err=err, rel_err=rel,
-                   tol=KERNEL_TOL["float32"] if dt == "float32"
-                   else "1 bf16 rounding", nbytes=nbytes,
-                   flops=16 * B * S * D, times=times, peak="float32",
-                   plain_timing="eager", state_max_abs_err=h_err,
-                   state_rel_err=h_rel)
+        def kernel():
+            return rglru(x, gr, gi, ap, init)
+
+        def plain():
+            return rglru_plain(x, gr, gi, ap, init)
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            ("rglru does not repeat bitwise", dt, S, what)
+        want = plain()
+        err, rel = _hold("rglru y", got[0], want[0], dt)
+        h_err, h_rel = _hold("rglru hT", got[1], want[1], "float32")
+        launches = cuda_launches(kernel, "rglru_")
+        assert launches == (2 if S > CHUNK else 1), ("rglru launches",
+                                                     launches, S)
+        times = _eager_times(kernel, plain)
+        es = x.element_size()
+        nbytes = (4 * es * B * S * D + 4 * D
+                  + 4 * B * D * (1 if init is None else 2))
+        record(results, "B8 rglru  ", kernel="rglru",
+               case=f"{HYBRID_ARCH} B={B} S={S} D={D} "
+               f"h0={'none' if init is None else 'given'}{what}", dtype=dt,
+               err=err, rel_err=rel,
+               tol=KERNEL_TOL["float32"] if dt == "float32"
+               else "1 bf16 rounding", nbytes=nbytes,
+               flops=16 * B * S * D, times=times, peak="float32",
+               plain_timing="eager", state_max_abs_err=h_err,
+               state_rel_err=h_rel, cuda_launches_per_call=launches,
+               repeats_bitwise=True)
 
 
 def check_wkv6(results):
@@ -1994,7 +2089,7 @@ def main(argv=None) -> int:
                       prefix_rows(ob_plans["cg_sparse", 0.25, "float64"]),
                       results, dtypes)
     b3_shapes = check_spmv_sliced_shapes(b3_patterns(csr), dtypes)
-    check_stencil(results, dtypes)
+    b4_shapes = check_stencil(results, dtypes)
     check_off_path(dtypes)
     check_rmsnorm(results)
     check_flash(results)
@@ -2093,7 +2188,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"nvidia_smi": smi, "kernels": table, "paths": paths,
-                       "b3_shapes": b3_shapes, "two_threads": two_threads,
+                       "b3_shapes": b3_shapes, "b4_shapes": b4_shapes,
+                       "two_threads": two_threads,
                        "build_seconds": build.build_seconds}, fh, indent=1)
     log(smi_line())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

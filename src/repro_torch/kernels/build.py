@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     for name in ("cello_rglru_bf16", "cello_rglru_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
         fn.restype = i32
     for name in ("cello_wkv6_bf16", "cello_wkv6_f32"):
         fn = getattr(lib, name)

@@ -2,10 +2,14 @@
 and its plain version.
 
 Replaces ``repro/exec/pallas.py:687`` ``_BlockCall._build`` for the
-``stencil2d`` op (``repro/exec/reference.py:58-64``).  The kernel tiles the
-grid with a wrap-around halo in shared memory and keeps the reference's add
-order and roundings, so it agrees with the plain version bitwise; see the
-source for the design and its bound.
+``stencil2d`` op (``repro/exec/reference.py:58-64``).  In the kernel each
+warp walks a strip of rows down a tile of columns, with 16-byte vectors a
+lane, the north, centre and south rows in registers and the west and east
+neighbours from the next lanes by shuffles; a grid whose width is not a
+multiple of the vector, or an operand not 16-byte aligned, takes the same
+kernel's scalar path.  It keeps the reference's add order and roundings, so
+it agrees with the plain version bitwise on either path; see the source for
+the design and its bound.
 """
 from __future__ import annotations
 

@@ -204,14 +204,28 @@ def test_spmv_plain_matches_reference_rule(pattern, kw, dtype):
     np.testing.assert_allclose(got.numpy(), want, **TOL[dtype])
 
 
-@pytest.mark.parametrize("h2,with_f", [(1.0, True), (0.5, True),
-                                       (1.0, False)])
+#: B4's grids: the kernel's vector path (24x40), its scalar path (a width
+#: no 16-byte vector divides), and grids of one to three rows or columns,
+#: whose neighbours coincide
+STENCIL_SHAPES = [(24, 40), (1000, 1003), (1, 1), (1, 5), (2, 3), (3, 2)]
+#: (h2, f given, shape): the first three keep their ids from before the
+#: shapes were added
+STENCIL_CASES = [(1.0, True, (24, 40)), (0.5, True, (24, 40)),
+                 (1.0, False, (24, 40))] + [
+    (h2, with_f, shape) for shape in STENCIL_SHAPES[1:]
+    for h2, with_f in ((0.5, True), (1.0, False))]
+
+
+@pytest.mark.parametrize("h2,with_f,shape", STENCIL_CASES, ids=[
+    f"{h2}-{with_f}" + ("" if shape == (24, 40) else
+                        f"-{shape[0]}x{shape[1]}")
+    for h2, with_f, shape in STENCIL_CASES])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64],
                          ids=["fp32", "fp64"])
-def test_stencil_plain_is_bitwise_reference_rule(h2, with_f, dtype):
+def test_stencil_plain_is_bitwise_reference_rule(h2, with_f, shape, dtype):
     p = jx_fe.Program("st")
-    u = p.input("u", (24, 40))
-    f = p.input("f", (24, 40)) if with_f else None
+    u = p.input("u", shape)
+    f = p.input("f", shape) if with_f else None
     p.output(p.stencil2d(u, f, h2=h2, name="v"))
     feeds = jx_fe.make_feeds(p, seed=8, dtype=dtype)
     ins = [feeds[n] for n in p.nodes["v"].inputs]
@@ -252,3 +266,48 @@ def test_block_unit_runs_elementwise_ops_between_sweeps():
     assert sorted(got) == sorted(want) == ["d", "out"]
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["fp32", "fp64"])
+def test_stencil_kernel_bitwise_on_the_card(cuda_device, dtype):
+    """B4 against its plain version, bitwise, at ``STENCIL_SHAPES`` and a
+    path-sized grid, with f and without, and with u, f or out one element
+    off 16-byte alignment (the kernel's scalar path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device,
+                           dtype=dtype)
+
+    def hold(u, f, h2, out=None):
+        got = stencil2d(u, f, h2, out=out)
+        assert torch.equal(got, stencil2d_plain(u, f, h2)), (
+            tuple(u.shape), f is None, h2)
+
+    before = kernels.launches()["stencil2d"]
+    for shape in STENCIL_SHAPES + [(1024, 1024)]:
+        u, f = rnd(*shape), rnd(*shape)
+        hold(u, f, 0.5)
+        hold(u, None, 1.0)
+    n0, n1 = 40, 1004
+    buf = rnd(n0 * n1 + 1)
+    shifted = buf[1:].view(n0, n1)
+    assert shifted.data_ptr() % 16
+    u = rnd(n0, n1)
+    hold(shifted, u, 1.0)
+    hold(u, shifted, 1.0, out=torch.empty_like(buf)[1:].view(n0, n1))
+    assert kernels.launches()["stencil2d"] == before + 2 * (
+        len(STENCIL_SHAPES) + 1) + 2

@@ -1,11 +1,16 @@
 """The recurrent kernels' plain versions against the JAX package's.
 
-* B8 — ``rglru_plain`` against ``repro.kernels.rglru.rglru`` (Pallas in
-  interpret mode, which its ``ops.py`` picks on the CPU) and against
-  ``rglru_reference``: bf16 and fp32, h0 given and absent, a D that is not
-  a multiple of the JAX kernel's ``d_block`` (which pads D, the port does
-  not), and a sequence split in two whose second half starts from the
-  first half's state;
+* B8 — ``rglru_plain`` (the kernel's chunked scan) against
+  ``repro.kernels.rglru.rglru`` (Pallas in interpret mode, which its
+  ``ops.py`` picks on the CPU) and against ``rglru_reference``: bf16 and
+  fp32, h0 given and absent, a D that is not a multiple of the JAX
+  kernel's ``d_block`` (which pads D, the port does not), S over several
+  chunks with a ragged end, below one chunk, a 4096-step sequence (63
+  carries), and a sequence split in two, also inside a chunk, whose
+  second half starts from the first half's state; and long memory (Λ over
+  [-12, -7], a close to 1, where the carries decide the result) against
+  an fp64 scan of the plain version's own a and b, and against JAX beside
+  a sequential fp32 scan (see that test for why);
 * B9 — ``wkv6_plain`` (the kernel's chunked form) against
   ``repro.kernels.rwkv6.wkv6`` and ``wkv6_reference`` with the same cases
   (E = 16, 32, 64; S within one chunk, below one, over several with a
@@ -25,6 +30,8 @@ launch; ``chip_smoke.py`` holds the CUDA kernels against these plain
 versions on the card, and the ``gpu`` test below does so when a card is
 present.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +43,10 @@ from repro.kernels.rglru import rglru_reference as jx_rglru_ref
 from repro.kernels.rwkv6 import wkv6 as jx_wkv6
 from repro.kernels.rwkv6 import wkv6_reference as jx_wkv6_ref
 from repro_torch import kernels
+from repro_torch.kernels import build
+import repro_torch.kernels.rglru as pt_rglru
+import repro_torch.kernels.rwkv6 as pt_rwkv6
+from repro_torch.kernels.rglru import CHUNK as RGLRU_CHUNK
 from repro_torch.kernels.rglru import rglru, rglru_plain, softplus
 from repro_torch.kernels.rwkv6 import CHUNK, wkv6, wkv6_plain
 
@@ -88,17 +99,25 @@ def _pair(a: np.ndarray, dtype_id):
 # B8 · RG-LRU
 # ---------------------------------------------------------------------------
 
-#: (B, S, D, the JAX kernel's d_block)
+#: (B, S, D, the JAX kernel's d_block): the port's plain version runs
+#: chunks of ``RGLRU_CHUNK`` steps, so S spans one chunk's part, several
+#: with a ragged end, and less than one
 RGLRU_CASES = {
     "aligned": (2, 24, 128, 64),
     "d-not-multiple-of-block": (1, 33, 200, 128),
     "d-below-block": (3, 9, 96, 512),
+    "multi-chunk": (1, 3 * RGLRU_CHUNK + 5, 96, 64),
+    "below-chunk": (2, RGLRU_CHUNK - 27, 64, 64),
 }
+#: long memory: Λ over [-12, -7] makes a step's decay a run from ~0.993 to
+#: ~0.99995, so the state carries across many chunks
+LONG_MEMORY = (-12.0, -7.0)
 
 
-def _rglru_inputs(rng, B, S, D, dtype_id, with_h0):
+def _rglru_inputs(rng, B, S, D, dtype_id, with_h0, a_range=None):
     x, gr, gi = (_randn(rng, (B, S, D)) for _ in range(3))
-    ap = _randn(rng, (D,))
+    ap = (_randn(rng, (D,)) if a_range is None else
+          rng.uniform(*a_range, D).astype(np.float32))
     h0 = _randn(rng, (B, D)) if with_h0 else None
     jx = [_pair(t, dtype_id)[0] for t in (x, gr, gi)] + [jnp.asarray(ap)]
     pt = [_pair(t, dtype_id)[1] for t in (x, gr, gi)] + [
@@ -133,6 +152,95 @@ def test_rglru_split_sequence_carries_the_state(dtype_id):
     y2, h2 = rglru_plain(*[t[:, cut:] for t in pt[:3]], pt[3], h1)
     _hold(torch.cat([y1, y2], 1), jy, dtype_id)
     _close(h2.numpy(), np.asarray(jhT))
+
+
+@pytest.mark.parametrize("dtype_id", list(DTYPES))
+def test_rglru_split_inside_a_chunk_carries_the_state(dtype_id):
+    """Cut in the middle of the plain version's second chunk: the second
+    call's chunks start at the cut, so the two halves are chunked
+    differently from the whole; both agree with JAX's interpret-mode
+    kernel and its sequential reference."""
+    B, S, D = 1, 3 * RGLRU_CHUNK + 3, 96
+    rng = np.random.default_rng(37)
+    jx, _, pt, _ = _rglru_inputs(rng, B, S, D, dtype_id, False)
+    cut = RGLRU_CHUNK + 7
+    y1, h1 = rglru_plain(*[t[:, :cut] for t in pt[:3]], pt[3])
+    y2, h2 = rglru_plain(*[t[:, cut:] for t in pt[:3]], pt[3], h1)
+    for jy, jhT in (jx_rglru(*jx, d_block=128), jx_rglru_ref(*jx)):
+        _hold(torch.cat([y1, y2], 1), jy, dtype_id)
+        _close(h2.numpy(), np.asarray(jhT))
+
+
+def test_rglru_plain_long_sequence_within_tol_of_reference():
+    """4096 steps, 64 chunks, in fp32: the error the 63 carries add stays
+    within ``TOL`` of scale of JAX's sequential reference."""
+    B, S, D = 1, 4096, 16
+    rng = np.random.default_rng(38)
+    jx, jh0, pt, ph0 = _rglru_inputs(rng, B, S, D, "fp32", True)
+    y, hT = rglru_plain(*pt, ph0)
+    jy, jhT = jx_rglru_ref(*jx, jh0)
+    _close(y.numpy(), np.asarray(jy))
+    _close(hT.numpy(), np.asarray(jhT))
+
+
+#: (B, S, D) of the long-memory cases: several chunks with a ragged end,
+#: and 4096 steps (63 carries)
+RGLRU_LONG_CASES = {"multi-chunk": (1, 3 * RGLRU_CHUNK + 5, 128),
+                    "4096-steps": (1, 4096, 16)}
+
+
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no-h0"])
+@pytest.mark.parametrize("dtype_id", list(DTYPES))
+@pytest.mark.parametrize("case", RGLRU_LONG_CASES,
+                         ids=list(RGLRU_LONG_CASES))
+def test_rglru_plain_long_memory_carries(case, dtype_id, with_h0):
+    """Long memory, where the carries between chunks decide the result.
+
+    The scan h = a·h + b is well conditioned (a ≤ 1), but b's factor
+    sqrt(1 − a²) is not at a near 1: one ulp of a moves it by up to ~6e-4.
+    torch's and XLA's exp part by an ulp for ~3% of the a here, so two
+    fp32 evaluations of the reference's own formula, the port's sequential
+    one and JAX's, sit up to ~1.6e-4 of scale apart over 4096 steps, chunks
+    or none (``-s`` prints the gap).  So the chunked form is held, within
+    ``TOL``, to an fp64 scan of its own a and b (the carries' error
+    alone), and against JAX's kernel and reference to no farther than a
+    sequential fp32 scan of the same a and b is, plus ``TOL`` of scale."""
+    B, S, D = RGLRU_LONG_CASES[case]
+    rng = np.random.default_rng(39)
+    jx, jh0, pt, ph0 = _rglru_inputs(rng, B, S, D, dtype_id, with_h0,
+                                     LONG_MEMORY)
+    y, hT = rglru_plain(*pt, ph0)
+    a, b = pt_rglru.decay_and_input(*pt)
+    h = np.zeros((B, D)) if ph0 is None else ph0.double().numpy()
+    h32 = torch.zeros((B, D)) if ph0 is None else ph0.clone()
+    exact = np.empty((B, S, D))
+    seq = torch.empty((B, S, D))
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    for t in range(S):
+        h = a64[:, t] * h + b64[:, t]
+        exact[:, t] = h
+        h32 = a[:, t] * h32 + b[:, t]
+        seq[:, t] = h32
+    got = y.float().numpy()
+    if dtype_id == "fp32":
+        _close(got, exact)
+    else:
+        _bf16_close(got, torch.from_numpy(exact).to(y.dtype).float().numpy())
+    _close(hT.numpy(), h)
+    seq = seq.to(y.dtype).float().numpy()
+    gaps = []
+    for jy, jhT in (jx_rglru(*jx, jh0, d_block=128), jx_rglru_ref(*jx, jh0)):
+        for mine, theirs, ref in (
+                (got, seq, np.asarray(jnp.asarray(jy).astype(jnp.float32))),
+                (hT.numpy(), h32.numpy(), np.asarray(jhT))):
+            scale = np.abs(ref).max()
+            gap = np.abs(theirs - ref).max()
+            err = np.abs(mine - ref).max()
+            assert err <= gap + TOL * scale, (err, gap, scale)
+            gaps.append(gap / scale)
+    print(f"{case} {dtype_id}: chunked vs fp64 scan "
+          f"{np.abs(hT.numpy() - h).max() / np.abs(h).max():.2e} (hT); "
+          f"sequential fp32 vs JAX up to {max(gaps):.2e} of scale")
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +382,11 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype):
-    """B8 at a D that no block divides, B9 at E = 16 and 64 on the model's
-    transposed (B, S, H, E) views (at E = 64 also with strong decays, w
-    over [-8, 3]), both with and without a state."""
+    """B8 at a D that no block divides, over two chunks with a ragged end,
+    and over several chunks with long memory (Λ over [-12, -7]); B9 at E =
+    16 and 64 on the model's transposed (B, S, H, E) views (at E = 64 also
+    with strong decays, w over [-8, 3]); both with and without a state.
+    B8 counts one launch a call and repeats bitwise."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*shape, scale=1.0):
@@ -290,14 +400,18 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype):
                         want.float().cpu().numpy())
 
     B, S, D = 2, 70, 300
-    x, gr, gi = (rnd(B, S, D).to(dtype) for _ in range(3))
     ap, h0 = rnd(D), rnd(B, D)
-    for init in (None, h0):
-        before = kernels.launches()["rglru"]
-        for got, want in zip(rglru(x, gr, gi, ap, init),
-                             rglru_plain(x, gr, gi, ap, init)):
-            hold(got, want)
-        assert kernels.launches()["rglru"] == before + 1
+    ap_long = torch.rand(D, generator=g, device=cuda_device) * 5.0 - 12.0
+    for S_, a_ in ((S, ap), (5 * RGLRU_CHUNK + 9, ap_long)):
+        x, gr, gi = (rnd(B, S_, D).to(dtype) for _ in range(3))
+        for init in (None, h0):
+            before = kernels.launches()["rglru"]
+            got = rglru(x, gr, gi, a_, init)
+            assert kernels.launches()["rglru"] == before + 1
+            for a, b, c in zip(got, rglru(x, gr, gi, a_, init),
+                               rglru_plain(x, gr, gi, a_, init)):
+                assert torch.equal(a, b)
+                hold(a, c)
     for H, E, strong in ((3, 16, False), (2, 64, False), (2, 64, True)):
         r, k, v = (rnd(B, S, H, E, scale=sc).to(dtype).transpose(1, 2)
                    for sc in (1.0, 0.3, 1.0))
