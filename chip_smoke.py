@@ -59,11 +59,18 @@ Phases, each of which raises (exit code 1) on failure:
    also holds its limits against a control, the reference computed with
    its products' operands cut to TF32 (fp32) or fp32 (fp64), which the
    limits must reject; the launch counts of
-   B1, B2, B3 and B4 over these runs must be > 0; the warm, synchronized
-   wall time per ``run()`` and its time as one CUDA graph are printed (the
-   overbooked cells' graphs also with the set-aside raised).  Then cg and
-   jacobi2d run at once on two threads (``check_two_threads``): each
-   program's ``stats`` must count its own runs and launches only;
+   B1, B2, B3 and B4 over these runs must be > 0.  Every path's run() is
+   one CUDA-graph replay (``check_dispatch``): bitwise equal to the eager
+   walk that its graph captured, at its own feeds and at a second set, run
+   1's outputs unchanged by run 2, one capture per float dtype,
+   ``dispatches == runs``, launches per run as the eager walk made them, and a
+   profiled warm run() with one graph launch and no kernel launch.  The
+   warm, synchronized wall time per ``run()``, per eager walk and per
+   ``cuda-perunit`` run, and ``cuda-perunit``'s run as one CUDA graph, are
+   printed (the overbooked cells' graphs also with the set-aside raised).
+   Then cg and jacobi2d run at once on two threads
+   (``check_two_threads``): each program's ``stats`` must count its own
+   runs, dispatches and launches only;
 5. the LLM serving path at full width, ``Session("granite-3-8b",
    device="cuda").trace("prefill", batch=1, seq=1024) -> analyze ->
    codesign -> lower() -> serve()``, random fp32 weights from seed 0
@@ -73,7 +80,12 @@ Phases, each of which raises (exit code 1) on failure:
    kernel entry point swapped for its plain version, and the agreements
    of ``LLM_TOL`` and ``DECODE_TOL`` (rwkv6-7b: ``RWKV_TOL``) with the
    controls they must reject; launches per prefill and per decode step,
-   prefill and decode times;
+   prefill and decode times.  ``generate`` decodes through the bundle's
+   graphed step (``ServeBundle.jit_decode``): one CUDA-graph replay a
+   step, one capture over three ``generate`` calls, tokens equal to the
+   eager run's, each graphed step bitwise equal to the eager donating step
+   (``check_decode_graph``), ms per step and tokens/s beside the eager
+   step's;
 6. the same for the recurrent families, one model at a time (each freed
    before the next loads): recurrentgemma-2b (26 layers of
    ``[rglru, rglru, attn]``, d 2560, ~3.4 B parameters), planned on
@@ -124,6 +136,22 @@ OB_N, OB_BANDWIDTH, OB_CAPACITY, OB_SWEEPS = 131072, 16, 40 << 20, 64
 #: fp32's range near iteration 55 (rs = 0, then beta = 0/0 = NaN, in the
 #: reference as in the kernels); fp32 stops at 32 (rs ~ 1e-25)
 OB_CG_ITERS = {"float32": 32, "float64": 64}
+
+#: kernel launches per run() of the main paths as counted while run()
+#: launched each from the host; a run() now replays them in one CUDA graph
+EAGER_LAUNCHES = {
+    ("cg(n=4096, iters=64)", "float32"): {"stream": 193,
+                                          "stream_finalize": 129},
+    ("cg_sparse(n=1048576, iters=64, laplacian5)", "float32"): {
+        "stream": 193, "stream_finalize": 128, "spmv": 65},
+    ("cg_sparse(n=1048576, iters=64, laplacian5)", "float64"): {
+        "stream": 193, "stream_finalize": 128, "spmv": 65},
+    ("jacobi2d(n=4096, sweeps=8)", "float32"): {"stencil2d": 8},
+}
+#: host API calls that launch one kernel, as ``torch.profiler`` names them:
+#: ``cudaLaunchKernel*`` (the CUDA C++ kernels), ``cuLaunchKernel*`` (Triton)
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
 
 #: libcuda enums (cuda.h) for the L2 set-aside of persisting accesses
 CU_LIMIT_PERSISTING_L2_CACHE_SIZE = 0x06
@@ -1405,11 +1433,17 @@ def profile_fn(fn, top=4):
                             for k, (n, t) in ranked]}
 
 
-def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
+def drive_path(name, plan, feeds_np, dt, paths, seen, *, residual=None,
                replay=None, profile=False):
     """One main path.  A Krylov path gives ``residual``, the relative
     residual of a returned x, and runs ``tolerance_control``; a sweep path
-    gives ``replay``, a check of the outputs against a numpy replay."""
+    gives ``replay``, a check of the outputs against a numpy replay.  Then
+    ``check_dispatch`` holds run()'s one graph replay (``seen`` maps each
+    plan to the float dtypes it has run in, one capture each).  Timed side
+    by side: run() (one replay, feed copies and output clones included),
+    the eager walk that the graph captures (what run() was before it
+    dispatched one graph), ``cuda-perunit`` eagerly and that backend's run
+    captured in one CUDA graph (the device time alone)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1419,6 +1453,7 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
     out = plan.run(feeds)
     torch.cuda.synchronize()
     counts = kernels.launches()
+    seen.setdefault(id(plan), set()).add(dt)
     ref = plan.run(feeds, backend="reference")
     torch.cuda.synchronize()
     b = feeds_np.get("b")
@@ -1433,12 +1468,18 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
                                        extra["rel_residual_reference"]))
     else:
         extra = replay(out, feeds_np)
+    extra["dispatch"] = check_dispatch(name, plan, feeds, dt,
+                                       len(seen[id(plan)]))
+    prog = plan.compiled()
+    perunit = plan.compiled("cuda-perunit")
     mean_s, min_s = run_timing(lambda: plan.run(feeds))
+    walk_mean, walk_min = run_timing(lambda: prog.walk(feeds))
+    pu_mean, pu_min = run_timing(lambda: perunit(feeds))
     ref_mean, _ = run_timing(lambda: plan.run(feeds, backend="reference"),
                              max(1, RUN_REPS // 4))
-    # the same run() captured in one CUDA graph: the device time alone,
-    # i.e. what the run costs once launch overhead is gone
-    graph_run = graph_ms(lambda: plan.run(feeds), inner=1, reps=3)
+    # cuda-perunit's run() captured in one CUDA graph: the device time
+    # alone, i.e. what a run costs once every launch from the host is gone
+    pu_graph = graph_ms(lambda: perunit(feeds), inner=1, reps=3)
     if profile:
         extra["profile"] = prof = profile_fn(lambda: plan.run(feeds))
         log(f"  {name} {dt} profiled: {json.dumps(prof)}")
@@ -1447,13 +1488,94 @@ def drive_path(name, plan, feeds_np, dt, paths, *, residual=None,
                       max_rel_err_vs_reference=rel, units=len(ep.units),
                       rolled=(ep.roll.n_iters if ep.roll else 0),
                       run_ms=mean_s * 1e3, run_ms_min=min_s * 1e3,
-                      graph_run_ms=graph_run,
+                      walk_ms=walk_mean * 1e3, walk_ms_min=walk_min * 1e3,
+                      perunit_ms=pu_mean * 1e3, perunit_ms_min=pu_min * 1e3,
+                      perunit_graph_ms=pu_graph,
                       reference_run_ms=ref_mean * 1e3, **extra))
     log(f"  {name} {dt}: launches {counts}  max rel err vs reference "
         f"{rel:.3e}  {extra}  run() {mean_s * 1e3:.3f} ms (min "
-        f"{min_s * 1e3:.3f}; as one CUDA graph {graph_run:.3f})  "
+        f"{min_s * 1e3:.3f}); eager walk {walk_mean * 1e3:.3f} (min "
+        f"{walk_min * 1e3:.3f}); cuda-perunit {pu_mean * 1e3:.3f} (min "
+        f"{pu_min * 1e3:.3f}), as one CUDA graph {pu_graph:.3f}; "
         f"reference run() {ref_mean * 1e3:.3f} ms")
     return counts
+
+
+def api_calls(fn):
+    """The host API calls that one call of ``fn`` makes, as
+    ``torch.profiler`` names them: kernel launches (the CUDA C++ kernels'
+    and Triton's), CUDA-graph launches and memcpys."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CPU]
+    return {"kernel_launches": sum(n in KERNEL_LAUNCH_CALLS for n in names),
+            "graph_launches": sum(n == "cudaGraphLaunch" for n in names),
+            "memcpys": sum(n.startswith("cudaMemcpy") for n in names)}
+
+
+def check_dispatch(name, plan, feeds, dt, traces):
+    """run()'s one dispatch on one path, against the eager walk that its
+    graph captured (``CudaProgram.walk``): run 1 with the path's feeds and
+    run 2 with other feeds (seed 1) each bitwise equal to the walk of their
+    feeds, run 1's outputs unchanged by run 2, no capture in these runs
+    and ``traces`` (one a signature) in all, ``dispatches == runs``, the
+    launches of two runs twice the walk's (and ``EAGER_LAUNCHES`` where
+    it lists the path), and a profiled warm run() making one graph launch and
+    no kernel launch, where the walk's profile shows every launch it
+    counts (the control: the profiler sees launches)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.frontends import feeds_from_numpy, make_feeds
+    prog = plan.compiled()
+    feeds2 = feeds_from_numpy(make_feeds(plan.trace.program, seed=1,
+                                         dtype=getattr(np, dt)), "cuda")
+    before = prog.stats
+    with kernels.counting() as walked:
+        eager = prog.walk(feeds)
+    eager2 = prog.walk(feeds2)
+    out1 = plan.run(feeds)
+    kept = {k: v.clone() for k, v in out1.items()}
+    out2 = plan.run(feeds2)
+    torch.cuda.synchronize()
+    for k in out1:
+        assert torch.equal(out1[k], eager[k]), ("run() vs the eager walk",
+                                                name, dt, k)
+        assert torch.equal(out2[k], eager2[k]), ("run() vs the eager walk, "
+                                                 "other feeds", name, dt, k)
+        assert torch.equal(out1[k], kept[k]), ("run 2 changed run 1's "
+                                               "outputs", name, dt, k)
+    after = prog.stats
+    grown = {key: after[key] - before[key]
+             for key in ("runs", "traces", "dispatches")}
+    per_run = {k: v for k, v in walked.items() if v}
+    assert grown == {"runs": 2, "traces": 0, "dispatches": 2}, grown
+    assert after["traces"] == traces, (name, dt, after, traces)
+    assert after["dispatches"] == after["runs"], after
+    assert {k: after["launches"][k] - before["launches"][k]
+            for k in walked} == {k: 2 * v for k, v in walked.items()}, (
+        name, dt, before, after, walked)
+    want = EAGER_LAUNCHES.get((name, dt))
+    assert want is None or per_run == want, (name, dt, per_run, want)
+    run_calls = api_calls(lambda: plan.run(feeds))
+    walk_calls = api_calls(lambda: prog.walk(feeds))
+    assert run_calls["graph_launches"] == 1, run_calls
+    assert run_calls["kernel_launches"] == 0, run_calls
+    assert walk_calls["kernel_launches"] == sum(per_run.values()), (
+        "the profiler misses launches", walk_calls, per_run)
+    rec = dict(launches_per_run=per_run, stats=after,
+               api_calls_run=run_calls, api_calls_walk=walk_calls)
+    log(f"  {name} {dt}: run() is one graph replay: bitwise equal to the "
+        f"eager walk (two feed sets), run 1's outputs kept, stats {after} "
+        f"(traces {traces}, dispatches == runs), launches per run "
+        f"{per_run}; profiled run() {run_calls}, walk {walk_calls}")
+    return rec
 
 
 def check_two_threads(cases, reps=4):
@@ -1469,7 +1591,8 @@ def check_two_threads(cases, reps=4):
     from repro_torch.frontends import feeds_from_numpy
 
     def grown(before, after):
-        return {"runs": after["runs"] - before["runs"],
+        return {**{key: after[key] - before[key]
+                   for key in ("runs", "traces", "dispatches")},
                 "launches": {k: after["launches"][k] - before["launches"][k]
                              for k in after["launches"]}}
     jobs = []
@@ -1480,7 +1603,8 @@ def check_two_threads(cases, reps=4):
         alone = plan.run(feeds)
         torch.cuda.synchronize()
         one = grown(before, prog.stats)
-        assert one["runs"] == 1 and sum(one["launches"].values()) > 0, one
+        assert one["runs"] == one["dispatches"] == 1, one
+        assert sum(one["launches"].values()) > 0, one
         jobs.append(dict(name=name, plan=plan, prog=prog, feeds=feeds,
                          alone=alone, one=one))
     barrier = threading.Barrier(len(jobs))
@@ -1513,8 +1637,9 @@ def check_two_threads(cases, reps=4):
     records = []
     for job, start in zip(jobs, starts):
         got = grown(start, job["prog"].stats)
-        want = {"runs": reps, "launches": {k: reps * v for k, v in
-                                           job["one"]["launches"].items()}}
+        want = {"runs": reps, "traces": 0, "dispatches": reps,
+                "launches": {k: reps * v for k, v in
+                             job["one"]["launches"].items()}}
         assert got == want, ("stats under two threads", job["name"], got,
                              want)
         for out in job["outs"]:
@@ -1626,7 +1751,7 @@ def prefix_rows(plan) -> int:
     return rows.pop()
 
 
-def drive_overbooked(plans, feeds, dtypes, paths, profile=False):
+def drive_overbooked(plans, feeds, dtypes, paths, seen, profile=False):
     """The overbooked cells through ``backend="cuda"``: B3 for every spmv
     op at overbook=0.25, B2 at 0, each run held as the other main paths
     are; launches per run() asserted, the two plans' times printed side by
@@ -1653,7 +1778,7 @@ def drive_overbooked(plans, feeds, dtypes, paths, profile=False):
                         f"{steps}, banded, bandwidth={OB_BANDWIDTH}) "
                         f"capacity 40 MiB overbook {overbook}")
                 counts = drive_path(name, plans[wl, overbook, dt],
-                                    feeds[wl, dt], dt, paths,
+                                    feeds[wl, dt], dt, paths, seen,
                                     residual=sparse_residual,
                                     profile=profile)
                 want = ({"spmv_sliced": n_spmv, "spmv": 0} if overbook
@@ -1672,25 +1797,28 @@ def drive_overbooked(plans, feeds, dtypes, paths, profile=False):
             want_aside = min(l2_before["max_persisting_bytes"], resident)
             with persisting_set_aside(want_aside) as aside:
                 for overbook, row in rows.items():
-                    plan = plans[wl, overbook, dt]
-                    row.update(set_aside_bytes=aside, graph_run_ms_set_aside=(
-                        graph_ms(lambda: plan.run(dev_feeds), inner=1,
-                                 reps=3)))
+                    perunit = plans[wl, overbook, dt].compiled(
+                        "cuda-perunit")
+                    row.update(set_aside_bytes=aside,
+                               perunit_graph_ms_set_aside=graph_ms(
+                                   lambda: perunit(dev_feeds), inner=1,
+                                   reps=3))
             a, b = rows[0.25], rows[0.0]
             log(f"  {wl} {dt}: overbook 0.25 (B3, prefix {pre}/{OB_N} rows, "
                 f"{resident / 1e6:.2f} MB resident) run() {a['run_ms']:.3f} "
-                f"ms mean, {a['run_ms_min']:.3f} min, "
-                f"{a['graph_run_ms']:.3f} as one CUDA graph; overbook 0 "
+                f"ms mean, {a['run_ms_min']:.3f} min, cuda-perunit "
+                f"{a['perunit_graph_ms']:.3f} as one CUDA graph; overbook 0 "
                 f"(B2) {b['run_ms']:.3f} mean, {b['run_ms_min']:.3f} min, "
-                f"{b['graph_run_ms']:.3f} as one CUDA graph.  Persisting L2 "
+                f"cuda-perunit {b['perunit_graph_ms']:.3f} as one CUDA "
+                f"graph.  Persisting L2 "
                 f"set-aside: in force {l2_before['persisting_bytes']} B "
                 f"(could hold "
                 f"{min(1.0, l2_before['persisting_bytes'] / resident):.3f} "
                 f"of the prefix), largest {l2_before['max_persisting_bytes']}"
                 f" B; raised to {aside} B (could hold "
-                f"{min(1.0, aside / resident):.3f}): graphs "
-                f"{a['graph_run_ms_set_aside']:.3f} ms (0.25) and "
-                f"{b['graph_run_ms_set_aside']:.3f} ms (0); the share "
+                f"{min(1.0, aside / resident):.3f}): cuda-perunit graphs "
+                f"{a['perunit_graph_ms_set_aside']:.3f} ms (0.25) and "
+                f"{b['perunit_graph_ms_set_aside']:.3f} ms (0); the share "
                 f"actually held is not measurable here (no L2 counters)")
     return totals
 
@@ -1841,6 +1969,45 @@ def serve_witness(bundle, params, cfg, seq, llm_tol):
     return out
 
 
+def check_decode_graph(cfg, plan, params, gen_prompt, profile=False):
+    """The graphed decode step against the eager donating step, step by
+    step over the prompt, from two fresh caches: logits and every cache
+    tensor bitwise equal at every step; then a profiled warm step makes
+    one graph launch and no kernel launch beyond the tokens' copy and the
+    position's fill."""
+    import torch
+    from repro_torch.launch import jit_decode_step, make_decode_fn
+    from repro_torch.models import init_cache
+    z = GEN_PROMPT + GEN_NEW
+    step = jit_decode_step(cfg, plan, GEN_BATCH, z)
+    eager = make_decode_fn(cfg, plan, donate=True)
+    c_graph = init_cache(cfg, GEN_BATCH, z, device="cuda")
+    c_eager = init_cache(cfg, GEN_BATCH, z, device="cuda")
+    for t in range(GEN_PROMPT):
+        tok = gen_prompt[:, t:t + 1]
+        lg, _ = step(params, c_graph, tok, t)
+        le, _ = eager(params, c_eager, tok, t)
+        assert torch.equal(lg, le), ("graphed step vs eager", t)
+        for a, b in zip(c_graph["layers"], c_eager["layers"]):
+            for k in a:
+                assert torch.equal(a[k], b[k]), ("cache", t, k)
+    calls = api_calls(lambda: step(params, c_graph, gen_prompt[:, :1],
+                                   GEN_PROMPT))
+    assert calls["graph_launches"] == 1 and calls["kernel_launches"] <= 2, \
+        calls
+    assert step.stats == {"traces": 1, "dispatches": GEN_PROMPT + 1}, \
+        step.stats
+    out = dict(bitwise_steps=GEN_PROMPT, api_calls_step=calls)
+    if profile:
+        out["profile_decode_step_graph"] = profile_fn(
+            lambda: step(params, c_graph, gen_prompt[:, :1], GEN_PROMPT),
+            top=6)
+    log(f"  graphed decode step bitwise equal to the eager donating step at "
+        f"all {GEN_PROMPT} prompt steps (logits and cache); a warm step "
+        f"makes {calls}")
+    return out
+
+
 def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
                   profile=False):
     """One serving path at full width through ``Session(arch) ->
@@ -1855,6 +2022,7 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     import torch
     from repro_torch import kernels
     from repro_torch.api import Session
+    from repro_torch.launch import greedy_generate
     from repro_torch.models import init_cache, init_params
     t0 = time.perf_counter()
     plan = (Session(arch, device="cuda")
@@ -1879,9 +2047,13 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     gen_prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
     steps = GEN_PROMPT + GEN_NEW - 1
+    step = bundle.jit_decode(GEN_BATCH, GEN_PROMPT + GEN_NEW)
 
-    def gen():
+    def gen():                # one CUDA-graph replay a decode step
         return bundle.generate(params, gen_prompt, GEN_NEW)
+
+    def eager_gen():          # the same steps launched from the host
+        return greedy_generate(params, cfg, p, gen_prompt, GEN_NEW)
 
     # the kernel run, counted
     kernels.reset_launches()
@@ -1898,6 +2070,11 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     assert {k: per_prefill[k] for k in want_prefill} == want_prefill, \
         per_prefill
     assert got_step == want_step, per_gen
+    assert step.stats == {"traces": 1, "dispatches": steps}, step.stats
+    toks_eager = eager_gen()
+    assert torch.equal(toks, toks_eager), ("graphed generate vs eager",
+                                           toks, toks_eager)
+    graph_check = check_decode_graph(cfg, p, params, gen_prompt, profile)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     assert logits.shape == (1, seq, cfg.padded_vocab)
     assert toks.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
@@ -1914,15 +2091,18 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     pre_times = [_sync_s(lambda: bundle.prefill_fn(params, prompt))[1]
                  for _ in range(3)]
     gen_times = [_sync_s(gen)[1] for _ in range(2)]
+    eager_times = [_sync_s(eager_gen)[1] for _ in range(2)]
     prefill_s, gen_s = min(pre_times), min(gen_times)
-    step_s = gen_s / steps
+    step_s, eager_step_s = gen_s / steps, min(eager_times) / steps
+    # a second and third generate captured nothing: one replay a step
+    assert step.stats == {"traces": 1, "dispatches": 3 * steps}, step.stats
 
     # the same on the plain versions
     with plain_kernels():
         kernels.reset_launches()
         logits_plain, plain_prefill_s = _sync_s(
             lambda: bundle.prefill_fn(params, prompt))
-        toks_plain, plain_gen_s = _sync_s(gen)
+        toks_plain, plain_gen_s = _sync_s(eager_gen)
         plain_dec_err, _ = decode_vs_prefill()
         plain_launches = {k: kernels.launches()[k] for k in want_prefill}
     scale = float(logits_plain.abs().max())
@@ -1952,6 +2132,9 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
         prefill_tokens_per_s=seq / prefill_s,
         decode_ms_per_step=step_s * 1e3,
         decode_tokens_per_s=GEN_BATCH / step_s,
+        eager_decode_ms_per_step=eager_step_s * 1e3,
+        eager_decode_tokens_per_s=GEN_BATCH / eager_step_s,
+        decode_step_stats=step.stats, decode_graph=graph_check,
         generate_ms=gen_s * 1e3, first_prefill_ms=first_prefill_s * 1e3,
         first_generate_ms=first_gen_s * 1e3,
         plain_prefill_ms=plain_prefill_s * 1e3,
@@ -1973,9 +2156,11 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     log(f"  {cfg.name} on {smi}: prefill 1x{seq} {prefill_s * 1e3:.1f} ms "
         f"({seq / prefill_s:.0f} tokens/s; plain versions "
         f"{plain_prefill_s * 1e3:.1f} ms); decode {step_s * 1e3:.2f} ms per "
-        f"step at batch {GEN_BATCH} ({GEN_BATCH / step_s:.1f} tokens/s; "
-        f"plain generate {plain_gen_s * 1e3:.0f} ms against "
-        f"{gen_s * 1e3:.0f} ms)")
+        f"step at batch {GEN_BATCH} ({GEN_BATCH / step_s:.1f} tokens/s), "
+        f"one CUDA-graph replay a step (stats {step.stats}); the eager "
+        f"step {eager_step_s * 1e3:.2f} ms ({GEN_BATCH / eager_step_s:.1f} "
+        f"tokens/s, tokens equal); plain generate {plain_gen_s * 1e3:.0f} "
+        f"ms against {gen_s * 1e3:.0f} ms)")
     log(f"  prefill logits vs the plain run: rel err {rel:.3e} (tol "
         f"{llm_tol:g}; shifted one position: {rel_control:.3e}, must "
         f"exceed it), argmax agreement {float(agree):.4f}; generated "
@@ -2104,6 +2289,7 @@ def main(argv=None) -> int:
     card_phase("4: the HPC path, Session(device='cuda') "
                "-> lower(backend='cuda') -> run()")
     paths = []
+    seen = {}
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
     for name, plan, feeds, dt, check in (
             ("cg(n=4096, iters=64)", cg_plan, cg_feeds["float32"],
@@ -2114,11 +2300,11 @@ def main(argv=None) -> int:
              sp_feeds["float64"], "float64", dict(residual=sparse_residual)),
             ("jacobi2d(n=4096, sweeps=8)", jc_plan, jc_feeds, "float32",
              dict(replay=jacobi_numpy(8)))):
-        counts = drive_path(name, plan, feeds, dt, paths,
+        counts = drive_path(name, plan, feeds, dt, paths, seen,
                             profile=args.profile, **check)
         for k, v in counts.items():
             totals[k] += v
-    counts = drive_overbooked(ob_plans, ob_feeds, dtypes, paths,
+    counts = drive_overbooked(ob_plans, ob_feeds, dtypes, paths, seen,
                               profile=args.profile)
     for k, v in counts.items():
         totals[k] += v

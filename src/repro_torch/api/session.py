@@ -28,10 +28,13 @@ from __future__ import annotations
 
 import re
 import threading
+import time
+from contextlib import contextmanager
 from typing import Optional, Union
 
 import torch
 
+from .. import obs
 from ..configs import get_config, list_archs
 from ..configs.base import ArchConfig
 from ..core.costmodel import HardwareModel, V5E
@@ -49,6 +52,25 @@ from .config import CodesignConfig, ExecConfig
 
 DEFAULT_BACKEND = "cuda"
 PHASES = ("train", "prefill", "decode")
+
+# observability: per-stage wall-clock always lands in the port's registry;
+# spans additionally record when the tracer is enabled (CELLO_OBS)
+_STAGE_S = obs.registry().histogram(
+    "session.stage_s", "wall-clock per pipeline stage "
+    "(trace | analyze | codesign | lower)", unit="s")
+_STAGE_RUNS = obs.registry().counter(
+    "session.stage_runs", "pipeline stage executions")
+
+
+@contextmanager
+def _stage(stage: str, **meta):
+    """One pipeline-stage measurement: a span (tracing on) + a labeled
+    duration histogram (always)."""
+    t0 = time.perf_counter()
+    with obs.span(f"session.{stage}", **meta) as sp:
+        yield sp
+    _STAGE_S.observe(time.perf_counter() - t0, stage=stage)
+    _STAGE_RUNS.inc(stage=stage)
 
 # paper-table default shapes per phase (override per trace() call)
 _PHASE_DEFAULTS = {
@@ -133,6 +155,14 @@ class Session:
         (``repro_torch.frontends.hpc``).  Traces are memoized per (phase,
         shape) or (workload, params).
         """
+        with _stage("trace", arch=self.cfg.name if self.cfg else None,
+                    phase=phase, workload=workload):
+            return self._trace(phase, batch=batch, seq=seq, kv_len=kv_len,
+                               layer_kind=layer_kind, workload=workload,
+                               **workload_params)
+
+    def _trace(self, phase, *, batch, seq, kv_len, layer_kind, workload,
+               **workload_params) -> TracedGraph:
         if workload is not None:
             if any(v is not None for v in (batch, seq, kv_len, layer_kind)):
                 raise ValueError("workload= traces take workload builder "
@@ -233,7 +263,9 @@ class Session:
     # -- stage 2: analyze -----------------------------------------------
     def analyze(self, traced: TracedGraph) -> AnalyzedGraph:
         """Reuse-distance/frequency analysis over the natural order."""
-        return AnalyzedGraph(trace=traced, analysis=_analyze(traced.graph))
+        with _stage("analyze", arch=traced.arch, phase=traced.phase):
+            return AnalyzedGraph(trace=traced,
+                                 analysis=_analyze(traced.graph))
 
     # -- stage 3: codesign ----------------------------------------------
     def codesign(self, staged: Union[TracedGraph, AnalyzedGraph],
@@ -243,15 +275,17 @@ class Session:
         traced = staged if isinstance(staged, TracedGraph) else staged.trace
         capacity = cfg.capacity_bytes or self.capacity_bytes
         strategy = get_strategy(cfg.strategy)
-        result = run_codesign(
-            traced.graph, capacity_bytes=capacity, hw=self.hw,
-            max_orders=cfg.max_orders, strategy=strategy,
-            splits=list(cfg.splits), overbook=cfg.overbook,
-            natural_analysis=(staged.analysis
-                              if isinstance(staged, AnalyzedGraph)
-                              else None))
-        return CoDesigned(trace=traced, result=result,
-                          strategy=strategy.name, capacity_bytes=capacity)
+        with _stage("codesign", arch=traced.arch, phase=traced.phase):
+            result = run_codesign(
+                traced.graph, capacity_bytes=capacity, hw=self.hw,
+                max_orders=cfg.max_orders, strategy=strategy,
+                splits=list(cfg.splits), overbook=cfg.overbook,
+                natural_analysis=(staged.analysis
+                                  if isinstance(staged, AnalyzedGraph)
+                                  else None))
+            return CoDesigned(trace=traced, result=result,
+                              strategy=strategy.name,
+                              capacity_bytes=capacity)
 
     # -- stage 4: lower --------------------------------------------------
     def lower(self, designed: CoDesigned,
@@ -279,6 +313,12 @@ class Session:
                 "(ROADMAP.md); lower with mesh=None")
         backend = backend if backend is not None else DEFAULT_BACKEND
         traced = designed.trace
+        with _stage("lower", arch=traced.arch, phase=traced.phase,
+                    backend=backend):
+            return self._lower(designed, traced, seq, backend)
+
+    def _lower(self, designed: CoDesigned, traced: TracedGraph,
+               seq: Optional[int], backend: str) -> CompiledPlan:
         if traced.phase != "hpc":
             if seq is None:
                 seq = traced.seq if traced.seq is not None else \

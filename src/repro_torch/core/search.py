@@ -20,22 +20,37 @@ original monolithic ``schedule.co_design`` loop, so results are bit-identical
 New orderings register with :func:`register_strategy`; new passes with
 :func:`register_pass`.  ``repro_torch.api`` re-exports this module's surface.
 
-A copy of ``repro.core.search`` without the observability spans and
-metrics (the port has no ``obs`` layer yet); the search itself is the same
-code, so plans agree with the JAX package's bit for bit.
+A copy of ``repro.core.search``, spans and instruments included (on the
+port's own ``repro_torch.obs`` registry and tracer); the search is the
+same code, so plans agree with the JAX package's bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
                     Tuple, Type)
 
+from .. import obs
 from .buffer import BufferConfig, TrafficReport, sequential_groups, simulate
 from .costmodel import HardwareModel, Metrics, V5E, evaluate
 from .graph import OpGraph, TensorKind
 from .reuse import ReuseAnalysis, analyze
 
 DEFAULT_SPLITS = (0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+_SEARCH_S = obs.registry().histogram(
+    "codesign.search_s", "joint schedule x buffer search wall-clock",
+    unit="s")
+_POINTS = obs.registry().counter(
+    "codesign.points", "design points streamed through the search pipeline")
+_PINS = obs.registry().counter(
+    "codesign.pins", "sparse-operand pin decisions of winning schedules, "
+    "by outcome label: full | prefix | streamed")
+_OVERBOOK_FRAC = obs.registry().histogram(
+    "codesign.overbook_frac", "resident row fraction of prefix-pinned "
+    "sparse operands in winning schedules")
+
 
 # --------------------------------------------------------------------------
 # search state
@@ -320,9 +335,72 @@ def run_pipeline(ctx: SearchContext, passes: Sequence[Pass],
     return iter(points)
 
 
+class _TimedIter:
+    """Wraps one pass's generator, accumulating wall-clock spent inside
+    ``next()``.  The passes are lazy, so a pull on stage N runs every
+    upstream stage too: ``elapsed`` is *inclusive* time, and a stage's
+    exclusive self-time is ``elapsed[N] - elapsed[N-1]``."""
+
+    __slots__ = ("_it", "elapsed", "count")
+
+    def __init__(self, it: Iterable[SearchPoint]):
+        self._it = iter(it)
+        self.elapsed = 0.0
+        self.count = 0
+
+    def __iter__(self) -> "_TimedIter":
+        return self
+
+    def __next__(self) -> SearchPoint:
+        t0 = time.perf_counter()
+        try:
+            item = next(self._it)
+        except StopIteration:
+            self.elapsed += time.perf_counter() - t0
+            raise
+        self.elapsed += time.perf_counter() - t0
+        self.count += 1
+        return item
+
+
+def _timed_pipeline(ctx: SearchContext, passes: Sequence[Pass]):
+    """Like :func:`run_pipeline` with a :class:`_TimedIter` between stages,
+    so per-pass self-time is recoverable from the lazy stream."""
+    points: Iterable[SearchPoint] = iter([SearchPoint()])
+    timers: List[Tuple[str, _TimedIter]] = []
+    for p in passes:
+        timer = _TimedIter(p.run(ctx, points))
+        timers.append((p.name, timer))
+        points = timer
+    return points, timers
+
+
 # --------------------------------------------------------------------------
 # the co-design driver
 # --------------------------------------------------------------------------
+
+def _pin_outcomes(graph: OpGraph, pins) -> List[Tuple[str, str, float]]:
+    """Classify each sparse CSR triple under a pin set.
+
+    Returns ``(operand, outcome, resident_frac)`` rows where outcome is
+    ``full`` (whole triple pinned), ``prefix`` (overbooked: row prefix
+    resident, tail streamed) or ``streamed`` (nothing pinned).
+    """
+    from .schedule import sparse_operand_groups    # late: import cycle
+    partial = dict(getattr(pins, "partial", None) or {})
+    spans = dict(pins or {})
+    out: List[Tuple[str, str, float]] = []
+    for grp in sparse_operand_groups(graph):
+        base = grp[0].rsplit(".", 1)[0]
+        pp = next((partial[m] for m in grp if m in partial), None)
+        if pp is not None:
+            out.append((base, "prefix", pp.frac))
+        elif all(m in spans for m in grp):
+            out.append((base, "full", 1.0))
+        else:
+            out.append((base, "streamed", 0.0))
+    return out
+
 
 def _to_evaluated(pt: SearchPoint):
     from .schedule import EvaluatedSchedule, Schedule
@@ -378,32 +456,74 @@ def run_codesign(graph: OpGraph, *, capacity_bytes: Optional[int] = None,
         ctx._analysis_cache[tuple(natural_analysis.order)] = natural_analysis
 
     strat_name = get_strategy(strategy).name
+    tracer = obs.tracer()
+    passes = default_pipeline(strategy, splits)
     best: Optional[SearchPoint] = None
     split_sweep: Dict[float, Metrics] = {}
-    for pt in run_pipeline(ctx, default_pipeline(strategy, splits)):
-        cur = split_sweep.get(pt.split)
-        if cur is None or pt.metrics.time_s < cur.time_s:
-            split_sweep[pt.split] = pt.metrics
-        if (best is None
-                or (pt.metrics.time_s, pt.metrics.energy_j)
-                < (best.metrics.time_s, best.metrics.energy_j)):
-            best = pt
+    t_search = time.perf_counter()
+    with obs.span("codesign.search", strategy=strat_name,
+                  max_orders=max_orders, splits=len(splits)) as sp:
+        start = tracer.now()
+        timers: List[Tuple[str, _TimedIter]] = []
+        if tracer.enabled:
+            points, timers = _timed_pipeline(ctx, passes)
+        else:
+            points = run_pipeline(ctx, passes)
+        n_points = 0
+        for pt in points:
+            n_points += 1
+            cur = split_sweep.get(pt.split)
+            if cur is None or pt.metrics.time_s < cur.time_s:
+                split_sweep[pt.split] = pt.metrics
+            if (best is None
+                    or (pt.metrics.time_s, pt.metrics.energy_j)
+                    < (best.metrics.time_s, best.metrics.energy_j)):
+                best = pt
+        sp.annotate(points=n_points)
+        outcomes = (_pin_outcomes(graph, best.pins)
+                    if best is not None else [])
+        # per-pass self-time as synthetic consecutive child spans: the
+        # stages stream lazily, so real intervals interleave per point —
+        # aggregate self-time is the honest per-pass number.
+        cursor, prev = start, 0.0
+        for pass_name, timer in timers:
+            self_s = max(timer.elapsed - prev, 0.0)
+            meta = {}
+            if pass_name == "pin" and outcomes:
+                # annotate the pin span with the winning pin set:
+                # "A=prefix(0.77)+x=full" style, one term per operand
+                meta["pins"] = "+".join(
+                    f"{name}={kind}" if kind != "prefix"
+                    else f"{name}=prefix({frac:.2f})"
+                    for name, kind, frac in outcomes)
+            tracer.record(f"codesign.pass.{pass_name}", cursor, self_s,
+                          points=timer.count, **meta)
+            cursor += self_s
+            prev = timer.elapsed
+    _SEARCH_S.observe(time.perf_counter() - t_search, strategy=strat_name)
+    _POINTS.inc(n_points, strategy=strat_name)
     if best is None:    # a custom strategy returned no candidate orders
         raise ValueError(f"search produced no candidates: strategy "
                          f"{strat_name!r} yielded no "
                          "orders for this graph")
+    for _name, kind, frac in outcomes:
+        _PINS.inc(outcome=kind)
+        if kind == "prefix":
+            _OVERBOOK_FRAC.observe(frac)
 
     nat = graph.topo_order()
-    baselines = {
-        # plain cache, op-by-op, no hints — the "implicit-only"
-        # accelerator
-        "seq-implicit": evaluate_point(ctx, nat, 0.0,
-                                       last_use_invalidate=False,
-                                       fuse=False, pin=False),
-        # scratchpad-only: pinning but no cache for the rest
-        "seq-explicit": evaluate_point(ctx, nat, 1.0, fuse=False, pin=True),
-        # fusion, all capacity explicit, no implicit region
-        "fused-only": evaluate_point(ctx, nat, 1.0, fuse=True, pin=True),
-    }
+    with obs.span("codesign.baselines"):
+        baselines = {
+            # plain cache, op-by-op, no hints — the "implicit-only"
+            # accelerator
+            "seq-implicit": evaluate_point(ctx, nat, 0.0,
+                                           last_use_invalidate=False,
+                                           fuse=False, pin=False),
+            # scratchpad-only: pinning but no cache for the rest
+            "seq-explicit": evaluate_point(ctx, nat, 1.0, fuse=False,
+                                           pin=True),
+            # fusion, all capacity explicit, no implicit region
+            "fused-only": evaluate_point(ctx, nat, 1.0, fuse=True, pin=True),
+        }
     return CoDesignResult(best=_to_evaluated(best), baselines=baselines,
                           split_sweep=split_sweep, overbook=overbook)

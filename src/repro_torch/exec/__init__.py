@@ -3,8 +3,11 @@
   ``cuda``       — the plan's units on hand-written Hopper kernels (B1
                    generated Triton passes; B2 CSR SpMV, B3 CSR SpMV with
                    an evict_last L2 hint on a pinned row prefix, and B4
-                   stencil in CUDA C++); the default backend of
-                   ``Session.lower``,
+                   stencil in CUDA C++), one CUDA-graph replay per
+                   ``run()``; the default backend of ``Session.lower``,
+  ``cuda-perunit`` — the same kernels driven eagerly, one unit at a time
+                   from the host over the unfused unit sequence (the
+                   twin of the JAX package's ``pallas-perunit``),
   ``reference``  — the torch interpreter (op by op, full tensors), the
                    oracle the ``cuda`` backend is held against.
 
@@ -13,15 +16,17 @@ Add a backend by subclassing :class:`Executor` and calling
 """
 from .base import (EXECUTOR_REGISTRY, Executor, get_backend, list_backends,
                    plan_groups, plan_order, plan_program, register_backend)
-from .cuda import CudaExecutor, CudaProgram
+from .cuda import CudaExecutor, CudaProgram, PerUnitCudaExecutor
 from .reference import ReferenceExecutor, evaluate, eval_node, execute_plan
 
 register_backend(ReferenceExecutor)
 register_backend(CudaExecutor)
+register_backend(PerUnitCudaExecutor)
 
 __all__ = [
     "EXECUTOR_REGISTRY", "Executor", "get_backend", "list_backends",
     "register_backend", "plan_groups", "plan_order", "plan_program",
     "ReferenceExecutor", "CudaExecutor", "CudaProgram",
+    "PerUnitCudaExecutor",
     "evaluate", "eval_node", "execute_plan",
 ]

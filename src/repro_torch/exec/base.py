@@ -18,15 +18,34 @@ The contract every backend meets:
 Feeds are torch tensors (``frontends.reference.feeds_from_numpy``) or numpy
 arrays, which a backend moves to its device; ``run()`` with no feeds makes
 them from ``seed`` on the plan's device.
+
+The shared ``run()`` path reports as the JAX package's does
+(``repro/exec/base.py``): an ``exec.compile`` span around each memoized
+compile, with the fault site ``exec.compile@<backend>``, and an
+``exec.dispatch`` span around each call, with the site
+``exec.dispatch@<backend>``; their wall-clock lands in the
+``exec.compile_s`` and ``exec.run_s`` histograms (``repro_torch.obs``).
 """
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from .. import obs
+from ..testing import faults
+
 Feeds = Dict[str, Any]
 CompiledFn = Callable[[Feeds], Dict[str, Any]]
+
+_COMPILE_S = obs.registry().histogram(
+    "exec.compile_s", "plan -> callable compile wall-clock (memoized: one "
+    "observation per distinct plan per executor)", unit="s")
+_RUN_S = obs.registry().histogram(
+    "exec.run_s", "compiled-callable dispatch wall-clock (submit-side; "
+    "CUDA launches are async, so device time may extend past this)",
+    unit="s")
 
 
 class Executor:
@@ -57,7 +76,13 @@ class Executor:
             fn = (entry[1] if entry is not None and entry[0]() is plan
                   else None)
             if fn is None:
-                fn = self.compile(plan)
+                t0 = time.perf_counter()
+                with obs.span("exec.compile", backend=self.name):
+                    # fault-injection site: exec.compile@<backend>
+                    faults.check("exec.compile", backend=self.name)
+                    fn = self.compile(plan)
+                _COMPILE_S.observe(time.perf_counter() - t0,
+                                   backend=self.name)
                 try:
                     ref = weakref.ref(
                         plan,
@@ -77,7 +102,13 @@ class Executor:
             from ..frontends.reference import feeds_from_numpy, make_feeds
             feeds = feeds_from_numpy(make_feeds(program, seed),
                                      plan_device(plan))
-        return fn(feeds)
+        t0 = time.perf_counter()
+        with obs.span("exec.dispatch", backend=self.name):
+            # fault-injection site: exec.dispatch@<backend>
+            faults.check("exec.dispatch", backend=self.name)
+            out = fn(feeds)
+        _RUN_S.observe(time.perf_counter() - t0, backend=self.name)
+        return out
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name!r})"

@@ -1,11 +1,12 @@
 """The ``cuda`` execution backend: a co-designed plan on hand-written
-Hopper kernels.
+Hopper kernels, one CUDA-graph replay per ``run()``.
 
 The counterpart of ``repro.exec.pallas``'s single-program executable
 (``_SingleProgram``, ``repro/exec/pallas.py:810-970``).  JAX traced the
-whole plan into one ``jax.jit``; here an eager driver walks the plan's
-execution units (``core.lowering.plan_execution``) and launches a kernel
-per unit on the current CUDA stream:
+whole plan into one ``jax.jit``; here the program walks the plan's
+execution units (``core.lowering.plan_execution``), launching a kernel
+per unit on the current CUDA stream, captures that walk into one
+``torch.cuda.CUDAGraph`` per signature and replays it:
 
 * ``stream`` units run as one B1 pass (``kernels.stream``, generated
   Triton); their spmv ops first run as CUDA C++ launches
@@ -22,14 +23,34 @@ per unit on the current CUDA stream:
 * a rolled loop (``RolledLoop``) replays its template units
   ``roll.n_iters`` times over the carried tensors.
 
-Nothing in ``run()`` waits for the device: scalars stay 1-element device
-tensors and no value is read back on the host, so the host enqueues the
-whole plan and returns.  ``stats`` counts runs and kernel launches,
-each run's launches on its own thread (``kernels.counting``).
+Nothing in the walk waits for the device: scalars stay 1-element device
+tensors and no value is read back on the host, which is what lets it be
+captured.  A signature is the run's float dtype and every leaf's shape and
+dtype.  The first ``run()`` of a signature walks the units once eagerly on
+a side stream (that builds the ``nvcc`` library and compiles the Triton
+passes, which a capture cannot do), then captures the walk into a graph
+whose inputs are program-owned leaf buffers.  Every run copies its feeds
+into those buffers, replays the graph once and returns clones of the
+graph's output buffers, so a caller's outputs outlive later runs.  A
+rolled loop is captured unrolled: the graph grows with ``n_iters``.  A
+capture that fails raises; the eager walk is the ``cuda-perunit`` backend,
+which a caller picks by name.  Runs of one program on several threads (each
+on its own stream) take the program's lock in turn, and each waits on an
+event that the previous run recorded after its copy-out, so no run
+rewrites the buffers that an earlier replay still reads.
 
-On CPU tensors every kernel wrapper runs its plain version, so the same
-driver runs here on the CPU (the tests use it that way, with
-``Session(device="cpu")``).
+``stats`` counts runs, ``traces`` (captures) and ``dispatches`` (replays),
+read from the ``exec.traces`` and ``exec.dispatches`` counters under the
+program's own ``obs`` scope, as the JAX package's ``stats`` are
+(``dispatches == runs``, ``traces`` 1 per signature), and the kernel
+launches that its runs made.  A replay runs no Python in the wrappers, so
+it adds the capture's per-kernel counts through ``kernels.count``; the
+warm-up and the capture count nowhere (``kernels.capturing``).  Each run's
+launches count on its own thread (``kernels.counting``).
+
+On CPU tensors every kernel wrapper runs its plain version and there is no
+graph: the same signature cache and counters hold, and each run walks the
+units eagerly (the tests use it that way, with ``Session(device="cpu")``).
 """
 from __future__ import annotations
 
@@ -40,12 +61,29 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
-from .. import kernels
+from .. import kernels, obs
+from ..core.lowering import flatten_units
 from ..kernels.spmv import arrange, spmv
 from ..kernels.stencil import stencil2d
 from ..kernels.stream import StreamKernel
+from ..testing import faults
 from .base import Executor, plan_device, plan_program
 from .reference import as_tensor, eval_node
+
+_TRACES = obs.registry().counter(
+    "exec.traces", "captures of a program's unit walk into a CUDA graph "
+    "(on the CPU: first walks of a signature), per compiled program "
+    "(scope label)")
+_DISPATCHES = obs.registry().counter(
+    "exec.dispatches", "device dispatches: CUDA-graph replays (on the CPU: "
+    "walks), per compiled program (scope label)")
+_DONATED_B = obs.registry().counter(
+    "exec.donated_bytes", "leaf feed bytes copied into a program's own "
+    "leaf buffers (the counterpart of the JAX package's donation)",
+    unit="B")
+_UNITS = obs.registry().counter(
+    "exec.units", "execution units built at compile, by kind "
+    "(stream | block | jnp)")
 
 
 def spmv_prefixes(program, sp) -> Dict[str, Optional[int]]:
@@ -204,22 +242,61 @@ def _build_unit(program, unit, needed: Set[str]):
 # the executable
 # --------------------------------------------------------------------------
 
-def _unit_needed(program, units) -> List[Set[str]]:
+def _unit_needed(program, units):
     """Per-unit "read outside this unit" sets over the straight-line unit
-    sequence (program outputs always count)."""
+    sequence (program outputs always count), and each tensor's reading
+    units."""
     outputs = set(program.outputs)
     consumers: Dict[str, List[int]] = {}
     for ui, unit in enumerate(units):
         for o in unit.ops:
             for t in program.nodes[o].inputs:
                 consumers.setdefault(t, []).append(ui)
-    return [{o for o in unit.ops
-             if o in outputs or any(c > ui for c in consumers.get(o, ()))}
-            for ui, unit in enumerate(units)]
+    needed = [{o for o in unit.ops
+               if o in outputs or any(c > ui for c in consumers.get(o, ()))}
+              for ui, unit in enumerate(units)]
+    return needed, consumers
+
+
+def _leaf_tensors(leaf_names, feeds, device):
+    """The leaves as tensors on ``device``, and the run's one float dtype,
+    resolved from them (integer leaves, CSR indptr/indices, keep their
+    own)."""
+    raw: Dict[str, torch.Tensor] = {}
+    for leaf in leaf_names:
+        if leaf not in feeds:
+            raise KeyError(f"feeds missing leaf {leaf!r}")
+        raw[leaf] = as_tensor(feeds[leaf], device)
+    float_dts = [v.dtype for v in raw.values() if v.is_floating_point()]
+    dtype = (functools.reduce(torch.promote_types, float_dts)
+             if float_dts else torch.float32)
+    return raw, dtype
+
+
+def _converted(raw, dtype) -> Dict[str, torch.Tensor]:
+    """Float leaves in the run's dtype, every leaf contiguous."""
+    return {n: (v.to(dtype) if v.is_floating_point() else v).contiguous()
+            for n, v in raw.items()}
+
+
+class _Captured:
+    """One signature's graph: the program-owned leaf buffers it reads, the
+    output buffers it writes, the launches one replay makes, and the event
+    that the last run recorded after copying its outputs out."""
+
+    __slots__ = ("leaves", "graph", "outs", "counts", "done")
+
+    def __init__(self, leaves, graph, outs, counts):
+        self.leaves = leaves
+        self.graph = graph
+        self.outs = outs
+        self.counts = {k: v for k, v in counts.items() if v}
+        self.done: Optional[torch.cuda.Event] = None
 
 
 class CudaProgram:
-    """One compiled plan: ``feeds -> {output: tensor}`` on its device."""
+    """One compiled plan: ``feeds -> {output: tensor}`` on its device, one
+    graph replay per call on a CUDA device (see the module docstring)."""
 
     def __init__(self, plan):
         program = plan_program(plan)
@@ -230,7 +307,7 @@ class CudaProgram:
         self.exec_plan = ep
         self.device = torch.device(plan_device(plan))
         units, roll = ep.units, ep.roll
-        needed = _unit_needed(program, units)
+        needed, _ = _unit_needed(program, units)
         if roll is not None:
             # loop-carried values must leave their units even when the
             # straight-line view says nothing later reads them
@@ -260,47 +337,116 @@ class CudaProgram:
                 if n not in tmpl_ops and n not in reads))
             self._slot_shapes = [program.nodes[sl.update].shape
                                  for sl in roll.slots]
+        # counters live on the port's registry under this program's own
+        # scope label, as the JAX package's single program keeps them
+        self._scope = obs.next_scope("cuda")
+        for i in (*pro, *tmpl, *epi):
+            _UNITS.inc(backend="cuda", kind=units[i].kind, scope=self._scope)
         self._runs = 0
         self._launches = dict.fromkeys(kernels.LAUNCHES, 0)
         self._stats_lock = threading.Lock()
+        self._walked: Set[tuple] = set()          # signatures seen (CPU)
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._lock = threading.Lock()              # copy-in, replay, copy-out
 
     @property
     def stats(self) -> Dict[str, Any]:
-        """Runs of this program and the kernel launches they made, each
-        run's counted on the thread that made it (``kernels.counting``),
-        so runs on other threads at the same time do not mix in."""
+        """Runs of this program, its captures (``traces``) and replays
+        (``dispatches``) from the ``obs`` registry, and the kernel launches
+        its runs made, each run's counted on the thread that made it
+        (``kernels.counting``), so runs on other threads at the same time
+        do not mix in."""
         with self._stats_lock:
-            return {"runs": self._runs, "launches": dict(self._launches)}
-
-    def _leaves(self, feeds) -> Tuple[Dict[str, torch.Tensor], torch.dtype]:
-        env: Dict[str, torch.Tensor] = {}
-        for leaf in self.leaf_names:
-            if leaf not in feeds:
-                raise KeyError(f"feeds missing leaf {leaf!r}")
-            env[leaf] = as_tensor(feeds[leaf], self.device)
-        float_dts = [v.dtype for v in env.values() if v.is_floating_point()]
-        # one float dtype per run, resolved from the leaves; integer leaves
-        # (CSR indptr/indices) keep their own
-        dtype = (functools.reduce(torch.promote_types, float_dts)
-                 if float_dts else torch.float32)
-        for name, v in env.items():
-            if v.is_floating_point():
-                env[name] = v.to(dtype).contiguous()
-            else:
-                env[name] = v.contiguous()
-        return env, dtype
+            return {
+                "runs": self._runs,
+                "traces": int(_TRACES.value(backend="cuda",
+                                            scope=self._scope)),
+                "dispatches": int(_DISPATCHES.value(backend="cuda",
+                                                    scope=self._scope)),
+                "launches": dict(self._launches)}
 
     def __call__(self, feeds) -> Dict[str, torch.Tensor]:
+        raw, dtype = _leaf_tensors(self.leaf_names, feeds, self.device)
+        sig = (dtype, tuple((tuple(v.shape), v.dtype)
+                            for v in raw.values()))
         with kernels.counting() as made:
-            out = self._run(feeds)
+            if self.device.type == "cuda":
+                out, traced = self._replay(raw, sig, dtype)
+            else:
+                out = self._run(_converted(raw, dtype), dtype)
         with self._stats_lock:
+            if self.device.type != "cuda":
+                traced = sig not in self._walked
+                self._walked.add(sig)
+            if traced:
+                _TRACES.inc(backend="cuda", scope=self._scope)
+            _DISPATCHES.inc(backend="cuda", scope=self._scope)
             self._runs += 1
             for k, v in made.items():
                 self._launches[k] += v
         return out
 
-    def _run(self, feeds) -> Dict[str, torch.Tensor]:
-        env, dtype = self._leaves(feeds)
+    def walk(self, feeds) -> Dict[str, torch.Tensor]:
+        """The unit walk that each graph captures, run once eagerly on the
+        current stream, outside ``stats``: the body a replay is held
+        against (its launches count as any wrapper's do)."""
+        raw, dtype = _leaf_tensors(self.leaf_names, feeds, self.device)
+        return self._run(_converted(raw, dtype), dtype)
+
+    # -- the graph ------------------------------------------------------
+    def _replay(self, raw, sig, dtype):
+        """Copy the feeds in, replay the signature's graph (capturing it
+        first if it is new), copy the outputs out.  Returns (outputs,
+        whether this call captured)."""
+        stream = torch.cuda.current_stream(self.device)
+        with self._lock:
+            cap = self._graphs.get(sig)
+            traced = cap is None
+            if traced:
+                cap = self._graphs[sig] = self._capture(raw, dtype)
+            else:
+                if cap.done is not None:
+                    stream.wait_event(cap.done)
+                for name, buf in cap.leaves.items():
+                    buf.copy_(raw[name])
+            _DONATED_B.inc(sum(b.numel() * b.element_size()
+                               for b in cap.leaves.values()),
+                           backend="cuda", scope=self._scope)
+            cap.graph.replay()
+            out = {o: t.clone() for o, t in cap.outs.items()}
+            cap.done = torch.cuda.Event()
+            cap.done.record(stream)
+            for name, n in cap.counts.items():
+                kernels.count(name, n)
+        return out, traced
+
+    def _capture(self, raw, dtype) -> _Captured:
+        leaves = {n: torch.empty(v.shape, device=self.device,
+                                 dtype=dtype if v.is_floating_point()
+                                 else v.dtype)
+                  for n, v in raw.items()}
+        for n, buf in leaves.items():
+            buf.copy_(raw[n])
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        # the warm-up builds the nvcc library and compiles the Triton
+        # passes; like the capture, it runs no counted launch
+        with torch.cuda.stream(side), kernels.capturing() as warm:
+            self._run(leaves, dtype)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.capturing() as counts:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = self._run(leaves, dtype)
+        if counts != warm:
+            raise RuntimeError(f"the captured walk launched {counts}, the "
+                               f"warm-up {warm}")
+        return _Captured(leaves, graph, outs, counts)
+
+    # -- the walk --------------------------------------------------------
+    def _run(self, leaves, dtype) -> Dict[str, torch.Tensor]:
+        env = dict(leaves)
         for call in self._pro:
             env.update(call(env))
         if self.roll is not None:
@@ -327,9 +473,58 @@ class CudaProgram:
 
 
 class CudaExecutor(Executor):
-    """Run the plan's units on the hand-written Hopper kernels."""
+    """Run the plan's units on the hand-written Hopper kernels, one graph
+    replay per run."""
 
     name = "cuda"
 
     def compile(self, plan) -> CudaProgram:
+        # fault-injection site exec.compile@cuda: here as well as in
+        # Executor.compiled, as the JAX package's pallas backend has it
+        faults.check("exec.compile", backend=self.name)
         return CudaProgram(plan)
+
+
+class PerUnitCudaExecutor(Executor):
+    """The eager executor: one launch sequence per execution unit from
+    the host, intermediates freed after their last read.
+
+    The twin of the JAX package's ``pallas-perunit``
+    (``repro/exec/pallas.py:1005-1045``): it walks the *unfused* unit
+    sequence (``flatten_units``: no cross-pass residency, no rolled loop)
+    and captures nothing.  The A/B baseline of the ``cuda`` backend's one
+    replay per run, and the eager path for a caller who names it.
+    """
+
+    name = "cuda-perunit"
+
+    def compile(self, plan):
+        program = plan_program(plan)
+        if not plan.group_kernels:
+            raise ValueError("the cuda-perunit backend runs plans lowered "
+                             "by Session.lower (they carry group kernels)")
+        device = torch.device(plan_device(plan))
+        units = flatten_units(plan.group_kernels)
+        needed, consumers = _unit_needed(program, units)
+        calls = [_build_unit(program, units[ui], needed[ui])
+                 for ui in range(len(units))]
+        scope = obs.next_scope("perunit")
+        for unit in units:
+            _UNITS.inc(backend=self.name, kind=unit.kind, scope=scope)
+        outputs = set(program.outputs)
+        # the tensors each unit reads last, freed once it has run
+        frees: List[List[str]] = [[] for _ in units]
+        for t, uis in consumers.items():
+            if t not in outputs:
+                frees[max(uis)].append(t)
+        leaves = [nd.name for nd in program.leaves()]
+
+        def fn(feeds):
+            raw, dtype = _leaf_tensors(leaves, feeds, device)
+            env = _converted(raw, dtype)
+            for call, dead in zip(calls, frees):
+                env.update(call(env))
+                for t in dead:
+                    env.pop(t, None)
+            return {o: env[o] for o in program.outputs}
+        return fn

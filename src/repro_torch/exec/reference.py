@@ -22,6 +22,7 @@ import torch
 
 from ..kernels.spmv import spmv_plain
 from ..kernels.stencil import stencil2d_plain
+from ..testing import faults
 from .base import Executor, plan_device, plan_order, plan_program
 
 
@@ -136,6 +137,10 @@ class ReferenceExecutor(Executor):
     name = "reference"
 
     def compile(self, plan):
+        # fault-injection site: exec.compile@reference (also here, as in
+        # the JAX package, for callers that compile without
+        # Executor.compiled)
+        faults.check("exec.compile", backend=self.name)
         program = plan_program(plan)
         order = plan_order(plan)
         device = plan_device(plan)

@@ -30,7 +30,14 @@ so a run can show that its path went through the kernels:
 * :func:`counting` opens a counter for the calling thread alone and
   yields it: it sees the launches that this thread makes while it is
   open, whatever other threads launch meanwhile.  Scopes nest, and every
-  open one counts.  ``exec.cuda.CudaProgram`` counts its runs so.
+  open one counts.  ``exec.cuda.CudaProgram`` counts its runs so;
+* :func:`capturing` opens a counter that takes the calling thread's
+  counts for itself: while it is open, ``count`` adds to it alone, and
+  neither to ``LAUNCHES`` nor to any ``counting`` scope.  A CUDA graph's
+  capture runs inside one (a captured launch runs nothing on the
+  device), and every replay of the graph then calls ``count(name, n)``
+  with the capture's counts, so the counts keep meaning kernels run on
+  the device.
 """
 import contextlib
 import threading
@@ -47,13 +54,20 @@ _lock = threading.Lock()
 _local = threading.local()
 
 
-def count(name: str) -> None:
-    """One launch of kernel ``name``: the process-wide count and every
-    counter that the calling thread has open."""
+def count(name: str, n: int = 1) -> None:
+    """``n`` launches of kernel ``name``: the process-wide count and every
+    counter that the calling thread has open, or, while the thread has a
+    :func:`capturing` counter open, that counter alone."""
+    if name not in LAUNCHES:
+        raise KeyError(name)
+    capture = getattr(_local, "capture", None)
+    if capture:
+        capture[-1][name] += n
+        return
     with _lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
     for open_counter in getattr(_local, "open", ()):
-        open_counter[name] += 1
+        open_counter[name] += n
 
 
 @contextlib.contextmanager
@@ -67,6 +81,19 @@ def counting() -> Iterator[Dict[str, int]]:
         yield counter
     finally:
         stack.pop()                  # scopes close innermost first
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """A counter that takes the launches the calling thread makes inside
+    the block for itself (see the module's docstring)."""
+    stack = _local.__dict__.setdefault("capture", [])
+    counter = dict.fromkeys(LAUNCHES, 0)
+    stack.append(counter)
+    try:
+        yield counter
+    finally:
+        stack.pop()
 
 
 def reset_launches() -> None:

@@ -1,6 +1,8 @@
 """Launch drivers of the port: LLM serving (``serve``)."""
-from .serve import (ServeBundle, ServeStats, greedy_generate,
-                    make_decode_fn, make_prefill_fn, make_serving)
+from .serve import (DecodeStep, ServeBundle, ServeStats, greedy_generate,
+                    jit_decode_step, make_decode_fn, make_prefill_fn,
+                    make_serving, reset_cache)
 
-__all__ = ["ServeBundle", "ServeStats", "greedy_generate", "make_decode_fn",
-           "make_prefill_fn", "make_serving"]
+__all__ = ["DecodeStep", "ServeBundle", "ServeStats", "greedy_generate",
+           "jit_decode_step", "make_decode_fn", "make_prefill_fn",
+           "make_serving", "reset_cache"]

@@ -60,16 +60,21 @@ def apply_rglru_seq(params, x: torch.Tensor, h0=None
     return y.to(x.dtype), hT
 
 
-def apply_rglru_step(params, x: torch.Tensor, h: torch.Tensor
+def apply_rglru_step(params, x: torch.Tensor, h: torch.Tensor, *,
+                     donate: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,1,D), h: (B,D) -> (y: (B,1,D), h')."""
+    """x: (B,1,D), h: (B,D) -> (y: (B,1,D), h').  ``donate`` writes h' into
+    ``h`` in place (the same roundings, so the same bits) and returns it."""
     xc = x[:, 0].to(COMPUTE_DTYPE)
     xb = (xc @ bf16(params["w_x"])).float()
     r = torch.sigmoid((xc @ bf16(params["w_gate_r"])).float())
     i = torch.sigmoid((xc @ bf16(params["w_gate_i"])).float())
     a = torch.exp(-RGLRU_C * softplus(params["a_param"]) * r)
     beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
-    h_new = a * h + beta * (i * xb)
+    if donate:
+        h_new = h.mul_(a).add_(beta * (i * xb))
+    else:
+        h_new = a * h + beta * (i * xb)
     y = h_new.to(COMPUTE_DTYPE) @ bf16(params["w_out"])
     return y[:, None].to(x.dtype), h_new
 
@@ -116,9 +121,12 @@ def apply_rwkv_seq(params, x: torch.Tensor, n_heads: int, s0=None
     return out.to(x.dtype), sT
 
 
-def apply_rwkv_step(params, x: torch.Tensor, s: torch.Tensor, n_heads: int
+def apply_rwkv_step(params, x: torch.Tensor, s: torch.Tensor, n_heads: int,
+                    *, donate: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,1,D), s: (B,H,E,E) -> (y: (B,1,D), s')."""
+    """x: (B,1,D), s: (B,H,E,E) -> (y: (B,1,D), s').  ``donate`` writes s'
+    into ``s`` in place (the same roundings, so the same bits) and returns
+    it."""
     B, _, D = x.shape
     E = D // n_heads
     xc = x[:, 0].to(COMPUTE_DTYPE)
@@ -132,7 +140,10 @@ def apply_rwkv_step(params, x: torch.Tensor, s: torch.Tensor, n_heads: int
     kv = kf[..., :, None] * vf[..., None, :]                  # (B,H,E,E)
     y = torch.einsum("bhi,bhij->bhj", rf,
                      s + params["u"][None, :, :, None] * kv)
-    s_new = decay[..., :, None] * s + kv
+    if donate:
+        s_new = s.mul_(decay[..., :, None]).add_(kv)
+    else:
+        s_new = decay[..., :, None] * s + kv
     y = y.reshape(B, 1, D).to(COMPUTE_DTYPE)
     out = y @ bf16(params["w_o"])
     return out.to(x.dtype), s_new

@@ -300,37 +300,46 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     return {"layers": [entry(kind) for kind in cfg.layer_kinds()]}
 
 
-def _decode_attend(a, cache, h, pos: int, *, cfg: ArchConfig,
-                   plan: CelloPlan):
-    """One query token against the (ring-buffered) cache.  Returns (y, new
-    cache entry)."""
+def _position(pos, device) -> torch.Tensor:
+    """``pos`` as a 0-d int32 tensor on ``device``: a host int becomes a
+    fill on the device (a tensor from a host value would copy from pageable
+    memory, which synchronizes the stream), a tensor is used as it is."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
+def _decode_attend(a, cache, h, pos: torch.Tensor, *, cfg: ArchConfig,
+                   plan: CelloPlan, donate: bool):
+    """One query token against the (ring-buffered) cache at the 0-d device
+    position ``pos``.  Returns (y, cache entry): a new entry, or with
+    ``donate`` the caller's, written in place.  Nothing reads ``pos`` on
+    the host, so the step can be captured in a CUDA graph."""
     B = h.shape[0]
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = h.to(COMPUTE_DTYPE)
     q = (xc @ bf16(a["wq"])).reshape(B, 1, H, E)
     k_new = (xc @ bf16(a["wk"])).reshape(B, 1, KVH, E)
     v_new = (xc @ bf16(a["wv"])).reshape(B, 1, KVH, E)
-    # a fill on the device: a tensor from a host list would copy from
-    # pageable memory, which synchronizes the stream at every layer
-    pos_t = torch.full((1,), pos, device=h.device)
-    q = apply_rope(q, pos_t, cfg.rope_theta)
-    k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
+    q = apply_rope(q, pos[None], cfg.rope_theta)
+    k_new = apply_rope(k_new, pos[None], cfg.rope_theta)
     Z = cache["k"].shape[1]
-    slot = pos % Z
-    if plan.cache_select_update:
+    slot = (pos % Z).long()[None]           # index_copy takes int64
+    k_new = k_new.to(cache["k"].dtype)
+    v_new = v_new.to(cache["v"].dtype)
+    if donate:
+        k_c = cache["k"].index_copy_(1, slot, k_new)
+        v_c = cache["v"].index_copy_(1, slot, v_new)
+        pos_idx = cache["pos_idx"].index_copy_(0, slot, pos[None])
+    elif plan.cache_select_update:
         hit = (torch.arange(Z, device=h.device) == slot)
-        k_c = torch.where(hit[None, :, None, None],
-                          k_new.to(cache["k"].dtype), cache["k"])
-        v_c = torch.where(hit[None, :, None, None],
-                          v_new.to(cache["v"].dtype), cache["v"])
-        pos_idx = torch.where(hit, torch.full_like(cache["pos_idx"], pos),
-                              cache["pos_idx"])
+        k_c = torch.where(hit[None, :, None, None], k_new, cache["k"])
+        v_c = torch.where(hit[None, :, None, None], v_new, cache["v"])
+        pos_idx = torch.where(hit, pos, cache["pos_idx"])
     else:
-        k_c, v_c = cache["k"].clone(), cache["v"].clone()
-        pos_idx = cache["pos_idx"].clone()
-        k_c[:, slot] = k_new[:, 0]
-        v_c[:, slot] = v_new[:, 0]
-        pos_idx[slot] = pos
+        k_c = cache["k"].index_copy(1, slot, k_new)
+        v_c = cache["v"].index_copy(1, slot, v_new)
+        pos_idx = cache["pos_idx"].index_copy(0, slot, pos[None])
     # mask by true positions (ring-buffer safe); grouped GQA einsums
     valid = (pos_idx >= 0) & (pos_idx <= pos)
     if cfg.window:
@@ -345,22 +354,26 @@ def _decode_attend(a, cache, h, pos: int, *, cfg: ArchConfig,
                        v_c.float())
     y = (ctx.reshape(B, 1, H * E).to(COMPUTE_DTYPE) @ bf16(a["wo"])
          ).to(h.dtype)
+    if donate:
+        return y, cache
     return y, {"k": k_c, "v": v_c, "pos_idx": pos_idx}
 
 
-def _decode_block(p, cache, x, kind: str, pos: int, *, cfg: ArchConfig,
-                  plan: CelloPlan):
+def _decode_block(p, cache, x, kind: str, pos: torch.Tensor, *,
+                  cfg: ArchConfig, plan: CelloPlan, donate: bool):
     fused = plan.use_fused_rmsnorm
     h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
     if kind == "attn":
         y, new_cache = _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
-                                      plan=plan)
+                                      plan=plan, donate=donate)
     elif kind == "rglru":
-        y, h_new = apply_rglru_step(p["rglru"], h, cache["h"])
-        new_cache = {"h": h_new}
+        y, h_new = apply_rglru_step(p["rglru"], h, cache["h"],
+                                    donate=donate)
+        new_cache = cache if donate else {"h": h_new}
     elif kind == "rwkv":
-        y, s_new = apply_rwkv_step(p["rwkv"], h, cache["s"], cfg.n_heads)
-        new_cache = {"s": s_new}
+        y, s_new = apply_rwkv_step(p["rwkv"], h, cache["s"], cfg.n_heads,
+                                   donate=donate)
+        new_cache = cache if donate else {"s": s_new}
     else:
         raise ValueError(kind)
     x = x + y
@@ -370,16 +383,26 @@ def _decode_block(p, cache, x, kind: str, pos: int, *, cfg: ArchConfig,
 
 
 def decode_step(params, cache, cfg: ArchConfig, plan: CelloPlan,
-                tokens: torch.Tensor, pos: int):
-    """One decode step.  tokens: (B, 1) int; pos: the current position.
-    Returns (logits (B, 1, padded_vocab) fp32, new cache); the input cache
-    is left as it was."""
+                tokens: torch.Tensor, pos, *, donate: bool = False):
+    """One decode step.  tokens: (B, 1) int; pos: the current position, a
+    host int or a 0-d integer tensor.  Returns (logits (B, 1,
+    padded_vocab) fp32, cache).
+
+    By default the input cache is left as it was and a new one is
+    returned.  ``donate=True`` is the counterpart of the JAX package's
+    ``donate_argnums=(1,)``: the step writes the new k/v/``pos_idx``, ``h``
+    and ``s`` into the caller's cache in place and returns that same
+    cache, bitwise equal to the new one of the default form.  Neither form
+    reads a device value on the host, so with a device ``pos`` the step
+    can be captured in a CUDA graph (``launch.serve.jit_decode_step``)."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
+    pos_t = _position(pos, x.device)
     new_layers = []
     for p_layer, c_layer, kind in zip(params["layers"], cache["layers"],
                                       cfg.layer_kinds()):
-        x, nc = _decode_block(p_layer, c_layer, x, kind, int(pos), cfg=cfg,
-                              plan=plan)
+        x, nc = _decode_block(p_layer, c_layer, x, kind, pos_t, cfg=cfg,
+                              plan=plan, donate=donate)
         new_layers.append(nc)
-    return _logits(params, cfg, plan, x), {"layers": new_layers}
+    logits = _logits(params, cfg, plan, x)
+    return logits, (cache if donate else {"layers": new_layers})

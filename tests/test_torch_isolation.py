@@ -92,6 +92,46 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
+def test_obs_and_faults_import_and_report_with_jax_absent():
+    """``repro_torch.obs`` and ``repro_torch.testing`` import with jax
+    absent, and a run reports through them: spans, counters and a fault
+    site."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+from repro_torch import obs
+from repro_torch.testing import faults
+from repro_torch.testing.faults import InjectedFault
+from repro_torch.api import Session
+obs.enable()
+plan = (Session(device="cpu").trace(workload="cg", n=32, iters=2)
+        .analyze().codesign().lower())
+with faults.inject("exec.dispatch@cuda", times=1):
+    try:
+        plan.run()
+    except InjectedFault:
+        pass
+    else:
+        raise AssertionError("the fault site did not fire")
+plan.run()
+names = {r["name"] for r in obs.tracer().spans()}
+assert {"session.trace", "codesign.search", "exec.compile",
+        "exec.dispatch"} <= names, names
+assert plan.compiled().stats["dispatches"] == 1
+assert obs.registry().counter("faults.injected").value(
+    site="exec.dispatch", kind="fail") == 1
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_session_without_cuda_raises(monkeypatch):
     from repro_torch.api import Session
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -140,8 +140,9 @@ def test_cuda_program_stats_count_their_own_runs_under_two_threads():
     for i, (prog, _feeds) in enumerate(fresh):
         stats_alone, out_alone = alone[i]
         assert prog.stats == {
-            "runs": reps, "launches": {k: reps * v for k, v in
-                                       stats_alone["launches"].items()}}
+            "runs": reps, "traces": 1, "dispatches": reps,
+            "launches": {k: reps * v for k, v in
+                         stats_alone["launches"].items()}}
         for out in outs[i]:
             assert out.keys() == out_alone.keys()
             assert all(torch.equal(out[k], out_alone[k]) for k in out)
@@ -154,7 +155,7 @@ def test_a_failed_run_counts_nothing():
     prog, feeds = _program(*PLANS[0], "spmv")
     with pytest.raises(KeyError, match="feeds missing leaf"):
         prog({})
-    assert prog.stats == {"runs": 0,
+    assert prog.stats == {"runs": 0, "traces": 0, "dispatches": 0,
                           "launches": dict.fromkeys(kernels.LAUNCHES, 0)}
     prog(feeds)
     assert prog.stats["runs"] == 1
