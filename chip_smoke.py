@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -97,7 +97,30 @@ Phases, each of which raises (exit code 1) on failure:
    rwkv6-7b, held to the wider ``RWKV_TOL``, also brings a second witness
    (``serve_witness``): at a second prompt seed, its kernel run against
    its plain run in bf16 and with fp32 activations, the latter within
-   ``FP32_WITNESS_TOL``.
+   ``FP32_WITNESS_TOL``;
+7. solver serving: ``Server(PlanRouter(Session(device="cuda")),
+   ServeConfig(max_batch_size=16, max_wait_us=2000))`` with
+   ``backend="cuda"`` on cg(n=4096, iters=32) fp32, cg_sparse(n=2^20,
+   iters=64, laplacian5) fp32 and fp64 and, at ``max_batch_size=4``,
+   jacobi2d(n=4096, sweeps=8) fp32 (``SERVE_BUCKETS``): a burst of 32
+   requests (seeds 0-31) and one of 5 to paused servers; every lane held
+   against its request's unbatched ``run()`` (bitwise, or within
+   ``SERVE_TOL`` with the record saying which held) and against numpy
+   (the residual of its x, or a replay of the sweeps); one graph replay a
+   batch (``dispatches == batches``, one capture per padded lane count,
+   a profiled warm batch with one graph launch and no kernel launch) and
+   the lane kernels' launches while serving > 0; 32 sequential
+   ``run()`` calls against the same 32 served (requests/s, p50/p99, the
+   worker's own clock), a warm batch's time from numpy feeds and from
+   feeds on the card beside its device busy time; the fallback under
+   ``serve.dispatch@cuda=fail`` (the reference on the card, within
+   ``PATH_TOL`` of the cuda lanes, the breaker open); then B1, B2 and B4's
+   lane forms at 16 lanes on phase 3's operands against their plain
+   versions and, lane by lane, bitwise against the single-request
+   kernels, timed beside their bytes bounds and a library yardstick
+   (``A @ X`` plus column dots, ``torch.sparse.mm``, batched ``conv2d``);
+   last, a write to the cg bucket's operator shows in the next replay,
+   bound to the router's plan and copied by an unbound one.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -114,6 +137,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -2184,6 +2208,555 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 7: solver serving
+# --------------------------------------------------------------------------
+
+#: lanes of the lane forms' checks against their plain versions
+LANES = 16
+#: the served buckets, phase 4's shapes: (workload, params, dtype,
+#: max_batch_size of their server).  fp32 cg runs 32 iterations: its
+#: operator is well conditioned, so rs leaves fp32's range before
+#: iteration 64 (rs = 0, then beta = 0/0 = NaN): in the JAX package's
+#: reference for every seed, in the port's for seeds 6, 11, 19, 21, 24 and
+#: 34 of 0-36 (``tests/test_torch_serve.py::
+#: test_fp32_cg_at_the_served_size_breaks_down_by_64_iterations``)
+SERVE_BUCKETS = (
+    ("cg", dict(n=4096, iters=32), "float32", 16),
+    ("cg_sparse", dict(n=1 << 20, iters=64, pattern="laplacian5"),
+     "float32", 16),
+    ("cg_sparse", dict(n=1 << 20, iters=64, pattern="laplacian5"),
+     "float64", 16),
+    ("jacobi2d", dict(n=4096, sweeps=8), "float32", 4),
+)
+#: each bucket's bursts to a paused server: seeds 0-31, then 32-36 (a
+#: batch of 5, padded to 8 lanes, at max_batch_size 16; 4 + 1 at 4)
+SERVE_BURSTS = (range(32), range(32, 37))
+SERVE_WAIT_US = 2000
+#: a lane against its request's unbatched run() where the two are not
+#: bitwise equal: the JAX package's serving tolerance (rtol, atol), as
+#: ``tests/test_serve.py`` holds its batched solves
+SERVE_TOL = {"float32": (1e-4, 1e-5), "float64": (1e-9, 1e-12)}
+
+
+def _bucket_name(wl, params, dt):
+    args = ", ".join(f"{k}={v}" for k, v in params.items())
+    return f"{wl}({args}) {dt}"
+
+
+def _pool_map(fn, items):
+    """``fn`` over ``items`` on the host's cores (numpy's random draws,
+    copies and ufuncs release the GIL on large arrays)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as ex:
+        return list(ex.map(fn, items))
+
+
+def _lane_vs_single(lane, single, dt):
+    """'bitwise', or the largest |Δ| / (atol + rtol |single|) when the two
+    differ (which must stay within ``SERVE_TOL``)."""
+    import torch
+    if all(torch.equal(lane[k], single[k]) for k in single):
+        return "bitwise", 0.0
+    rtol, atol = SERVE_TOL[dt]
+    worst = max(float(((lane[k].double() - single[k].double()).abs()
+                       / (atol + rtol * single[k].double().abs())).max())
+                for k in single)
+    assert worst <= 1.0, ("a lane left SERVE_TOL of its unbatched run()",
+                          dt, worst)
+    return "serve_tol", worst
+
+
+def _latencies(lat):
+    import numpy as np
+    return {"p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def drive_solver_serving(results, paths):
+    """Phase 7: the buckets of ``SERVE_BUCKETS`` served through
+    ``Server(PlanRouter(Session(device="cuda")), ServeConfig(...))`` with
+    ``backend="cuda"``; returns the lane kernels' launches while the
+    bursts were served."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.api import ServeConfig, Session
+    from repro_torch.frontends import make_feeds
+    from repro_torch.serve import PlanRouter, Server, request
+    from repro_torch.testing import faults
+
+    sess = Session(device="cuda")
+    routers = {mbs: PlanRouter(sess) for mbs in {b[3] for b in
+                                                  SERVE_BUCKETS}}
+    t0 = time.perf_counter()
+    feeds = {}                     # bucket -> [per-request numpy feeds]
+    for wl, params, dt, mbs in SERVE_BUCKETS:
+        key = request(wl, dtype=dt, backend="cuda", **params).bucket()
+        program = sess.trace(workload=wl, **params).program
+        leaves = [nd.name for nd in program.leaves() if nd.op != "operator"]
+        feeds[key] = _pool_map(
+            lambda s: make_feeds(program, seed=s, dtype=getattr(np, dt),
+                                 only=leaves),
+            range(max(SERVE_BURSTS[-1]) + 1))
+    log(f"  per-request feeds made in {time.perf_counter() - t0:.1f} s "
+        "(the requests carry them)")
+
+    def req(wl, params, dt, s, **kw):
+        key = request(wl, dtype=dt, backend="cuda", **params).bucket()
+        return request(wl, dtype=dt, backend="cuda", seed=s,
+                       feeds=feeds[key][s], **params, **kw)
+
+    # a client thread replays another plan's graph the whole time the
+    # worker captures the cold buckets: every run must stay bitwise
+    # equal to the first (the program lock, the event after copy-out and
+    # thread_local capture mode at work)
+    client_plan = sess.trace(workload="cg", n=1024, iters=8).codesign() \
+        .lower(backend="cuda")
+    client_feeds = make_feeds(client_plan.trace.program, seed=1)
+    client_want = client_plan.run(client_feeds)
+    torch.cuda.synchronize()
+    client = {"runs": 0, "errors": []}
+    stop = threading.Event()
+
+    def client_loop():
+        try:
+            while not stop.is_set():
+                got = client_plan.run(client_feeds)
+                torch.cuda.current_stream().synchronize()
+                assert all(torch.equal(got[k], client_want[k])
+                           for k in client_want), "client run changed"
+                client["runs"] += 1
+        except Exception as e:          # noqa: BLE001 — reported below
+            client["errors"].append(repr(e))
+
+    # ---- the bursts, each to a paused server (one per max_batch_size)
+    served = {}                    # bucket -> {seed: SolveResult}
+    batches = {}                   # bucket label -> batches served
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    client_before = client_plan.compiled().stats["launches"]
+    client_thread = threading.Thread(target=client_loop)
+    client_thread.start()
+    for seeds in SERVE_BURSTS:
+        for mbs, router in routers.items():
+            srv = Server(router, ServeConfig(max_batch_size=mbs,
+                                             max_wait_us=SERVE_WAIT_US,
+                                             autostart=False))
+            futs = {}
+            for bi, (wl, params, dt, m) in enumerate(SERVE_BUCKETS):
+                if m == mbs:
+                    futs[bi] = [(s, srv.submit(req(wl, params, dt, s)))
+                                for s in seeds]
+            srv.start()
+            for b, fs in futs.items():
+                out = served.setdefault(b, {})
+                for s, f in fs:
+                    out[s] = f.result(timeout=600)
+            st = srv.stats()
+            srv.close()
+            for lb, bst in st["buckets"].items():
+                batches[lb] = batches.get(lb, 0) + bst["batches"]
+    stop.set()
+    client_thread.join()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    client_after = client_plan.compiled().stats["launches"]
+    for k in counts:                   # the client's replays are not served
+        counts[k] -= client_after[k] - client_before[k]
+    assert not client["errors"], client["errors"]
+    assert client["runs"] > 0, "the client thread never ran"
+    log(f"  bursts of 32 and 5 served in {time.perf_counter() - t0:.1f} s "
+        f"(cold: plans, uploads, captures) while a client thread replayed "
+        f"cg(n=1024, iters=8) {client['runs']} times, each bitwise equal "
+        f"to its first run; launches while serving {counts}")
+    paths.append(dict(path="serve: cold captures beside a client thread",
+                      card=CARD, client_runs=client["runs"]))
+
+    for bi, res in sorted(served.items()):
+        wl, params, dt, mbs = SERVE_BUCKETS[bi]
+        name = _bucket_name(wl, params, dt)
+        key = request(wl, dtype=dt, backend="cuda", **params).bucket()
+        entry = routers[mbs].plan_for(key)
+        bplan = entry.bplan
+        lb = key.label
+        sizes = {}
+        for s in sorted(res):
+            sizes.setdefault(res[s].batch_size, set()).add(s)
+        lanes_seen = {1 << (b - 1).bit_length() for b in sizes}
+        # dispatch: one replay a batch, one capture a (lanes, dtype)
+        st, pst = bplan.stats, bplan.program_stats
+        assert st["dispatches"] == batches[lb], (name, st, batches[lb])
+        assert st["traces"] == len(lanes_seen), (name, st, lanes_seen)
+        assert pst["traces"] == len(lanes_seen), (name, pst, lanes_seen)
+        assert pst["dispatches"] == batches[lb], (name, pst)
+        # every lane: against its unbatched run() and against numpy
+        t1 = time.perf_counter()
+        modes, worst, numpy_checks = set(), 0.0, []
+        shared_np = make_feeds(entry.program, seed=0,
+                               dtype=getattr(np, dt),
+                               only=bplan.shared_leaves)
+        singles = {}
+        for s in sorted(res):
+            got = res[s].outputs
+            assert all(bool(torch.isfinite(v).all()) for v in got.values())
+            singles[s] = bplan.run_one({**entry.shared_feeds,
+                                        **feeds[key][s]})
+            mode, w = _lane_vs_single(got, singles[s], dt)
+            modes.add(mode)
+            worst = max(worst, w)
+        torch.cuda.synchronize()
+        if wl == "jacobi2d":
+            assert modes == {"bitwise"}, (name, modes, worst)
+            replay = jacobi_numpy(params["sweeps"])
+            numpy_checks = _pool_map(
+                lambda s: replay({k: v for k, v in res[s].outputs.items()},
+                                 {**shared_np, **feeds[key][s]}),
+                sorted(res))
+        else:
+            residual = (dense_residual if wl == "cg" else sparse_residual)
+            for s in sorted(res):
+                f_np = {**shared_np, **feeds[key][s]}
+                r_lane = residual(_solution(res[s].outputs), f_np)
+                r_one = residual(_solution(singles[s]), f_np)
+                assert np.isfinite(r_lane) and r_lane < 1.0, (name, s, r_lane)
+                assert abs(r_lane - r_one) <= RESIDUAL_GAP, (name, s, r_lane,
+                                                             r_one)
+                numpy_checks.append(r_lane)
+        check_s = time.perf_counter() - t1
+        # a warm batch is one graph launch and no kernel launch
+        batch = {**entry.shared_feeds,
+                 **{n: np.stack([feeds[key][s][n] for s in range(mbs)])
+                    for n in bplan.batched_leaves}}
+        calls = api_calls(lambda: bplan.run_batch(batch))
+        assert calls["graph_launches"] == 1, (name, calls)
+        assert calls["kernel_launches"] == 0, (name, calls)
+        rec = dict(path=f"serve {name}", card=CARD, max_batch_size=mbs,
+                   batch_sizes={k: len(v) for k, v in sorted(sizes.items())},
+                   lanes_captured=sorted(lanes_seen), stats=st,
+                   program_stats={k: v for k, v in pst.items()
+                                  if k != "launches"},
+                   lane_vs_single=("bitwise" if modes == {"bitwise"}
+                                   else "serve_tol"),
+                   lane_vs_single_worst=worst,
+                   api_calls_run_batch=calls, check_s=check_s)
+        if wl == "jacobi2d":
+            rec["numpy_replay"] = "bitwise"
+        else:
+            rec["rel_residual_max"] = max(numpy_checks)
+        log(f"  {name}: {sum(len(v) for v in sizes.values())} requests in "
+            f"batches {rec['batch_sizes']}, lanes captured "
+            f"{rec['lanes_captured']}, stats {st}; every lane vs its "
+            f"unbatched run(): {rec['lane_vs_single']} (worst "
+            f"{worst:.3g} of SERVE_TOL); numpy: "
+            + ("replay bitwise" if wl == "jacobi2d" else
+               f"rel residual <= {rec['rel_residual_max']:.3e}")
+            + f"; a warm run_batch: {calls}")
+        # throughput: 32 sequential run() against the same 32 served
+        if mbs == LANES:
+            seq_lat = []
+            t1 = time.perf_counter()
+            for s in SERVE_BURSTS[0]:
+                t2 = time.perf_counter()
+                bplan.run_one({**entry.shared_feeds, **feeds[key][s]})
+                torch.cuda.synchronize()
+                seq_lat.append(time.perf_counter() - t2)
+            seq_s = time.perf_counter() - t1
+            srv = Server(routers[mbs], ServeConfig(
+                max_batch_size=mbs, max_wait_us=SERVE_WAIT_US))
+
+            def burst():
+                """The 32 requests to the running server: requests/s,
+                latencies and the worker's own clock (routing and feed
+                overlays in ``serve.batch_build_s``, run_many and the
+                stream's sync in ``serve.dispatch_s``)."""
+                def worker_ms():
+                    snap = obs.snapshot(srv._scope)
+                    return {h: sum(c["value"]["sum"] for c in
+                                   snap.get(h, {}).get("cells", ())
+                                   if c["labels"].get("bucket") == lb) * 1e3
+                            for h in ("serve.batch_build_s",
+                                      "serve.dispatch_s")}
+                before = worker_ms()
+                t1 = time.perf_counter()
+                futs = [srv.submit(req(wl, params, dt, s))
+                        for s in SERVE_BURSTS[0]]
+                lat = [f.result(timeout=600).latency_s for f in futs]
+                wall = time.perf_counter() - t1
+                after = worker_ms()
+                return dict(requests_per_s=len(lat) / wall,
+                            wall_ms=wall * 1e3,
+                            batch_build_ms=after["serve.batch_build_s"]
+                            - before["serve.batch_build_s"],
+                            dispatch_ms=after["serve.dispatch_s"]
+                            - before["serve.dispatch_s"], **_latencies(lat))
+
+            # the first burst meets a fresh worker thread, whose own stream
+            # starts with an empty allocator pool; the second is steady
+            rec["served_fresh_worker"] = burst()
+            first = srv.stats()["buckets"][lb]["batch_sizes"]
+            rec["served"] = burst()
+            rec["served"]["batch_sizes"] = {
+                k: v - first.get(k, 0) for k, v in
+                srv.stats()["buckets"][lb]["batch_sizes"].items()
+                if v - first.get(k, 0)}
+            srv.close()
+            rec["sequential"] = dict(requests_per_s=len(seq_lat) / seq_s,
+                                     **_latencies(seq_lat))
+            sv, fw = rec["served"], rec["served_fresh_worker"]
+            log(f"  {name}: 32 sequential run(): "
+                f"{rec['sequential']['requests_per_s']:.1f} requests/s, "
+                f"p50 {rec['sequential']['p50_ms']:.3f} ms, p99 "
+                f"{rec['sequential']['p99_ms']:.3f} ms; the same 32 served "
+                f"(batches {sv['batch_sizes']}): "
+                f"{sv['requests_per_s']:.1f} requests/s, p50 "
+                f"{sv['p50_ms']:.3f} ms, p99 {sv['p99_ms']:.3f} ms; of its "
+                f"{sv['wall_ms']:.1f} ms the worker spent "
+                f"{sv['batch_build_ms']:.1f} ms building batches and "
+                f"{sv['dispatch_ms']:.1f} ms in run_many (a fresh worker's "
+                f"first burst: {fw['requests_per_s']:.1f} requests/s, "
+                f"{fw['dispatch_ms']:.1f} ms in run_many)")
+        # where a warm batch's time goes: run_batch from the stacked numpy
+        # feeds (host stacking and upload included), from feeds already on
+        # the card, and the card's busy time in one such call
+        dev_batch = {n: torch.as_tensor(v).to("cuda") for n, v in
+                     batch.items()}
+        mean, best = run_timing(lambda: bplan.run_batch(batch), reps=3)
+        rec["run_batch_ms"] = dict(mean=mean * 1e3, min=best * 1e3)
+        mean, best = run_timing(lambda: bplan.run_batch(dev_batch), reps=3)
+        rec["run_batch_device_feeds_ms"] = dict(mean=mean * 1e3,
+                                                min=best * 1e3)
+        reqs = [feeds[key][s] for s in range(mbs)]
+        mean, best = run_timing(lambda: bplan.run_many(
+            reqs, entry.shared_feeds), reps=3)
+        rec["run_many_ms"] = dict(mean=mean * 1e3, min=best * 1e3)
+        rec["profile_run_batch"] = profile_fn(
+            lambda: bplan.run_batch(dev_batch))
+        prof = rec["profile_run_batch"]
+        busy = (f"{prof['device_busy_ms']:.3f} ms of "
+                f"{prof['profiled_wall_ms']:.3f} ms profiled"
+                if "device_busy_ms" in prof else prof["device_time"])
+        log(f"  {name}: a warm batch of {mbs}: run_many "
+            f"{rec['run_many_ms']['mean']:.3f} ms from the requests' numpy "
+            f"feeds (pinned staging), run_batch "
+            f"{rec['run_batch_ms']['mean']:.3f} ms from stacked numpy feeds, "
+            f"{rec['run_batch_device_feeds_ms']['mean']:.3f} ms from feeds "
+            f"on the card; device busy {busy}")
+        del dev_batch
+        paths.append(rec)
+
+    # ---- the fallback: a failing dispatch serves through the reference
+    wl, params, dt, mbs = SERVE_BUCKETS[0]
+    key = request(wl, dtype=dt, backend="cuda", **params).bucket()
+    seeds = range(4)
+    with faults.inject_spec("serve.dispatch@cuda=fail"):
+        srv = Server(routers[mbs], ServeConfig(
+            max_batch_size=mbs, max_wait_us=SERVE_WAIT_US, autostart=False,
+            breaker_failures=1))
+        futs = [srv.submit(req(wl, params, dt, s)) for s in seeds]
+        srv.start()
+        fb = [f.result(timeout=600) for f in futs]
+        health, st = srv.health(), srv.stats()
+        srv.close()
+    errs = []
+    for s, r in zip(seeds, fb):
+        assert r.degraded and r.backend == "reference", r
+        assert all(v.device.type == "cuda" for v in r.outputs.values())
+        errs.append(_compare(r.outputs, served[0][s].outputs,
+                             float(np.abs(feeds[key][s]["b"]).max()), dt,
+                             "fallback vs the cuda lanes"))
+    assert health["breakers"][key.label] == "open", health
+    assert st["buckets"][key.label]["fallbacks"] == len(seeds), st
+    paths.append(dict(path=f"serve fallback {_bucket_name(wl, params, dt)}",
+                      card=CARD, fault="serve.dispatch@cuda=fail",
+                      breaker=health["breakers"][key.label],
+                      fallbacks=len(seeds), rel_err_vs_cuda=max(errs)))
+    log(f"  fallback: serve.dispatch@cuda=fail -> {len(seeds)} requests "
+        f"served by the reference on the card (rel err vs the cuda lanes "
+        f"{max(errs):.3e}), breaker {health['breakers'][key.label]}")
+    return counts, routers
+
+
+def check_lanes(routers, results, dtypes):
+    """B1, B2 and B4 in their lane forms at ``LANES`` lanes on phase 3's
+    operands (the served buckets' own), each against its plain version,
+    each lane bitwise against the single-request kernel on it alone,
+    timed beside its bytes bound and a library yardstick."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.spmv import spmv, spmv_lanes, spmv_lanes_plain
+    from repro_torch.kernels.stencil import (stencil2d, stencil2d_lanes,
+                                             stencil2d_plain)
+    from repro_torch.kernels.stream import LaneStreamKernel
+    from repro_torch.serve import request
+    entries = {(wl, dt): routers[mbs].plan_for(request(
+        wl, dtype=dt, backend="cuda", **params).bucket())
+        for wl, params, dt, mbs in SERVE_BUCKETS}
+    rng = np.random.default_rng(17)
+
+    # B1: cg's Ap/pAp and r/rs passes, A shared, 16 lanes of the rest
+    cg = entries["cg", "float32"]
+    passes = {}
+    for call in cg.bplan.plan.compiled()._tmpl:
+        k = getattr(call, "pass_", None)
+        if k is None:
+            continue
+        ops = {nd.op for nd in k.nodes}
+        if "matmul" in ops:
+            passes.setdefault("Ap/pAp", k)
+        elif "dot" in ops and "axpy" in ops:
+            passes.setdefault("r/rs", k)
+    for dt in dtypes:
+        tdt = getattr(torch, dt)
+        A = cg.shared_feeds["A"].to(tdt)
+        for label, k in passes.items():
+            kl = LaneStreamKernel(k.nodes, k.shapes,
+                                  set(k.stream_out + k.scalar_out), k.rows,
+                                  {n for n in k.in_names if n != "A"})
+            env = {n: A if n == "A" else torch.from_numpy(
+                np.asarray(rng.standard_normal((LANES, *k.shapes[n]))
+                           if k.shapes[n] else rng.uniform(0.5, 1.5, LANES))
+            ).to("cuda", tdt) for n in k.in_names}
+            got = kl(env)
+            want = kl.plain(env)
+            torch.cuda.synchronize()
+            err = rel = 0.0
+            for n in want:
+                scale = max(float(want[n].double().abs().max()), 1e-30)
+                e = max_err(got[n], want[n])
+                assert e <= KERNEL_TOL[dt] * scale, (label, dt, n, e, scale)
+                err, rel = max(err, e), max(rel, e / scale)
+            for i in range(LANES):
+                one = k({n: env[n] if n == "A" else env[n][i]
+                         for n in k.in_names})
+                for n in one:
+                    # a lane keeps the single pass's row blocks and trees
+                    assert torch.equal(got[n][i], one[n]), (
+                        "B1 lane vs B1", label, dt, i, n,
+                        max_err(got[n][i], one[n]))
+            nbytes = sum(env[n].numel() * env[n].element_size()
+                         for n in k.in_names)
+            nbytes += sum(v.numel() * v.element_size() for v in got.values())
+            flops = LANES * sum(2 * int(np.prod(k.shapes[nd.inputs[0]]))
+                                for nd in k.nodes
+                                if nd.op in ("matmul", "dot", "norm", "axpy"))
+            lib = None
+            if label == "Ap/pAp":
+                mv = next(nd for nd in k.nodes if nd.op == "matmul")
+                X = env[mv.inputs[1]].t().contiguous()       # (n, 16)
+
+                def lib():
+                    return (X * (A @ X)).sum(0)
+            times = measure(lambda: kl(env), lambda: kl.plain(env), lib)
+            record(results, f"B1 lanes {label:7s}", kernel="stream_lanes",
+                   case=f"cg n=4096 {label} pass, {LANES} lanes", dtype=dt,
+                   err=err, rel_err=rel, tol=KERNEL_TOL[dt], nbytes=nbytes,
+                   flops=flops, times=times, lanes=LANES,
+                   lanes_per_program=kl.group, lanes_vs_single="bitwise")
+
+    # B2: the 5-point Laplacian at n = 2^20, 16 right-hand sides
+    for dt in dtypes:
+        sp = entries["cg_sparse", dt].shared_feeds
+        indptr, indices, data = (sp[f"A.{c}"] for c in ("indptr", "indices",
+                                                        "data"))
+        n = indptr.numel() - 1
+        tdt = data.dtype
+        X = torch.from_numpy(rng.standard_normal((LANES, n))).to("cuda", tdt)
+        got = spmv_lanes(indptr, indices, data, X, n)
+        want = spmv_lanes_plain(indptr, indices, data, X, n)
+        torch.cuda.synchronize()
+        for i in range(LANES):
+            assert torch.equal(got[i], spmv(indptr, indices, data, X[i], n)), (
+                "B2 lane vs B2", dt, i)
+        err = max_err(got, want)
+        scale = float(want.double().abs().max())
+        assert err <= KERNEL_TOL[dt] * scale, ("spmv_lanes", dt, err, scale)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+        XT = X.t().contiguous()
+        nnz = data.numel()
+        times = measure(lambda: spmv_lanes(indptr, indices, data, X, n),
+                        lambda: spmv_lanes_plain(indptr, indices, data, X, n),
+                        lambda: torch.sparse.mm(A, XT))
+        record(results, "B2 lanes       ", kernel="spmv_lanes",
+               case=f"laplacian5 n={n} nnz={nnz}, {LANES} lanes", dtype=dt,
+               err=err, rel_err=err / scale, tol=KERNEL_TOL[dt],
+               nbytes=(4 * (n + 1) + (4 + data.element_size()) * nnz
+                       + 2 * LANES * X.element_size() * n),
+               flops=2 * nnz * LANES, times=times, lanes=LANES,
+               lanes_vs_single="bitwise")
+
+    # B4: 16 grids of 4096^2 with their f
+    n = 4096
+    for dt in dtypes:
+        tdt = getattr(torch, dt)
+        U = torch.randn((LANES, n, n), device="cuda", dtype=tdt,
+                        generator=torch.Generator("cuda").manual_seed(3))
+        Fs = torch.randn((LANES, n, n), device="cuda", dtype=tdt,
+                         generator=torch.Generator("cuda").manual_seed(4))
+        got = stencil2d_lanes(U, Fs, 1.0, lanes=LANES)
+        want = stencil2d_plain(U, Fs, 1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ("B4 lanes vs plain", dt)
+        for i in range(LANES):
+            assert torch.equal(got[i], stencil2d(U[i], Fs[i], 1.0)), (
+                "B4 lane vs B4", dt, i)
+        del want
+        w = torch.zeros((1, 1, 3, 3), device="cuda", dtype=tdt)
+        w[0, 0, 0, 1] = w[0, 0, 2, 1] = w[0, 0, 1, 0] = w[0, 0, 1, 2] = 0.25
+
+        def lib():
+            return F.conv2d(F.pad(U[:, None], (1, 1, 1, 1), mode="circular"),
+                            w)[:, 0] + 0.25 * Fs
+        times = measure(lambda: stencil2d_lanes(U, Fs, 1.0, lanes=LANES),
+                        lambda: stencil2d_plain(U, Fs, 1.0), lib)
+        record(results, "B4 lanes       ", kernel="stencil2d_lanes",
+               case=f"{LANES} lanes of {n}x{n} with f", dtype=dt, err=0.0,
+               rel_err=0.0, tol="bitwise", nbytes=3 * U.numel()
+               * U.element_size(), flops=7 * U.numel(), times=times,
+               lanes=LANES, lanes_vs_single="bitwise")
+        del U, Fs, got
+        torch.cuda.empty_cache()
+
+
+def check_bound_operator(routers):
+    """The served cg bucket's operator is bound to its batched plan, whose
+    graphs read it in place: a write to it behind its version counter (as
+    DLPack or a raw kernel writes) shows in the next replay.  An unbound
+    plan (``CompiledPlan.batched()``) copies the operator in on every
+    dispatch and shows the write too.  Each lane is held bitwise against
+    its unbatched ``run()`` on the written operator; the write is undone
+    (a doubling, exactly) at the end."""
+    import torch
+    from repro_torch.serve import request
+    (wl, params, dt, mbs), = [b for b in SERVE_BUCKETS if b[0] == "cg"]
+    router = routers[mbs]
+    entry = router.plan_for(request(wl, dtype=dt, backend="cuda",
+                                    **params).bucket())
+    reqs = [router.request_feeds(entry, request(
+        wl, dtype=dt, backend="cuda", seed=s, **params)) for s in range(4)]
+    A = entry.shared_feeds["A"]
+    unbound = entry.bplan.plan.batched(backend="cuda")
+    x = f"x{params['iters']}"
+    for name, bp in (("bound", entry.bplan), ("copied", unbound)):
+        before = bp.run_many(reqs, entry.shared_feeds)
+        A.data.mul_(2.0)
+        after = bp.run_many(reqs, entry.shared_feeds)
+        torch.cuda.synchronize()
+        for i, r in enumerate(reqs):
+            one = bp.run_one({"A": A, **r})
+            for k in one:
+                assert torch.equal(after[i][k], one[k]), (name, i, k)
+            assert not torch.equal(after[i][x], before[i][x])
+        A.data.div_(2.0)
+    log(f"  {_bucket_name(wl, params, dt)}: a write to the operator behind "
+        "its version counter shows in the next replay, bound (the router's "
+        "plan reads it in place) and copied (an unbound batched() plan), "
+        "every lane bitwise equal to its run() on the written operator")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2244,6 +2817,8 @@ def main(argv=None) -> int:
     assert spills and not any(spills.values()), ("B5/B6 spill", spills)
 
     dtypes = ("float32", "float64")
+    results, paths = [], []
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
     # ---- phase 3: kernels vs plain versions
     card_phase("3: kernels vs their plain versions on the card")
     t0 = time.perf_counter()
@@ -2262,7 +2837,6 @@ def main(argv=None) -> int:
     jc_feeds = make_feeds(jc_traced.program, seed=0)
     ob_plans, ob_feeds = overbooked_plans(dtypes)
     log(f"  plans and feeds made in {time.perf_counter() - t0:.1f} s")
-    results = []
     check_stream(cg_plan.compiled(), cg_feeds["float64"]["A"], results,
                  dtypes)
     csr = tuple(sp_feeds["float64"][f"A.{c}"]
@@ -2288,9 +2862,7 @@ def main(argv=None) -> int:
     # ---- phase 4: the main path
     card_phase("4: the HPC path, Session(device='cuda') "
                "-> lower(backend='cuda') -> run()")
-    paths = []
     seen = {}
-    totals = dict.fromkeys(kernels.LAUNCHES, 0)
     for name, plan, feeds, dt, check in (
             ("cg(n=4096, iters=64)", cg_plan, cg_feeds["float32"],
              "float32", dict(residual=dense_residual)),
@@ -2328,6 +2900,22 @@ def main(argv=None) -> int:
             totals[k] += v
     for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
+
+    # ---- phase 7: solver serving
+    card_phase("7: solver serving, Server(PlanRouter(Session("
+               "device='cuda')), ServeConfig(...)) with backend='cuda'")
+    t0 = time.perf_counter()
+    counts, routers = drive_solver_serving(results, paths)
+    for k, v in counts.items():
+        totals[k] += v
+    for k in ("stream_lanes", "stream_lanes_finalize", "spmv_lanes",
+              "stencil2d_lanes"):
+        assert counts[k] > 0, f"lane kernel {k} never ran while serving"
+    check_lanes(routers, results, dtypes)
+    check_bound_operator(routers)
+    del routers
+    torch.cuda.empty_cache()
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -2354,6 +2942,14 @@ def main(argv=None) -> int:
                   "src/repro/kernels/rglru/kernel.py:27", "bfloat16"),
         "wkv6": ("cuda", "src/repro_torch/csrc/wkv6.cu",
                  "src/repro/kernels/rwkv6/kernel.py:26", "bfloat16"),
+        # the lane forms: what vmap made of the TPU kernels for serving
+        # (src/repro/serve/batched.py runs jax.vmap over them)
+        "stream_lanes": ("triton", "src/repro_torch/kernels/stream.py",
+                         "src/repro/exec/pallas.py:427", "float32"),
+        "spmv_lanes": ("cuda", "src/repro_torch/csrc/spmv.cu",
+                       "src/repro/exec/pallas.py:595", "float32"),
+        "stencil2d_lanes": ("cuda", "src/repro_torch/csrc/stencil.cu",
+                            "src/repro/exec/pallas.py:687", "float32"),
     }
     table = []
     for k, (route, source, replaces, path_dt) in meta.items():
@@ -2366,8 +2962,8 @@ def main(argv=None) -> int:
                      bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                      library_ms=head["library_ms"], case=head["case"],
                      dtype=head["dtype"], cases=cases)
-        if k == "stream":
-            entry["finalize_launches"] = totals["stream_finalize"]
+        if k in ("stream", "stream_lanes"):
+            entry["finalize_launches"] = totals[f"{k}_finalize"]
         table.append(entry)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

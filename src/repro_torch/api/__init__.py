@@ -19,12 +19,12 @@ from ..exec import (EXECUTOR_REGISTRY, Executor, get_backend, list_backends,
                     register_backend)
 from .artifacts import (AnalyzedGraph, CelloPlan, CoDesigned, CompiledPlan,
                         TracedGraph)
-from .config import CodesignConfig, ExecConfig
+from .config import CodesignConfig, ExecConfig, ServeConfig
 from .session import Session, resolve_device
 
 __all__ = [
     "Session", "resolve_device",
-    "CodesignConfig", "ExecConfig",
+    "CodesignConfig", "ExecConfig", "ServeConfig",
     "TracedGraph", "AnalyzedGraph", "CoDesigned", "CompiledPlan",
     "CelloPlan", "HardwareModel", "V5E",
     "SearchStrategy", "DEFAULT_SPLITS", "get_strategy", "register_strategy",

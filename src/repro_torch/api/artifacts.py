@@ -215,6 +215,26 @@ class CompiledPlan:
         return get_backend(backend or self.backend).run(
             self, feeds=feeds, seed=seed)
 
+    def batched(self, config=None, *, backend: Optional[str] = None):
+        """Wrap this frontend plan for batched serving: one dispatch (one
+        CUDA-graph replay on the ``cuda`` backend) answers a whole batch of
+        requests, operator leaves shared and input leaves batched — see
+        ``repro_torch.serve.BatchedPlan``.  ``backend`` (or
+        ``config=ExecConfig(backend=...)``) overrides the plan's default.
+        On the ``cuda`` backends a plan whose spmv op holds an overbooked
+        pin raises :class:`NotImplementedError` (B3 has no lane form yet)."""
+        if config is not None:
+            if backend is not None:
+                raise TypeError("batched(): pass either config= or "
+                                "backend=, not both")
+            backend = config.backend
+        if self.trace is None or self.trace.program is None:
+            raise ValueError("batched() needs a frontend-traced plan "
+                             "(Session.trace(workload=...) or "
+                             "Session.from_graph(program))")
+        from ..serve import BatchedPlan
+        return BatchedPlan(self, backend=backend)
+
     def compiled(self, backend: Optional[str] = None):
         """The backend's memoized compile of this plan (for ``cuda``, a
         :class:`~repro_torch.exec.cuda.CudaProgram` with ``stats``)."""

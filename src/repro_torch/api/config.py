@@ -3,8 +3,10 @@
 The typed configs of ``repro.api.config``: :class:`CodesignConfig` holds
 the schedule × buffer search knobs of ``Session.codesign``,
 :class:`ExecConfig` the execution knobs of ``Session.lower`` /
-``CompiledPlan.run``.  The port takes these only; the JAX package's
-deprecated per-keyword spellings have no counterpart here.
+``CompiledPlan.run``, :class:`ServeConfig` the knobs of
+``repro_torch.serve.Server``.  The port takes these only; the JAX
+package's deprecated per-keyword spellings (and its ``resolve_config``
+shim) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Any, Optional, Sequence
 
 from ..core.search import DEFAULT_SPLITS
 
-__all__ = ["CodesignConfig", "ExecConfig"]
+__all__ = ["CodesignConfig", "ExecConfig", "ServeConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,3 +41,26 @@ class ExecConfig:
     ``backend`` — any name registered in ``repro_torch.exec`` (None keeps
     the surface's default, ``"cuda"``)."""
     backend: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Batching + admission + resilience knobs of
+    :class:`repro_torch.serve.Server`.
+
+    ``retry`` takes a :class:`repro_torch.serve.RetryPolicy`;
+    ``fallback=None`` disables backend fallback;
+    ``breaker_failures=None`` disables the circuit breaker.
+    """
+    max_batch_size: int = 16
+    max_wait_us: float = 2000.0
+    max_plans: int = 8
+    autostart: bool = True
+    policy: str = "oldest"
+    max_queue: Optional[int] = None
+    overload: str = "block"
+    retry: Optional[Any] = None
+    fallback: Optional[str] = "reference"
+    breaker_failures: Optional[int] = 3
+    breaker_reset_s: float = 30.0
+    max_worker_restarts: int = 2

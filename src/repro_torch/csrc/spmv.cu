@@ -75,6 +75,19 @@
 // of cuSPARSE; in fp64 ~0.8x B2's, a little behind cuSPARSE.  The hint pays
 // a few percent over the same kernel unhinted (prefix_rows = 0), so it
 // stays; a raised persisting-L2 set-aside is not needed for it.
+//
+// B2's lane form (`csr_spmv_lanes_kernel`) serves L requests against one
+// operand at once: Y = A [x_0 ... x_{L-1}], lane-major (x and y are (L, n)).
+// On the TPU a vmap gave the row-tile kernel a batch axis; here a thread still
+// owns one row, and reads each of its entries (col, val) once for a group of
+// kLaneGroup lanes (a second grid axis walks the groups): the operand is read
+// once per 16 requests, x[l][col] is gathered per lane (a warp's 32 rows
+// gather neighbouring columns of one lane, as B2's do) and y[l][row] stored
+// per lane.  Each lane's sum runs from zero in ascending entry order with
+// B2's rounded products and adds, so every lane is bitwise equal to B2 on
+// that lane alone.  Lanes past L are skipped by a uniform branch.
+// Bound: bytes, the operand once per group of 16 lanes plus, per lane, x
+// (gathered through L2) and y.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -110,6 +123,55 @@ int launch_b2(const void* indptr, const void* indices, const void* data,
     csr_spmv_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B2's lane form
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneGroup = 16;    // lanes a thread carries (LANE_GROUP)
+
+template <typename T>
+__global__ void csr_spmv_lanes_kernel(const int* __restrict__ indptr,
+                                      const int* __restrict__ indices,
+                                      const T* __restrict__ data,
+                                      const T* __restrict__ x,
+                                      T* __restrict__ y, int rows, int cols, int lanes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const int l0 = blockIdx.y * kLaneGroup;
+  const int nl = min(kLaneGroup, lanes - l0);
+  const T* __restrict__ xl = x + static_cast<size_t>(l0) * cols;
+  T acc[kLaneGroup];
+#pragma unroll
+  for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+  const int end = indptr[i + 1];
+  for (int e = indptr[i]; e < end; ++e) {
+    const int c = indices[e];
+    const T v = data[e];
+#pragma unroll
+    for (int g = 0; g < kLaneGroup; ++g) {
+      if (g < nl) acc[g] = add_rn(acc[g], mul_rn(v, xl[static_cast<size_t>(g) * cols + c]));
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kLaneGroup; ++g) {
+    if (g < nl) y[static_cast<size_t>(l0 + g) * rows + i] = acc[g];
+  }
+}
+
+template <typename T>
+int launch_b2_lanes(const void* indptr, const void* indices, const void* data, const void* x,
+                    void* y, int rows, int cols, int lanes, void* stream) {
+  constexpr int kThreads = 256;
+  if (rows > 0 && lanes > 0) {
+    const dim3 grid((rows + kThreads - 1) / kThreads, (lanes + kLaneGroup - 1) / kLaneGroup);
+    csr_spmv_lanes_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows, cols,
+        lanes);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -330,4 +392,16 @@ extern "C" int cello_spmv_sliced_f64(const void* indptr, const void* indices, co
                                      const void* x, void* y, int rows, int prefix_rows,
                                      void* stream) {
   return launch_b3<double>(indptr, indices, data, x, y, rows, prefix_rows, stream);
+}
+
+extern "C" int cello_spmv_lanes_f32(const void* indptr, const void* indices, const void* data,
+                                    const void* x, void* y, int rows, int cols, int lanes,
+                                    void* stream) {
+  return launch_b2_lanes<float>(indptr, indices, data, x, y, rows, cols, lanes, stream);
+}
+
+extern "C" int cello_spmv_lanes_f64(const void* indptr, const void* indices, const void* data,
+                                    const void* x, void* y, int rows, int cols, int lanes,
+                                    void* stream) {
+  return launch_b2_lanes<double>(indptr, indices, data, x, y, rows, cols, lanes, stream);
 }

@@ -41,6 +41,13 @@
 // by 1.5-8% in fp32 and fp64 (at n = 4096, 4,096 warps of 32 rows each), and
 // 8 warps a block did no better than 4.  It runs at 0.072 ms there (fp32,
 // 4096²), 84% of the bound.
+//
+// The lane form (`cello_stencil2d_lanes_*`) sweeps L grids at once, lane-major
+// (L, n0, n1): a third grid axis walks the lanes and offsets each warp's base
+// pointers by its lane, so every lane runs exactly the single-grid sweep and
+// is bitwise equal to it.  u or f may be one grid shared by every lane (lane
+// stride 0); out always has lanes.  Bound: bytes, each lane's u, f and out
+// once (a shared f from L2 after its first lane).
 #include <cuda_runtime.h>
 
 namespace {
@@ -161,28 +168,37 @@ __device__ __forceinline__ void sweep(const T* __restrict__ u, const T* __restri
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
+// blockIdx.z is the lane: u, f and out advance by their lane strides (a
+// stride of 0 shares one grid between the lanes)
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 stencil2d_kernel(const T* __restrict__ u, const T* __restrict__ f, T* __restrict__ out,
-                 int n0, int n1, T cf, bool vec) {
+                 int n0, int n1, T cf, bool vec, size_t u_stride, size_t f_stride) {
+  const size_t lane = blockIdx.z;
+  u += lane * u_stride;
+  if (f != nullptr) f += lane * f_stride;
+  out += lane * static_cast<size_t>(n0) * static_cast<size_t>(n1);
   if (vec) sweep<T, kVec<T>>(u, f, out, n0, n1, cf);
   else sweep<T, 1>(u, f, out, n0, n1, cf);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
+// every lane's grid starts 16-byte aligned when the first does: n1 % V == 0
+// makes each lane stride a multiple of V elements
 template <typename T>
-int launch(const void* u, const void* f, void* out, int n0, int n1, double cf,
-           void* stream) {
-  if (n0 > 0 && n1 > 0) {
+int launch(const void* u, const void* f, void* out, int n0, int n1, double cf, int lanes,
+           bool u_lanes, bool f_lanes, void* stream) {
+  if (n0 > 0 && n1 > 0 && lanes > 0) {
     const bool vec = n1 % kVec<T> == 0 && aligned16(u) && aligned16(out) &&
                      (f == nullptr || aligned16(f));
     const int cols = 32 * (vec ? kVec<T> : 1);
     const int tiles = (n1 + cols - 1) / cols;
-    const dim3 grid((n0 + kRows - 1) / kRows, (tiles + kWarps - 1) / kWarps);
+    const dim3 grid((n0 + kRows - 1) / kRows, (tiles + kWarps - 1) / kWarps, lanes);
+    const size_t grid_size = static_cast<size_t>(n0) * static_cast<size_t>(n1);
     stencil2d_kernel<T><<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(f), static_cast<T*>(out), n0, n1,
-        static_cast<T>(cf), vec);
+        static_cast<T>(cf), vec, u_lanes ? grid_size : 0, f_lanes ? grid_size : 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -193,10 +209,24 @@ int launch(const void* u, const void* f, void* out, int n0, int n1, double cf,
 // reference rounds its Python-float coefficient to the array dtype.
 extern "C" int cello_stencil2d_f32(const void* u, const void* f, void* out, int n0, int n1,
                                    double cf, void* stream) {
-  return launch<float>(u, f, out, n0, n1, cf, stream);
+  return launch<float>(u, f, out, n0, n1, cf, 1, false, false, stream);
 }
 
 extern "C" int cello_stencil2d_f64(const void* u, const void* f, void* out, int n0, int n1,
                                    double cf, void* stream) {
-  return launch<double>(u, f, out, n0, n1, cf, stream);
+  return launch<double>(u, f, out, n0, n1, cf, 1, false, false, stream);
+}
+
+// the lane form: `lanes` grids; u_lanes / f_lanes say whether u / f carry
+// lanes (else one grid serves them all)
+extern "C" int cello_stencil2d_lanes_f32(const void* u, const void* f, void* out, int n0,
+                                         int n1, double cf, int lanes, int u_lanes,
+                                         int f_lanes, void* stream) {
+  return launch<float>(u, f, out, n0, n1, cf, lanes, u_lanes != 0, f_lanes != 0, stream);
+}
+
+extern "C" int cello_stencil2d_lanes_f64(const void* u, const void* f, void* out, int n0,
+                                         int n1, double cf, int lanes, int u_lanes,
+                                         int f_lanes, void* stream) {
+  return launch<double>(u, f, out, n0, n1, cf, lanes, u_lanes != 0, f_lanes != 0, stream);
 }

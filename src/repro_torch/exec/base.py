@@ -38,6 +38,7 @@ from ..testing import faults
 
 Feeds = Dict[str, Any]
 CompiledFn = Callable[[Feeds], Dict[str, Any]]
+BatchedFn = Callable[[Feeds, Feeds], Dict[str, Any]]
 
 _COMPILE_S = obs.registry().histogram(
     "exec.compile_s", "plan -> callable compile wall-clock (memoized: one "
@@ -67,6 +68,35 @@ class Executor:
     def compile(self, plan) -> CompiledFn:
         """Lower ``plan`` to a callable ``feeds -> {name: value}``."""
         raise NotImplementedError
+
+    def compile_batched(self, plan, shared=None) -> BatchedFn:
+        """Lower ``plan`` to a lane-batched callable ``(shared, batched) ->
+        {name: (L, ...) value}``: ``shared`` maps the operator leaves at
+        their traced shape, ``batched`` every other leaf with a leading
+        lane axis of length L, one request a lane
+        (``repro_torch.serve.BatchedPlan`` batches through this hook).
+        ``shared`` given here binds the operator: tensors on the plan's
+        device that every call passes, which a backend may read in place
+        (the ``cuda`` backend's graphs do); this default ignores it.
+
+        The counterpart of the JAX package's ``compile_pure``, whose pure
+        core ``jax.vmap`` batched; the port has no vmap over its kernels,
+        so a backend returns the batched program itself.  This default
+        runs :meth:`compile`'s callable once a lane and stacks the
+        outputs; the ``cuda`` backends override it with their lane
+        forms."""
+        fn = self.compile(plan)
+
+        def batched(shared, feeds):
+            import torch
+            n = {len(v) for v in feeds.values()}
+            if len(n) != 1:
+                raise ValueError(f"batched feeds disagree on the lane "
+                                 f"count: {sorted(n)}")
+            outs = [fn({**shared, **{k: v[i] for k, v in feeds.items()}})
+                    for i in range(n.pop())]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return batched
 
     # -- shared driver --------------------------------------------------
     def compiled(self, plan) -> CompiledFn:

@@ -51,6 +51,22 @@ launches count on its own thread (``kernels.counting``).
 On CPU tensors every kernel wrapper runs its plain version and there is no
 graph: the same signature cache and counters hold, and each run walks the
 units eagerly (the tests use it that way, with ``Session(device="cpu")``).
+
+:class:`CudaLaneProgram` is the lane-batched program that serving runs
+(``Executor.compile_batched``, the counterpart of the JAX package's vmap of
+its single program): one walk answers L requests.  A node carries a lane
+axis when one of its inputs does, starting from the input leaves
+(:func:`lane_names`); operator leaves, and any node computed from them
+alone, are the single-request tensors and run once.  Every tensor with
+lanes is lane-major (the request first, as the feeds come), so no unit
+converts a layout: stream units run B1's lane form (B2's for their spmv
+ops), block units B4's, ``jnp`` units ``torch.func.vmap`` of the reference
+rules.  Its graphs are one per (lanes, dtype, leaf shapes).  A program
+built with the operator bound (``shared``: tensors on its device, as the
+serving router holds a bucket's) has its graphs read those tensors in
+place, and every run must pass them; an unbound program copies the
+operator into its own buffers, one set per dtype shared by its graphs, on
+every run.
 """
 from __future__ import annotations
 
@@ -63,9 +79,9 @@ import torch
 
 from .. import kernels, obs
 from ..core.lowering import flatten_units
-from ..kernels.spmv import arrange, spmv
-from ..kernels.stencil import stencil2d
-from ..kernels.stream import StreamKernel
+from ..kernels.spmv import arrange, spmv, spmv_lanes
+from ..kernels.stencil import stencil2d, stencil2d_lanes
+from ..kernels.stream import LaneStreamKernel, StreamKernel
 from ..testing import faults
 from .base import Executor, plan_device, plan_program
 from .reference import as_tensor, eval_node
@@ -104,31 +120,95 @@ def spmv_prefixes(program, sp) -> Dict[str, Optional[int]]:
     return out
 
 
+def lane_names(program) -> Set[str]:
+    """The tensors that carry a lane axis in a lane-batched run: every
+    leaf that is not an operator, and every node with such an input.  A
+    node whose inputs are operators or lane-independent is computed once
+    (what vmap did on the TPU)."""
+    leaves = {nd.name for nd in program.leaves()}
+    out: Set[str] = set()
+    for name, nd in program.nodes.items():      # in build (topological) order
+        if (nd.op != "operator" if name in leaves
+                else any(t in out for t in nd.inputs)):
+            out.add(name)
+    return out
+
+
+class _Pass:
+    """A B1 pass over ``nodes``; with ``lanes``, its lane-independent nodes
+    run once as a single-request pass and the rest as B1's lane form."""
+
+    def __init__(self, nodes, shapes, needed: Set[str], rows: int,
+                 lanes: Optional[Set[str]]):
+        once = [nd for nd in nodes if lanes is None or nd.name not in lanes]
+        each = [nd for nd in nodes if lanes is not None and nd.name in lanes]
+        reads = {t for nd in each for t in nd.inputs}
+        self.once = (StreamKernel(once, shapes, needed | reads, rows)
+                     if once else None)
+        self.each = (LaneStreamKernel(each, shapes, needed, rows, lanes)
+                     if each else None)
+        produced = {nd.name for nd in nodes}
+        self.in_names = list(dict.fromkeys(
+            t for nd in nodes for t in nd.inputs if t not in produced))
+
+    def __call__(self, env) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.once is not None:
+            out.update(self.once(env))
+        if self.each is not None:
+            out.update(self.each(collections.ChainMap(out, env)))
+        return out
+
+
 class _StreamUnit:
     """A ``stream`` unit: B3 or B2 launches for its spmv ops, then one B1
-    pass."""
+    pass.  With ``lanes``, its lane form: B2's lane form for an spmv op
+    whose vector carries lanes, B1's for the pass (see :class:`_Pass`)."""
 
-    def __init__(self, program, unit, needed: Set[str]):
+    def __init__(self, program, unit, needed: Set[str],
+                 lanes: Optional[Set[str]] = None):
         sp = unit.sp
         nodes = [program.nodes[o] for o in sp.ops]
         self.spmv_nodes = [nd for nd in nodes if nd.op == "spmv"]
         self.prefix = spmv_prefixes(program, sp)
+        self.lanes = lanes
+        if lanes is not None:
+            pinned = sorted(o for o, k in self.prefix.items()
+                            if k is not None and o in lanes)
+            if pinned:
+                raise NotImplementedError(
+                    f"spmv op(s) {pinned} hold an overbooked (prefix) pin, "
+                    "which runs on B3, and B3 has no lane form yet "
+                    "(ROADMAP.md §2, \"B3's lane form\"): serve a plan "
+                    "codesigned without overbook")
+            for nd in self.spmv_nodes:
+                if any(t in lanes for t in nd.inputs[:3]):
+                    raise NotImplementedError(
+                        f"{nd.name}: a sparse operand per request has no "
+                        "lane form; the operand must be an operator leaf")
         rest = [nd for nd in nodes if nd.op != "spmv"]
         shapes = {n: program.nodes[n].shape
                   for nd in nodes for n in (*nd.inputs, nd.name)}
-        self.pass_ = (StreamKernel(rest, shapes, needed, sp.rows)
-                      if rest else None)
+        if rest and lanes is None:
+            self.pass_ = StreamKernel(rest, shapes, needed, sp.rows)
+        else:
+            self.pass_ = (_Pass(rest, shapes, needed, sp.rows, lanes)
+                          if rest else None)
         self.spmv_out = [nd.name for nd in self.spmv_nodes
                          if nd.name in needed]
         produced = {nd.name for nd in nodes}
         self.in_names = list(dict.fromkeys(
             t for nd in nodes for t in nd.inputs if t not in produced))
 
+    def _spmv(self, nd, env):
+        operands = [env[t] for t in nd.inputs]
+        if self.lanes is not None and nd.name in self.lanes:
+            return spmv_lanes(*operands, rows=nd.shape[0])
+        return spmv(*operands, rows=nd.shape[0],
+                    prefix_rows=self.prefix[nd.name])
+
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        vals = {nd.name: spmv(*(env[t] for t in nd.inputs),
-                              rows=nd.shape[0],
-                              prefix_rows=self.prefix[nd.name])
-                for nd in self.spmv_nodes}
+        vals = {nd.name: self._spmv(nd, env) for nd in self.spmv_nodes}
         out = {n: vals[n] for n in self.spmv_out}
         if self.pass_ is not None:
             out.update(self.pass_(collections.ChainMap(vals, env)))
@@ -138,9 +218,11 @@ class _StreamUnit:
 class _BlockUnit:
     """A ``block`` unit: B4 per stencil op, B1 over flattened arrays per run
     of elementwise ops.  Stencil results read only inside the unit live in
-    scratch buffers that are reused once dead (two suffice for a chain)."""
+    scratch buffers that are reused once dead (two suffice for a chain).
+    With ``lanes``, its lane form: B4's and B1's."""
 
-    def __init__(self, program, unit, needed: Set[str]):
+    def __init__(self, program, unit, needed: Set[str],
+                 lanes: Optional[Set[str]] = None):
         nodes = [program.nodes[o] for o in unit.ops]
         produced = {nd.name for nd in nodes}
         self.in_names = list(dict.fromkeys(
@@ -161,7 +243,8 @@ class _BlockUnit:
                       for nd in run for n in (*nd.inputs, nd.name)}
             rows = shapes[names[0]][0]
             steps.append(("stream", StreamKernel(list(run), shapes, keep,
-                                                 rows)))
+                                                 rows) if lanes is None
+                          else _Pass(list(run), shapes, keep, rows, lanes)))
             run.clear()
 
         for nd in nodes:
@@ -179,15 +262,23 @@ class _BlockUnit:
             for t in reads:
                 self.last_read[t] = si
         self.needed = needed
-        self.shapes = {nd.name: nd.shape for nd in nodes}
+        self.shapes = {n: program.nodes[n].shape
+                       for nd in nodes for n in (*nd.inputs, nd.name)}
+        self.lanes = lanes
+        self.lane_in = [t for t in self.in_names
+                        if lanes is not None and t in lanes]
 
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         vals: Dict[str, torch.Tensor] = {}
         scratch: Dict[str, torch.Tensor] = {}    # stencil outputs it owns
         free: List[torch.Tensor] = []
+        n = int(env[self.lane_in[0]].shape[0]) if self.lane_in else None
 
         def get(t):
             return vals[t] if t in vals else env[t]
+
+        def lead(t):          # a tensor's lane axis, if it has one
+            return (n,) if n is not None and t in self.lanes else ()
 
         for si, (kind, obj) in enumerate(self.steps):
             if kind == "stencil":
@@ -197,14 +288,18 @@ class _BlockUnit:
                     out = free.pop()
                 u = get(nd.inputs[0])
                 f = get(nd.inputs[1]) if len(nd.inputs) > 1 else None
-                vals[nd.name] = stencil2d(u, f, nd.param("h2", 1.0), out=out)
+                vals[nd.name] = (
+                    stencil2d_lanes(u, f, nd.param("h2", 1.0), out=out,
+                                    lanes=n) if lead(nd.name)
+                    else stencil2d(u, f, nd.param("h2", 1.0), out=out))
                 if nd.name not in self.needed:
                     scratch[nd.name] = vals[nd.name]
             else:
-                flat = {t: get(t).reshape(-1) if get(t).dim() else get(t)
+                flat = {t: get(t).reshape(*lead(t), -1)
+                        if self.shapes[t] != () else get(t)
                         for t in obj.in_names}
-                for n, v in obj(flat).items():
-                    vals[n] = v.reshape(self.shapes[n])
+                for name, v in obj(flat).items():
+                    vals[name] = v.reshape(*lead(name), *self.shapes[name])
             for t, buf in list(scratch.items()):
                 if self.last_read.get(t, -1) <= si:
                     free.append(buf)
@@ -213,29 +308,54 @@ class _BlockUnit:
 
 
 class _TorchUnit:
-    """A ``jnp`` unit: the reference rules as plain torch ops."""
+    """A ``jnp`` unit: the reference rules as plain torch ops.  With
+    ``lanes``, its lane-independent nodes run once and the others under
+    ``torch.func.vmap`` over their lane inputs."""
 
-    def __init__(self, program, unit, needed: Set[str]):
+    def __init__(self, program, unit, needed: Set[str],
+                 lanes: Optional[Set[str]] = None):
         self.nodes = [program.nodes[o] for o in unit.ops]
         produced = {nd.name for nd in self.nodes}
         self.in_names = list(dict.fromkeys(
             t for nd in self.nodes for t in nd.inputs if t not in produced))
         self.out_names = [nd.name for nd in self.nodes if nd.name in needed]
+        lanes = lanes or set()
+        self.once = [nd for nd in self.nodes if nd.name not in lanes]
+        self.each = [nd for nd in self.nodes if nd.name in lanes]
+        self.lane_in = [t for t in self.in_names if t in lanes]
 
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         vals: Dict[str, torch.Tensor] = {}
-        for nd in self.nodes:
+        for nd in self.once:
             vals[nd.name] = eval_node(
                 nd, [vals[t] if t in vals else env[t] for t in nd.inputs])
+        if self.each:
+            names = [nd.name for nd in self.each]
+
+            def lane(*xs):
+                lv = dict(zip(self.lane_in, xs))
+                for nd in self.each:
+                    lv[nd.name] = eval_node(nd, [
+                        lv[t] if t in lv else vals[t] if t in vals
+                        else env[t] for t in nd.inputs])
+                return tuple(lv[n] for n in names)
+
+            vals.update(zip(names, torch.func.vmap(lane)(
+                *(env[t] for t in self.lane_in))))
         return {n: vals[n] for n in self.out_names}
 
 
-def _build_unit(program, unit, needed: Set[str]):
+def _build_unit(program, unit, needed: Set[str],
+                lanes: Optional[Set[str]] = None):
+    """A unit's callable; its lane form when ``lanes`` names a tensor that
+    it computes (a unit of lane-independent ops runs once either way)."""
+    if lanes is not None and not lanes & set(unit.ops):
+        lanes = None
     if unit.kind == "stream":
-        return _StreamUnit(program, unit, needed)
+        return _StreamUnit(program, unit, needed, lanes)
     if unit.kind == "block":
-        return _BlockUnit(program, unit, needed)
-    return _TorchUnit(program, unit, needed)
+        return _BlockUnit(program, unit, needed, lanes)
+    return _TorchUnit(program, unit, needed, lanes)
 
 
 # --------------------------------------------------------------------------
@@ -280,25 +400,24 @@ def _converted(raw, dtype) -> Dict[str, torch.Tensor]:
 
 
 class _Captured:
-    """One signature's graph: the program-owned leaf buffers it reads, the
-    output buffers it writes, the launches one replay makes, and the event
-    that the last run recorded after copying its outputs out."""
+    """One signature's graph: the program-owned leaf buffers it reads (the
+    lane program's operator excepted: bound, or in buffers per dtype), the
+    output buffers it writes and the launches one replay makes."""
 
-    __slots__ = ("leaves", "graph", "outs", "counts", "done")
+    __slots__ = ("leaves", "graph", "outs", "counts")
 
     def __init__(self, leaves, graph, outs, counts):
         self.leaves = leaves
         self.graph = graph
         self.outs = outs
         self.counts = {k: v for k, v in counts.items() if v}
-        self.done: Optional[torch.cuda.Event] = None
 
 
 class CudaProgram:
     """One compiled plan: ``feeds -> {output: tensor}`` on its device, one
     graph replay per call on a CUDA device (see the module docstring)."""
 
-    def __init__(self, plan):
+    def __init__(self, plan, lanes: Optional[Set[str]] = None):
         program = plan_program(plan)
         ep = plan.exec_plan
         if ep is None:
@@ -306,6 +425,7 @@ class CudaProgram:
                              "Session.lower (they carry an ExecPlan)")
         self.exec_plan = ep
         self.device = torch.device(plan_device(plan))
+        self.lanes = lanes
         units, roll = ep.units, ep.roll
         needed, _ = _unit_needed(program, units)
         if roll is not None:
@@ -322,10 +442,13 @@ class CudaProgram:
             epi = range(roll.stop, len(units))
         else:
             pro, tmpl, epi = range(len(units)), (), ()
-        self._pro = [_build_unit(program, units[i], needed[i]) for i in pro]
-        self._tmpl = [_build_unit(program, units[i], needed[i])
-                      for i in tmpl]
-        self._epi = [_build_unit(program, units[i], needed[i]) for i in epi]
+
+        def build(i):
+            return _build_unit(program, units[i], needed[i], lanes)
+
+        self._pro = [build(i) for i in pro]
+        self._tmpl = [build(i) for i in tmpl]
+        self._epi = [build(i) for i in epi]
         self.roll = roll
         self.leaf_names = [nd.name for nd in program.leaves()]
         self.out_names = list(program.outputs)
@@ -337,6 +460,7 @@ class CudaProgram:
                 if n not in tmpl_ops and n not in reads))
             self._slot_shapes = [program.nodes[sl.update].shape
                                  for sl in roll.slots]
+        self.out_shapes = {o: program.nodes[o].shape for o in self.out_names}
         # counters live on the port's registry under this program's own
         # scope label, as the JAX package's single program keeps them
         self._scope = obs.next_scope("cuda")
@@ -348,6 +472,9 @@ class CudaProgram:
         self._walked: Set[tuple] = set()          # signatures seen (CPU)
         self._graphs: Dict[tuple, _Captured] = {}
         self._lock = threading.Lock()              # copy-in, replay, copy-out
+        # recorded by the last run after its copy-out; the next run's
+        # stream waits on it before touching the program's buffers
+        self._done: Optional[torch.cuda.Event] = None
 
     @property
     def stats(self) -> Dict[str, Any]:
@@ -394,39 +521,41 @@ class CudaProgram:
         return self._run(_converted(raw, dtype), dtype)
 
     # -- the graph ------------------------------------------------------
+    def _fill(self, raw, dtype, cap: Optional[_Captured]):
+        """The leaf buffers the signature's graph reads, holding this run's
+        feeds (made when the graph is new), and the bytes copied."""
+        leaves = dict(cap.leaves) if cap is not None else {
+            n: torch.empty(v.shape, device=self.device,
+                           dtype=dtype if v.is_floating_point() else v.dtype)
+            for n, v in raw.items()}
+        for n in raw:
+            leaves[n].copy_(raw[n])
+        return leaves, sum(leaves[n].numel() * leaves[n].element_size()
+                           for n in raw)
+
     def _replay(self, raw, sig, dtype):
         """Copy the feeds in, replay the signature's graph (capturing it
         first if it is new), copy the outputs out.  Returns (outputs,
         whether this call captured)."""
         stream = torch.cuda.current_stream(self.device)
         with self._lock:
+            if self._done is not None:
+                stream.wait_event(self._done)
             cap = self._graphs.get(sig)
             traced = cap is None
+            leaves, copied = self._fill(raw, dtype, cap)
             if traced:
-                cap = self._graphs[sig] = self._capture(raw, dtype)
-            else:
-                if cap.done is not None:
-                    stream.wait_event(cap.done)
-                for name, buf in cap.leaves.items():
-                    buf.copy_(raw[name])
-            _DONATED_B.inc(sum(b.numel() * b.element_size()
-                               for b in cap.leaves.values()),
-                           backend="cuda", scope=self._scope)
+                cap = self._graphs[sig] = self._capture(leaves, dtype)
+            _DONATED_B.inc(copied, backend="cuda", scope=self._scope)
             cap.graph.replay()
             out = {o: t.clone() for o, t in cap.outs.items()}
-            cap.done = torch.cuda.Event()
-            cap.done.record(stream)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
             for name, n in cap.counts.items():
                 kernels.count(name, n)
         return out, traced
 
-    def _capture(self, raw, dtype) -> _Captured:
-        leaves = {n: torch.empty(v.shape, device=self.device,
-                                 dtype=dtype if v.is_floating_point()
-                                 else v.dtype)
-                  for n, v in raw.items()}
-        for n, buf in leaves.items():
-            buf.copy_(raw[n])
+    def _capture(self, leaves, dtype) -> _Captured:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -445,8 +574,17 @@ class CudaProgram:
         return _Captured(leaves, graph, outs, counts)
 
     # -- the walk --------------------------------------------------------
+    def _n_lanes(self, leaves) -> Optional[int]:
+        return None
+
     def _run(self, leaves, dtype) -> Dict[str, torch.Tensor]:
         env = dict(leaves)
+        n_lanes = self._n_lanes(leaves)
+
+        def lead(name):       # a tensor's lane axis, if it has one
+            return ((n_lanes,) if n_lanes is not None and name in self.lanes
+                    else ())
+
         for call in self._pro:
             env.update(call(env))
         if self.roll is not None:
@@ -455,7 +593,8 @@ class CudaProgram:
             # output-only slots (init=None) seed with zeros: their carry-in
             # is never read, only their final generation leaves the loop
             carry = [env[sl.init] if sl.init is not None
-                     else torch.zeros(shape, dtype=dtype, device=self.device)
+                     else torch.zeros((*lead(sl.update), *shape),
+                                      dtype=dtype, device=self.device)
                      for sl, shape in zip(slots, self._slot_shapes)]
             for _ in range(self.roll.n_iters):
                 env_l = dict(base)
@@ -469,7 +608,81 @@ class CudaProgram:
                 env[sl.final] = v
         for call in self._epi:
             env.update(call(env))
-        return {o: env[o] for o in self.out_names}
+        # an output without lanes is every lane's
+        return {o: env[o] if n_lanes is None or lead(o)
+                else env[o].expand(n_lanes, *self.out_shapes[o])
+                for o in self.out_names}
+
+
+class CudaLaneProgram(CudaProgram):
+    """The lane-batched program that serving runs: ``(shared, batched) ->
+    {output: (L, ...)}``, ``shared`` the operator leaves at their traced
+    shape and ``batched`` the input leaves with a leading lane axis, one
+    graph replay per call on a CUDA device (see the module docstring).
+
+    ``shared``, when given, binds the operator: contiguous tensors on the
+    plan's device, in the dtype of every run, that the graphs read in
+    place, so a write to them shows in the next run; each call must pass
+    these very tensors.  Raises :class:`NotImplementedError` for a plan
+    whose spmv op holds an overbooked pin (B3 has no lane form yet)."""
+
+    def __init__(self, plan, shared: Optional[Dict[str, torch.Tensor]] = None):
+        program = plan_program(plan)
+        super().__init__(plan, lanes=lane_names(program))
+        self.shared_leaves = [n for n in self.leaf_names
+                              if n not in self.lanes]
+        self.batched_leaves = [n for n in self.leaf_names if n in self.lanes]
+        self._bound: Optional[Dict[str, torch.Tensor]] = None
+        if shared is not None:
+            self._bound = {n: shared[n] for n in self.shared_leaves}
+            for n, t in self._bound.items():
+                if (not isinstance(t, torch.Tensor)
+                        or t.device.type != self.device.type
+                        or self.device.index not in (None, t.device.index)
+                        or not t.is_contiguous()):
+                    raise ValueError(f"bound operator leaf {n!r} must be a "
+                                     f"contiguous tensor on {self.device}")
+        # an unbound program's operator buffers, one set per dtype for
+        # every lane count, refilled on every run
+        self._shared: Dict[torch.dtype, Dict[str, torch.Tensor]] = {}
+
+    def __call__(self, shared, batched) -> Dict[str, torch.Tensor]:
+        if self._bound is not None:
+            for n, t in self._bound.items():
+                if shared.get(n) is not t:
+                    raise ValueError(f"operator leaf {n!r}: this program "
+                                     "reads the tensor bound at its build; "
+                                     "pass that tensor")
+        return super().__call__({**shared, **batched})
+
+    def _n_lanes(self, leaves) -> int:
+        counts = {int(leaves[n].shape[0]) for n in self.batched_leaves}
+        if len(counts) != 1:
+            raise ValueError(f"batched leaves disagree on the lane count: "
+                             f"{sorted(counts)}")
+        (n,) = counts
+        return n
+
+    def _fill(self, raw, dtype, cap):
+        leaves, copied = super()._fill(
+            {n: raw[n] for n in self.batched_leaves}, dtype, cap)
+        if self._bound is not None:
+            for n, t in self._bound.items():
+                if t.is_floating_point() and t.dtype != dtype:
+                    raise ValueError(f"bound operator leaf {n!r} is "
+                                     f"{t.dtype}, the run {dtype}")
+            return {**leaves, **self._bound}, copied
+        held = self._shared.get(dtype)
+        if held is None:
+            held = self._shared[dtype] = {
+                n: torch.empty(raw[n].shape, device=self.device,
+                               dtype=(dtype if raw[n].is_floating_point()
+                                      else raw[n].dtype))
+                for n in self.shared_leaves}
+        for n in self.shared_leaves:
+            held[n].copy_(raw[n])
+            copied += held[n].numel() * held[n].element_size()
+        return {**leaves, **held}, copied
 
 
 class CudaExecutor(Executor):
@@ -484,6 +697,13 @@ class CudaExecutor(Executor):
         faults.check("exec.compile", backend=self.name)
         return CudaProgram(plan)
 
+    def compile_batched(self, plan, shared=None) -> CudaLaneProgram:
+        """The lane-batched program: B1, B2 and B4 in their lane forms, one
+        graph replay per (lanes, dtype, leaf shapes) signature, its graphs
+        reading the operator ``shared`` binds in place."""
+        faults.check("exec.compile", backend=self.name)
+        return CudaLaneProgram(plan, shared)
+
 
 class PerUnitCudaExecutor(Executor):
     """The eager executor: one launch sequence per execution unit from
@@ -493,12 +713,21 @@ class PerUnitCudaExecutor(Executor):
     (``repro/exec/pallas.py:1005-1045``): it walks the *unfused* unit
     sequence (``flatten_units``: no cross-pass residency, no rolled loop)
     and captures nothing.  The A/B baseline of the ``cuda`` backend's one
-    replay per run, and the eager path for a caller who names it.
+    replay per run, and the eager path for a caller who names it; its
+    batched form walks the same units in their lane forms.
     """
 
     name = "cuda-perunit"
 
     def compile(self, plan):
+        return self._compile(plan, None)
+
+    def compile_batched(self, plan, shared=None):
+        faults.check("exec.compile", backend=self.name)
+        fn = self._compile(plan, lane_names(plan_program(plan)))
+        return lambda shared, batched: fn({**shared, **batched})
+
+    def _compile(self, plan, lanes: Optional[Set[str]]):
         program = plan_program(plan)
         if not plan.group_kernels:
             raise ValueError("the cuda-perunit backend runs plans lowered "
@@ -506,7 +735,7 @@ class PerUnitCudaExecutor(Executor):
         device = torch.device(plan_device(plan))
         units = flatten_units(plan.group_kernels)
         needed, consumers = _unit_needed(program, units)
-        calls = [_build_unit(program, units[ui], needed[ui])
+        calls = [_build_unit(program, units[ui], needed[ui], lanes)
                  for ui in range(len(units))]
         scope = obs.next_scope("perunit")
         for unit in units:
@@ -518,6 +747,7 @@ class PerUnitCudaExecutor(Executor):
             if t not in outputs:
                 frees[max(uis)].append(t)
         leaves = [nd.name for nd in program.leaves()]
+        first_lane_leaf = [n for n in leaves if lanes and n in lanes][:1]
 
         def fn(feeds):
             raw, dtype = _leaf_tensors(leaves, feeds, device)
@@ -526,5 +756,10 @@ class PerUnitCudaExecutor(Executor):
                 env.update(call(env))
                 for t in dead:
                     env.pop(t, None)
-            return {o: env[o] for o in program.outputs}
+            if not first_lane_leaf:
+                return {o: env[o] for o in program.outputs}
+            n = int(raw[first_lane_leaf[0]].shape[0])
+            return {o: env[o] if o in lanes
+                    else env[o].expand(n, *program.nodes[o].shape)
+                    for o in program.outputs}
         return fn

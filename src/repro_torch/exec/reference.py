@@ -12,6 +12,10 @@ row's products in ascending entry order (``index_add_`` on the CPU; on a
 CUDA device ``index_add_`` adds through atomics in no fixed order, so the
 oracle is exact there only up to reassociation).  Those two rules are the
 plain versions of the B2 and B4 kernels (``repro_torch.kernels``).
+
+Its batched form (``compile_batched``, for serving) is
+:meth:`Executor.compile_batched`'s default: the interpreter once a lane,
+on the plan's device (the exact oracle a server falls back to).
 """
 from __future__ import annotations
 

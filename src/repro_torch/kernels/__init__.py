@@ -11,6 +11,10 @@ torch version.
                  ``spmv_sliced``,
   ``stencil``  — B4, the periodic 5-point stencil, CUDA C++
                  (``csrc/stencil.cu``),
+  B1, B2 and B4 also have a lane form for batched serving (one launch
+                 serves L requests, the shared operator read once; counted
+                 as ``stream_lanes`` / ``stream_lanes_finalize``,
+                 ``spmv_lanes``, ``stencil2d_lanes``),
   ``flash_attention`` — B5, online-softmax attention, CUDA C++
                  (``csrc/flash_attention.cu``),
   ``fused_mlp`` — B6, the fused (gated) MLP, CUDA C++
@@ -21,7 +25,8 @@ torch version.
                  (``csrc/wkv6.cu``), counted as ``wkv6``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises — it never falls back.  Every wrapper calls
+launches its kernel or raises — it never falls back.  A kernel that does
+not build or launch raises ``build.KernelError``.  Every wrapper calls
 :func:`count` once per launch, right where it launches, and nowhere else,
 so a run can show that its path went through the kernels:
 
@@ -45,6 +50,8 @@ from typing import Dict, Iterator
 
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
+                            "stream_lanes": 0, "stream_lanes_finalize": 0,
+                            "spmv_lanes": 0, "stencil2d_lanes": 0,
                             "flash_attention": 0,
                             "fused_mlp": 0, "rmsnorm": 0, "rglru": 0,
                             "wkv6": 0}

@@ -14,6 +14,9 @@ git-ignored), or ``$CELLO_TORCH_BUILD_DIR``.  The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads the library already built.  Nothing here runs at
 import time: this module imports on a machine without ``nvcc``.
+
+A kernel that does not build, load or launch raises :class:`KernelError`,
+here and in ``kernels.stream`` for the Triton passes.
 """
 from __future__ import annotations
 
@@ -34,6 +37,16 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel did not build (``nvcc`` or Triton refused
+    it, or the library did not load) or did not launch (a C entry
+    reported a CUDA error).  Nothing in the port answers it with a plain
+    version: ``serve.Server`` settles it on the batch's futures instead of
+    retrying or falling back."""
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: wall-clock seconds the last library build took (0.0 when it was loaded)
@@ -53,7 +66,10 @@ def import_triton():
     """Triton, with its compile cache under the build directory."""
     os.environ.setdefault("TRITON_CACHE_DIR",
                           str(build_dir() / "triton_cache"))
-    import triton
+    try:
+        import triton
+    except ImportError as e:
+        raise KernelError(f"triton does not import: {e}") from e
     return triton
 
 
@@ -64,8 +80,8 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA backend needs the CUDA "
-                       "toolkit to build its kernels (csrc/*.cu)")
+    raise KernelError("nvcc not found: the CUDA backend needs the CUDA "
+                      "toolkit to build its kernels (csrc/*.cu)")
 
 
 def _sources() -> List[pathlib.Path]:
@@ -95,6 +111,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("cello_stencil2d_f32", "cello_stencil2d_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, i32, i32, f64, vp]
+        fn.restype = i32
+    for name in ("cello_spmv_lanes_f32", "cello_spmv_lanes_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp]
+        fn.restype = i32
+    for name in ("cello_stencil2d_lanes_f32", "cello_stencil2d_lanes_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, i32, i32, f64, i32, i32, i32, vp]
         fn.restype = i32
     for name in ("cello_rmsnorm_bf16", "cello_rmsnorm_f32"):
         fn = getattr(lib, name)
@@ -150,7 +174,7 @@ def _compile(out: pathlib.Path) -> None:
             failed.append("link")
     (out.parent / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        raise KernelError(f"nvcc failed for {failed}:\n" + "\n".join(log))
     os.replace(tmp_lib, out)          # atomic: a reader never sees half
     shutil.rmtree(work, ignore_errors=True)
 
@@ -165,8 +189,12 @@ def cuda_library() -> ctypes.CDLL:
             if not out.exists():
                 _compile(out)
             build_seconds = time.perf_counter() - t0
-            lib = ctypes.CDLL(str(out))
-            _declare(lib)
+            try:
+                lib = ctypes.CDLL(str(out))
+                _declare(lib)
+            except (OSError, AttributeError) as e:
+                raise KernelError(f"kernel library {out.name} does not "
+                                  f"load: {e}") from e
             _lib = lib
         return _lib
 
@@ -181,4 +209,4 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error (a refused launch never
     runs, and ``torch.cuda.synchronize`` would not report it)."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise KernelError(f"{what}: CUDA error {err}")

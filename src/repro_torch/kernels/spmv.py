@@ -7,6 +7,10 @@ order (no atomics, no masked scan over all entries); see the source for the
 design and its bound.  The CUDA backend launches it on its own just before
 the B1 pass that holds the spmv op, and the pass streams its output.
 
+B2's lane form (:func:`spmv_lanes`) serves a batch of requests against
+one operand: ``x`` and ``y`` carry a leading lane axis, each entry of the
+operand is read once for 16 lanes, and each lane equals B2 on it alone.
+
 B3 replaces ``:616`` ``_spmv_sliced_tile`` together with its arrangement,
 ``:300`` ``_StreamCall._arrange``.  An overbooked pin keeps an
 indptr-aligned row prefix of a CSR operand resident and streams the rest.
@@ -113,6 +117,57 @@ def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
              x.data_ptr(), y.data_ptr(), rows,
              *((prefix_rows,) if sliced else ()), stream), name)
+    return y
+
+
+def spmv_lanes_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                     data: torch.Tensor, x: torch.Tensor, rows: int
+                     ) -> torch.Tensor:
+    """B2's lane form in torch: ``Y[l] = A @ x[l]`` for lane-major ``x``
+    ``(L, n)``, every lane's products added in ascending entry order, as
+    :func:`spmv_plain` adds them for one ``x`` (on the CPU)."""
+    seg = csr_row_ids(indptr, data.shape[0])
+    contrib = data * x.index_select(1, indices.long())
+    out = torch.zeros((x.shape[0], rows), dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add_(1, seg, contrib)
+
+
+def spmv_lanes(indptr: torch.Tensor, indices: torch.Tensor,
+               data: torch.Tensor, x: torch.Tensor, rows: int
+               ) -> torch.Tensor:
+    """B2's lane form: ``y[l] = A @ x[l]`` for L right-hand sides at once,
+    ``x`` lane-major ``(L, n)``, ``y`` ``(L, rows)``; the operand is read
+    once for every group of 16 lanes, and each lane equals :func:`spmv` on
+    that lane alone, bitwise (see ``csrc/spmv.cu``)."""
+    if x.dim() != 2:
+        raise ValueError(f"spmv_lanes takes a lane-major (L, n) x, got "
+                         f"{tuple(x.shape)}")
+    if not on_cuda(indptr, indices, data, x):
+        return spmv_lanes_plain(indptr, indices, data, x, rows)
+    from .build import check, cuda_library
+    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
+        raise TypeError("spmv_lanes kernel takes int32 indptr/indices")
+    if data.dtype != x.dtype or data.dtype not in (torch.float32,
+                                                   torch.float64):
+        raise TypeError(f"spmv_lanes kernel takes float32/float64 data and "
+                        f"x of one dtype, got {data.dtype}, {x.dtype}")
+    if indptr.shape != (rows + 1,) or indices.shape != data.shape:
+        raise ValueError(f"spmv_lanes: indptr {tuple(indptr.shape)}, "
+                         f"indices {tuple(indices.shape)}, data "
+                         f"{tuple(data.shape)} do not describe {rows} rows")
+    for t in (indptr, indices, data, x):
+        if not t.is_contiguous():
+            raise ValueError("spmv_lanes kernel takes contiguous tensors")
+    lanes, cols = x.shape
+    y = torch.empty((lanes, rows), dtype=x.dtype, device=x.device)
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(cuda_library(), f"cello_spmv_lanes_{suffix}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    count("spmv_lanes")
+    check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+             x.data_ptr(), y.data_ptr(), rows, cols, lanes, stream),
+          "spmv_lanes")
     return y
 
 

@@ -9,7 +9,8 @@ neighbours from the next lanes by shuffles; a grid whose width is not a
 multiple of the vector, or an operand not 16-byte aligned, takes the same
 kernel's scalar path.  It keeps the reference's add order and roundings, so
 it agrees with the plain version bitwise on either path; see the source for
-the design and its bound.
+the design and its bound.  Its lane form (:func:`stencil2d_lanes`) sweeps a
+batch of grids in one launch, a grid axis over the lanes.
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from . import count, on_cuda
 def stencil2d_plain(u: torch.Tensor, f: Optional[torch.Tensor] = None,
                     h2: float = 1.0) -> torch.Tensor:
     """``0.25·(N+S+W+E) + (0.25·h2)·f`` with periodic boundaries, the
-    neighbours added in the order of the JAX reference's rolls."""
-    out = 0.25 * (torch.roll(u, 1, 0) + torch.roll(u, -1, 0)
-                  + torch.roll(u, 1, 1) + torch.roll(u, -1, 1))
+    neighbours added in the order of the JAX reference's rolls.  The grid
+    is the last two axes: a leading lane axis of ``u`` or ``f`` (the lane
+    form) sweeps each lane's grid alone."""
+    out = 0.25 * (torch.roll(u, 1, -2) + torch.roll(u, -1, -2)
+                  + torch.roll(u, 1, -1) + torch.roll(u, -1, -1))
     if f is not None:
         out = out + 0.25 * float(h2) * f
     return out
@@ -64,4 +67,48 @@ def stencil2d(u: torch.Tensor, f: Optional[torch.Tensor] = None,
     check(fn(u.data_ptr(), None if f is None else f.data_ptr(),
              out.data_ptr(), u.shape[0], u.shape[1], 0.25 * float(h2),
              stream), "stencil2d")
+    return out
+
+
+def stencil2d_lanes(u: torch.Tensor, f: Optional[torch.Tensor] = None,
+                    h2: float = 1.0, out: Optional[torch.Tensor] = None,
+                    *, lanes: int) -> torch.Tensor:
+    """B4's lane form: one sweep of ``lanes`` grids in one launch.  ``u``
+    and ``f`` are lane-major ``(lanes, n0, n1)`` or one ``(n0, n1)`` grid
+    that every lane shares; the result is ``(lanes, n0, n1)`` (into
+    ``out`` when given).  Each lane equals :func:`stencil2d` on it alone,
+    bitwise."""
+    operands = (u,) if f is None else (u, f)
+    if not on_cuda(*operands):
+        res = stencil2d_plain(u, f, h2)
+        return res.expand(lanes, *res.shape[-2:]) if res.dim() == 2 else res
+    from .build import check, cuda_library
+    grid = tuple(u.shape[-2:])
+    for t in operands:
+        if t.shape not in ((lanes, *grid), grid):
+            raise ValueError(f"stencil2d_lanes: operand {tuple(t.shape)} is "
+                             f"neither ({lanes}, {grid[0]}, {grid[1]}) nor "
+                             f"{grid}")
+    if u.dtype not in (torch.float32, torch.float64) or \
+            (f is not None and f.dtype != u.dtype):
+        raise TypeError("stencil2d_lanes kernel takes float32/float64 u and "
+                        "f of one dtype")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("stencil2d_lanes kernel takes contiguous tensors")
+    if out is None:
+        out = torch.empty((lanes, *grid), dtype=u.dtype, device=u.device)
+    elif (out.shape != (lanes, *grid) or out.dtype != u.dtype
+          or not out.is_contiguous()
+          or any(out.data_ptr() == t.data_ptr() for t in operands)):
+        raise ValueError("stencil2d_lanes out= must be a distinct "
+                         "contiguous (lanes, n0, n1) buffer of u's dtype")
+    fn = (cuda_library().cello_stencil2d_lanes_f32
+          if u.dtype == torch.float32
+          else cuda_library().cello_stencil2d_lanes_f64)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    count("stencil2d_lanes")
+    check(fn(u.data_ptr(), None if f is None else f.data_ptr(),
+             out.data_ptr(), grid[0], grid[1], 0.25 * float(h2), lanes,
+             int(u.dim() == 3), int(f is not None and f.dim() == 3),
+             stream), "stencil2d_lanes")
     return out

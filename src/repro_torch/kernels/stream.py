@@ -65,6 +65,9 @@ from . import count, on_cuda
 MAX_TILE_WIDTH = 256
 #: rows per program for passes that stream a matrix, and the K block
 MATRIX_BLOCK_R, MATRIX_BLOCK_K = 16, 128
+#: lanes one program of B1's lane form carries when its pass streams an
+#: operand without lanes (each tile of it is then read once for them all)
+LANE_GROUP = 16
 
 _TILED_EW = ("add", "sub", "mul", "div", "neg", "axpy")
 
@@ -124,7 +127,14 @@ class StreamKernel:
     inputs); ``shapes`` maps every operand and product to its shape;
     ``needed`` names the products read after the pass; ``rows`` is the
     streamed length.
+
+    ``lanes`` names the operands that carry a leading lane axis (one
+    request each): given, this is B1's lane form (see
+    :class:`LaneStreamKernel`); None is the single-request pass.
     """
+
+    #: launch-count names of the main and finalize kernels
+    names = ("stream", "stream_finalize")
 
     def __init__(self, nodes: Sequence, shapes: Dict[str, Tuple[int, ...]],
                  needed: Set[str], rows: int):
@@ -188,6 +198,8 @@ class StreamKernel:
         self.block_r = (MATRIX_BLOCK_R if streams_matrix else
                         min(max(_p2(-(-self.rows // 1024)), 256), 4096))
         self.n_prog = -(-self.rows // self.block_r)
+        self.lanes: Set[str] = set()      # operands with a lane axis
+        self.group: Optional[int] = None  # lanes a program (lane form)
         self._kernels: Dict[torch.dtype, Tuple[object, object]] = {}
 
     # -- dispatch ---------------------------------------------------------
@@ -198,47 +210,56 @@ class StreamKernel:
         return list(dict.fromkeys(self.stream_in + self.res_in
                                   + self.scalar_in))
 
+    def _shape(self, name: str, n_lanes: Optional[int]) -> Tuple[int, ...]:
+        shape = tuple(self.shapes[name])
+        return (n_lanes, *shape) if name in self.lanes else shape
+
+    def n_lanes(self, env) -> Optional[int]:
+        """The lane count of ``env``'s lane operands (None when single)."""
+        return None
+
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Run the pass over ``env``: the kernels for CUDA tensors, the
         plain version for CPU tensors."""
         ins = [env[n] for n in self.in_names]
+        n_lanes = self.n_lanes(env)
         for n, t in zip(self.in_names, ins):
-            if tuple(t.shape) != tuple(self.shapes[n]):
+            if tuple(t.shape) != self._shape(n, n_lanes):
                 raise ValueError(f"stream pass operand {n!r}: shape "
                                  f"{tuple(t.shape)}, expected "
-                                 f"{self.shapes[n]}")
+                                 f"{self._shape(n, n_lanes)}")
         if on_cuda(*ins):
             return self.launch(env)
         return self.plain(env)
 
     # -- the plain version ------------------------------------------------
+    def _plain_node(self, nd, ins: List[torch.Tensor]) -> torch.Tensor:
+        """One node on single-request operands, the kernel's row blocks
+        for a reduction's partials."""
+        if self.classes[nd.name] == "reduce":
+            a = ins[0]
+            b = ins[1] if nd.op != "norm" else a
+            prod = a.reshape(-1) * b.reshape(-1)
+            pad = self.n_prog * self.block_r - prod.numel()
+            parts = torch.nn.functional.pad(prod, (0, pad)).reshape(
+                self.n_prog, self.block_r).sum(1)
+            total = parts.sum()
+            return torch.sqrt(total) if nd.op == "norm" else total
+        if nd.op in ("matmul", "einsum"):
+            rhs = STREAM_EINSUMS[nd.param("spec")]
+            return ins[1 - rhs] @ ins[rhs]
+        return _plain_op(nd.op, ins)
+
     def plain(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The pass in torch, with the kernel's row blocks for the
         reduction partials."""
         vals = {n: env[n] for n in self.in_names}
         for nd in self.nodes:
-            ins = [vals[t] for t in nd.inputs]
-            cls = self.classes[nd.name]
-            if cls == "reduce":
-                a = ins[0]
-                b = ins[1] if nd.op != "norm" else a
-                prod = a.reshape(-1) * b.reshape(-1)
-                pad = self.n_prog * self.block_r - prod.numel()
-                parts = torch.nn.functional.pad(prod, (0, pad)).reshape(
-                    self.n_prog, self.block_r).sum(1)
-                total = parts.sum()
-                vals[nd.name] = torch.sqrt(total) if nd.op == "norm" \
-                    else total
-            elif nd.op in ("matmul", "einsum"):
-                rhs = STREAM_EINSUMS[nd.param("spec")]
-                vals[nd.name] = ins[1 - rhs] @ ins[rhs]
-            else:
-                vals[nd.name] = _plain_op(nd.op, ins)
+            vals[nd.name] = self._plain_node(nd, [vals[t] for t in nd.inputs])
         return {n: vals[n] for n in self.stream_out + self.scalar_out}
 
     # -- the kernels ------------------------------------------------------
-    def launch(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        ins = [env[n] for n in self.in_names]
+    def _check_operands(self, ins) -> torch.dtype:
         dtype = ins[0].dtype
         for n, t in zip(self.in_names, ins):
             if t.dtype != dtype or not t.is_contiguous():
@@ -246,22 +267,32 @@ class StreamKernel:
                                  f"contiguous {dtype}, got {t.dtype}")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"stream pass takes float32/float64, got {dtype}")
+        return dtype
+
+    def launch(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        ins = [env[n] for n in self.in_names]
+        dtype = self._check_operands(ins)
         main, fin = self._compiled(dtype)
         dev = ins[0].device
         outs = {n: torch.empty(self.shapes[n], dtype=dtype, device=dev)
                 for n in self.stream_out + self.scalar_out}
         part = torch.empty((max(len(self.red_out), 1), self.n_prog),
                            dtype=dtype, device=dev)
-        warps = 8 if self.block_r >= 2048 else 4
-        count("stream")
-        main[(self.n_prog,)](*ins, *[outs[n] for n in self.stream_out], part,
-                             num_warps=warps, enable_fp_fusion=False)
+        count(self.names[0])
+        _launch(self.names[0], main, (self.n_prog,), *ins,
+                *[outs[n] for n in self.stream_out], part,
+                num_warps=self._warps, enable_fp_fusion=False)
         if self.scalar_out:
             fin_ins = [env[n] for n in self._fin_scalar_in]
-            count("stream_finalize")
-            fin[(1,)](part, *fin_ins, *[outs[n] for n in self.scalar_out],
-                      num_warps=4, enable_fp_fusion=False)
+            count(self.names[1])
+            _launch(self.names[1], fin, (1,), part, *fin_ins,
+                    *[outs[n] for n in self.scalar_out],
+                    num_warps=4, enable_fp_fusion=False)
         return outs
+
+    @property
+    def _warps(self) -> int:
+        return 8 if self.block_r >= 2048 else 4
 
     def _compiled(self, dtype: torch.dtype):
         hit = self._kernels.get(dtype)
@@ -281,15 +312,40 @@ class StreamKernel:
         return [n for n in self.scalar_in if n in used]
 
     def source(self, dtype: torch.dtype) -> str:
-        """The Triton source of this pass at ``dtype`` (both kernels)."""
+        """The Triton source of this pass at ``dtype`` (both kernels).
+
+        In the lane form every lane of a program runs the single-request
+        body on its own operands (a lane's base pointer is the operand's
+        plus the lane times its size), so a lane's arithmetic, its row
+        blocks and its reduction trees are the single-request pass's.
+        Operands without lanes are loaded once a program, and a
+        contraction whose streamed left operand has no lanes loads each
+        tile of it once for all the program's lanes."""
         fp32 = dtype == torch.float32
         tdt = "tl.float32" if fp32 else "tl.float64"
+        lanes = self.group is not None
+        group = self.group or 1
+        gs: List[Optional[int]] = list(range(group)) if lanes else [None]
         var = {}
 
-        def v(name: str) -> str:
+        def v(name: str, g: Optional[int] = None) -> str:
             if name not in var:
                 var[name] = f"v{len(var)}"
-            return var[name]
+            return var[name] if g is None else f"{var[name]}_{g}"
+
+        def lane_of(name: str, g: Optional[int]) -> Optional[int]:
+            return g if name in self.lanes else None
+
+        def numel(name: str) -> int:
+            n = 1
+            for s in self.shapes[name]:
+                n *= s
+            return n
+
+        def ptr(kind: str, name: str, g: Optional[int]) -> str:
+            base = f"{kind}_{v(name)}"
+            g = lane_of(name, g)
+            return base if g is None else f"({base} + l{g} * {numel(name)})"
 
         def div(a: str, b: str, a_sc: bool, b_sc: bool, shape: str) -> str:
             if not fp32:
@@ -331,96 +387,153 @@ class StreamKernel:
 
         # ---- main kernel ----
         args = ([f"p_{v(n)}" for n in self.in_names]
-                + [f"o_{v(n)}" for n in self.stream_out] + ["part"])
-        body = [f"pid = tl.program_id(0)",
+                + [f"o_{v(n)}" for n in self.stream_out] + ["part"]
+                + (["L"] if lanes else []))
+        head = [f"pid = tl.program_id(0)",
                 f"r = pid * {br} + tl.arange(0, {br})",
                 f"rm = r < {self.rows}"]
-        loaded: Set[str] = set()       # tensors with a value in the block
+        if lanes:
+            head.append(f"lb = tl.program_id(1) * {group}")
+            head += [f"l{g} = lb + {g}" for g in gs]
+        # lines run once a program (lanes: operands without lanes), then
+        # each lane's lines; single-request passes use the lane list alone
+        shared: List[str] = []
+        per: Dict[Optional[int], List[str]] = {g: [] for g in gs}
+        loaded: Set[Tuple[str, Optional[int]]] = set()
         col_ranges: Set[str] = set()
 
-        def cols(w: int) -> str:
+        def cols(w: int, out: List[str]) -> str:
             name = f"c{w}"
             if name not in col_ranges:
                 col_ranges.add(name)
                 if w > MAX_TILE_WIDTH:
                     raise NotImplementedError(
                         f"stream pass tile of width {w} > {MAX_TILE_WIDTH}")
-                body.append(f"{name} = tl.arange(0, {_pw(w)})")
-                body.append(f"{name}m = {name} < {w}")
+                out.append(f"{name} = tl.arange(0, {_pw(w)})")
+                out.append(f"{name}m = {name} < {w}")
             return name
 
-        def tile(name: str) -> str:
+        def target(name: str, g: Optional[int]) -> List[str]:
+            return shared if lanes and name not in self.lanes else per[g]
+
+        def tile(name: str, g: Optional[int]) -> str:
             """The value of a streamed input or product in this block."""
-            if name in produced or name in loaded:
-                return v(name)
-            loaded.add(name)
+            lg = lane_of(name, g)
+            if name in produced:
+                return v(name, lg)
+            if (name, lg) in loaded:
+                return v(name, lg)
+            loaded.add((name, lg))
+            out = target(name, g)
             w = width(name)
+            p = ptr("p", name, g)
             if w is None:
-                body.append(f"{v(name)} = tl.load(p_{v(name)} + r, mask=rm, "
-                            "other=0.0)")
+                out.append(f"{v(name, lg)} = tl.load({p} + r, mask=rm, "
+                           "other=0.0)")
             else:
-                c = cols(w)
-                body.append(f"{v(name)} = tl.load(p_{v(name)} + r[:, None] "
-                            f"* {w} + {c}[None, :], mask=rm[:, None] & "
-                            f"{c}m[None, :], other=0.0)")
-            return v(name)
+                c = cols(w, shared if lanes else out)
+                out.append(f"{v(name, lg)} = tl.load({p} + r[:, None] "
+                           f"* {w} + {c}[None, :], mask=rm[:, None] & "
+                           f"{c}m[None, :], other=0.0)")
+            return v(name, lg)
 
-        def scalar(name: str) -> str:
-            if name in produced or name in loaded:
-                return v(name)
-            loaded.add(name)
-            body.append(f"{v(name)} = tl.load(p_{v(name)})")
-            return v(name)
+        def scalar(name: str, g: Optional[int]) -> str:
+            lg = lane_of(name, g)
+            if name in produced or (name, lg) in loaded:
+                return v(name, lg)
+            loaded.add((name, lg))
+            target(name, g).append(f"{v(name, lg)} = "
+                                   f"tl.load({ptr('p', name, g)})")
+            return v(name, lg)
 
-        def operand(name: str) -> str:
-            return scalar(name) if self.shapes[name] == () else tile(name)
+        def operand(name: str, g: Optional[int]) -> str:
+            return (scalar(name, g) if self.shapes[name] == ()
+                    else tile(name, g))
 
         red_index = {n: j for j, n in enumerate(self.red_out)}
         for nd in self.nodes:
             cls = self.classes[nd.name]
-            if cls == "eager":
-                body.append(f"{v(nd.name)} = " + ew(
-                    nd, [scalar(t) for t in nd.inputs],
-                    [True] * len(nd.inputs), "()"))
-            elif cls == "epilogue":
-                continue
-            elif cls == "reduce":
-                a = tile(nd.inputs[0])
-                b = a if nd.op == "norm" else tile(nd.inputs[1])
-                body.append(f"tl.store(part + {red_index[nd.name]} * "
-                            f"{self.n_prog} + pid, tl.sum(tl.where(rm, "
-                            f"{a} * {b}, 0.0), axis=0))")
-            elif nd.op in ("matmul", "einsum"):
-                body.extend(self._contraction(nd, v, tile, cols, fp32, tdt,
-                                              produced))
-            else:
-                ins = [operand(t) for t in nd.inputs]
-                scal = [self.shapes[t] == () for t in nd.inputs]
-                body.append(f"{v(nd.name)} = " + ew(
-                    nd, ins, scal, tile_shape(nd.name)))
-            if nd.name in self.stream_out:
-                w = width(nd.name)
-                if w is None:
-                    body.append(f"tl.store(o_{v(nd.name)} + r, "
-                                f"{v(nd.name)}, mask=rm)")
+            if nd.op in ("matmul", "einsum") and cls == "tiled" and lanes:
+                rhs_n = nd.inputs[STREAM_EINSUMS[nd.param("spec")]]
+                lhs_n = nd.inputs[1 - STREAM_EINSUMS[nd.param("spec")]]
+                if lhs_n not in produced and lhs_n not in self.lanes:
+                    # the streamed left operand has no lanes: one K loop
+                    # loads each of its tiles once for every lane
+                    shared.extend(self._contraction(
+                        nd, gs, v, ptr, tile, lambda w: cols(w, shared),
+                        fp32, tdt, produced, guard=group > 1))
+                    cls = "hoisted"
+            for g in gs:
+                body = per[g]
+                if cls == "eager":
+                    body.append(f"{v(nd.name, g)} = " + ew(
+                        nd, [scalar(t, g) for t in nd.inputs],
+                        [True] * len(nd.inputs), "()"))
+                elif cls == "epilogue":
+                    continue
+                elif cls == "reduce":
+                    a = tile(nd.inputs[0], g)
+                    b = a if nd.op == "norm" else tile(nd.inputs[1], g)
+                    j = red_index[nd.name]
+                    slot = (f"{j} * {self.n_prog}" if not lanes else
+                            f"({j} * L + l{g}) * {self.n_prog}")
+                    body.append(f"tl.store(part + {slot} + pid, tl.sum("
+                                f"tl.where(rm, {a} * {b}, 0.0), axis=0))")
+                elif cls == "hoisted":
+                    pass
+                elif nd.op in ("matmul", "einsum"):
+                    body.extend(self._contraction(
+                        nd, [g], v, ptr, tile,
+                        lambda w: cols(w, shared if lanes else body),
+                        fp32, tdt, produced, guard=False))
                 else:
-                    c = cols(w)
-                    body.append(f"tl.store(o_{v(nd.name)} + r[:, None] * {w}"
-                                f" + {c}[None, :], {v(nd.name)}, "
-                                f"mask=rm[:, None] & {c}m[None, :])")
+                    ins = [operand(t, g) for t in nd.inputs]
+                    scal = [self.shapes[t] == () for t in nd.inputs]
+                    body.append(f"{v(nd.name, g)} = " + ew(
+                        nd, ins, scal, tile_shape(nd.name)))
+                if nd.name in self.stream_out:
+                    w = width(nd.name)
+                    o = ptr("o", nd.name, g)
+                    if w is None:
+                        body.append(f"tl.store({o} + r, "
+                                    f"{v(nd.name, g)}, mask=rm)")
+                    else:
+                        c = cols(w, shared if lanes else body)
+                        body.append(f"tl.store({o} + r[:, None] * {w}"
+                                    f" + {c}[None, :], {v(nd.name, g)}, "
+                                    f"mask=rm[:, None] & {c}m[None, :])")
+        main = head + shared
+        for g in gs:
+            if group > 1:
+                main.append(f"if l{g} < L:")
+                main += [f"    {ln}" for ln in per[g]]
+            else:
+                main += per[g]
 
         # ---- finalize kernel ----
+        # lanes: one program a lane, each the single-request finalize
         fin_args = (["part"] + [f"p_{v(n)}" for n in self._fin_scalar_in]
-                    + [f"o_{v(n)}" for n in self.scalar_out])
+                    + [f"o_{v(n)}" for n in self.scalar_out]
+                    + (["L"] if lanes else []))
+
+        def fptr(kind: str, name: str) -> str:
+            base = f"{kind}_{v(name)}"
+            return f"({base} + lane)" if name in self.lanes else base
+
         npp = _p2(self.n_prog)
         fin = [f"i = tl.arange(0, {npp})", f"im = i < {self.n_prog}"]
+        if lanes:
+            fin.insert(0, "lane = tl.program_id(0)")
         for n in self._fin_scalar_in:
-            fin.append(f"{v(n)} = tl.load(p_{v(n)})")
+            fin.append(f"{v(n)} = tl.load({fptr('p', n)})")
         for nd in self.nodes:
             cls = self.classes[nd.name]
             if cls == "reduce":
-                tot = (f"tl.sum(tl.load(part + {red_index[nd.name]} * "
-                       f"{self.n_prog} + i, mask=im, other=0.0), axis=0)")
+                j = red_index[nd.name]
+                slot = (f"{j} * {self.n_prog}" if not lanes else
+                        f"({j} * L + lane) * {self.n_prog}")
+                tot = (f"tl.sum(tl.load(part + {slot} + i, mask=im, "
+                       "other=0.0), axis=0)")
                 fin.append(f"{v(nd.name)} = " + (f"{sqrt}({tot})"
                                                  if nd.op == "norm" else tot))
             elif cls in ("eager", "epilogue"):
@@ -428,24 +541,30 @@ class StreamKernel:
                     nd, [v(t) for t in nd.inputs], [True] * len(nd.inputs),
                     "()"))
         for n in self.scalar_out:
-            fin.append(f"tl.store(o_{v(n)}, {v(n)})")
+            fin.append(f"tl.store({fptr('o', n)}, {v(n)})")
+
+        # a lane count is a plain argument: one compile serves every count
+        jit = ('@triton.jit(do_not_specialize=["L"])' if lanes
+               else "@triton.jit")
 
         def kernel(name, params, lines):
-            return (f"@triton.jit\ndef {name}({', '.join(params)}):\n"
+            return (f"{jit}\ndef {name}({', '.join(params)}):\n"
                     + "".join(f"    {ln}\n" for ln in lines))
 
         return ("import triton\nimport triton.language as tl\n\n\n"
-                + kernel("main_kernel", args, body) + "\n\n"
+                + kernel("main_kernel", args, main) + "\n\n"
                 + kernel("finalize_kernel", fin_args, fin))
 
-    def _contraction(self, nd, v, tile, cols, fp32, tdt, produced):
-        """Lines of one ``ab,b->a`` / ``ab,bc->ac`` product for a block."""
+    def _contraction(self, nd, gs, v, ptr, tile, cols, fp32, tdt, produced,
+                     guard: bool):
+        """Lines of one ``ab,b->a`` / ``ab,bc->ac`` product for a block,
+        for each lane of ``gs`` (None: the single request) with one K loop:
+        the left operand's tile is loaded once for all of them; ``guard``
+        skips the lanes past ``L``."""
         spec = nd.param("spec")
         rhs = STREAM_EINSUMS[spec]
         lhs_n, rhs_n = nd.inputs[1 - rhs], nd.inputs[rhs]
         k = self.shapes[rhs_n][0]
-        out = v(nd.name)
-        pr = f"p_{v(rhs_n)}"
         lines: List[str] = []
         matvec = spec == "ab,b->a"
         # fp32 products in full IEEE fp32 (no TF32); fp64 on the fp64 MMA
@@ -457,8 +576,10 @@ class StreamKernel:
         if lhs_n in produced:
             # the left operand is a tile of this block: one product over
             # all of K, its padded columns zeroed
+            (g,) = gs
+            out, pr = v(nd.name, g), ptr("p", rhs_n, g)
             kc = cols(k)
-            a = f"tl.where({kc}m[None, :], {v(lhs_n)}, 0.0)"
+            a = f"tl.where({kc}m[None, :], {tile(lhs_n, g)}, 0.0)"
             if matvec:
                 lines.append(f"{out} = tl.sum({a} * tl.load({pr} + {kc}, "
                              f"mask={kc}m, other=0.0)[None, :], axis=1)")
@@ -469,24 +590,135 @@ class StreamKernel:
             return lines
         # the left operand streams from memory: loop over K blocks
         bk = MATRIX_BLOCK_K if matvec else 16
-        pl = f"p_{v(lhs_n)}"
+        pl = ptr("p", lhs_n, gs[0])
         acc_shape = (f"({self.block_r},)" if matvec
                      else f"({self.block_r}, {_pw(c)})")
-        lines += [f"{out} = tl.zeros({acc_shape}, dtype={tdt})",
-                  f"for k0 in range(0, {k}, {bk}):",
+        lines += [f"{v(nd.name, g)} = tl.zeros({acc_shape}, dtype={tdt})"
+                  for g in gs]
+        lines += [f"for k0 in range(0, {k}, {bk}):",
                   f"    kk = k0 + tl.arange(0, {bk})",
                   f"    km = kk < {k}",
                   f"    a = tl.load({pl} + r[:, None] * {k} + kk[None, :], "
                   "mask=rm[:, None] & km[None, :], other=0.0)"]
-        if matvec:
-            lines += [f"    b = tl.load({pr} + kk, mask=km, other=0.0)",
-                      f"    {out} += tl.sum(a * b[None, :], axis=1)"]
-        else:
-            lines.append(f"    b = tl.load({pr} + kk[:, None] * {c} + "
-                         f"{cc}[None, :], mask=km[:, None] & {cc}m[None, :], "
-                         "other=0.0)")
-            lines.append(f"    {out} += tl.dot(a, b, {dot_kw})")
+        for g in gs:
+            out, pr = v(nd.name, g), ptr("p", rhs_n, g)
+            ind = "    "
+            if guard:
+                lines.append(f"    if l{g} < L:")
+                ind = "        "
+            if matvec:
+                lines += [f"{ind}b = tl.load({pr} + kk, mask=km, other=0.0)",
+                          f"{ind}{out} += tl.sum(a * b[None, :], axis=1)"]
+            else:
+                lines.append(f"{ind}b = tl.load({pr} + kk[:, None] * {c} + "
+                             f"{cc}[None, :], mask=km[:, None] & "
+                             f"{cc}m[None, :], other=0.0)")
+                lines.append(f"{ind}{out} += tl.dot(a, b, {dot_kw})")
         return lines
+
+
+class LaneStreamKernel(StreamKernel):
+    """B1's lane form: one launch runs the pass for ``L`` requests.
+
+    Every product of the pass carries lanes, and so do the external
+    operands named in ``lanes``; each such tensor is lane-major, its
+    single-request shape behind a leading lane axis (``(L, rows)``,
+    ``(L,)`` for a scalar).  Operands without lanes (the shared operator:
+    cg's ``A``, jacobi_sparse's ``A.dinv``) are the single-request
+    tensors.  A pass that streams such an operand runs ``LANE_GROUP``
+    lanes a program, so each of its tiles is read once for the group (a
+    matvec ``A·x`` becomes ``A·[x_0 … x_15]``); any other pass runs one
+    lane a program on a second grid axis.  Either way every lane runs the
+    single-request body on its own operands (see :meth:`source`), and
+    its finalize kernel runs one program a lane.
+
+    The plain version computes elementwise ops over the lane axis at
+    once and each reduction and contraction lane by lane with the
+    single-request pass's own rule, so it equals, bitwise, a loop of the
+    single-request plain version over the lanes.
+    """
+
+    names = ("stream_lanes", "stream_lanes_finalize")
+
+    def __init__(self, nodes: Sequence, shapes: Dict[str, Tuple[int, ...]],
+                 needed: Set[str], rows: int, lanes: Set[str]):
+        super().__init__(nodes, shapes, needed, rows)
+        produced = {nd.name for nd in self.nodes}
+        self.lanes = {n for n in self.in_names if n in lanes} | produced
+        for nd in self.nodes:
+            if not any(t in self.lanes for t in nd.inputs):
+                raise ValueError(f"{nd.name}: no input carries lanes; a "
+                                 "lane-independent node runs once, in the "
+                                 "single-request pass")
+        shared_streams = [t for t in self.stream_in if t not in self.lanes]
+        self.group = LANE_GROUP if shared_streams else 1
+
+    def n_lanes(self, env) -> int:
+        counts = {int(env[n].shape[0]) for n in self.in_names
+                  if n in self.lanes}
+        if len(counts) != 1:
+            raise ValueError(f"lane pass operands disagree on the lane "
+                             f"count: {sorted(counts)}")
+        (n,) = counts
+        return n
+
+    def plain(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        n_lanes = self.n_lanes(env)
+        vals = {n: env[n] for n in self.in_names}
+        for nd in self.nodes:
+            ins = [vals[t] for t in nd.inputs]
+            has = [t in self.lanes for t in nd.inputs]
+            if (self.classes[nd.name] == "reduce"
+                    or nd.op in ("matmul", "einsum")):
+                vals[nd.name] = torch.stack([
+                    self._plain_node(nd, [x[i] if h else x
+                                          for x, h in zip(ins, has)])
+                    for i in range(n_lanes)])
+            else:
+                rank = len(self.shapes[nd.name])
+                vals[nd.name] = _plain_op(nd.op, [
+                    x.reshape(*x.shape, *(1,) * (rank + 1 - x.dim()))
+                    if h else x for x, h in zip(ins, has)])
+        return {n: vals[n] for n in self.stream_out + self.scalar_out}
+
+    def launch(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        ins = [env[n] for n in self.in_names]
+        dtype = self._check_operands(ins)
+        n_lanes = self.n_lanes(env)
+        big = max((torch.Size(self.shapes[n]).numel() for n in self.lanes),
+                  default=1)
+        if n_lanes * big >= 2 ** 31:         # lane offsets are int32
+            raise ValueError(f"{n_lanes} lanes of {big} elements overflow "
+                             "the pass's int32 offsets")
+        main, fin = self._compiled(dtype)
+        dev = ins[0].device
+        outs = {n: torch.empty((n_lanes, *self.shapes[n]), dtype=dtype,
+                               device=dev)
+                for n in self.stream_out + self.scalar_out}
+        part = torch.empty((max(len(self.red_out), 1), n_lanes, self.n_prog),
+                           dtype=dtype, device=dev)
+        count(self.names[0])
+        _launch(self.names[0], main, (self.n_prog, -(-n_lanes // self.group)),
+                *ins, *[outs[n] for n in self.stream_out], part, n_lanes,
+                num_warps=self._warps, enable_fp_fusion=False)
+        if self.scalar_out:
+            fin_ins = [env[n] for n in self._fin_scalar_in]
+            count(self.names[1])
+            _launch(self.names[1], fin, (n_lanes,), part, *fin_ins,
+                    *[outs[n] for n in self.scalar_out], n_lanes,
+                    num_warps=4, enable_fp_fusion=False)
+        return outs
+
+
+def _launch(name: str, kernel, grid, *args, **kwargs) -> None:
+    """One Triton launch (compiling the kernel on its first): a compile or
+    launch that fails raises ``KernelError``."""
+    from .build import KernelError
+    try:
+        kernel[grid](*args, **kwargs)
+    except Exception as e:
+        raise KernelError(f"{name}: the Triton kernel did not build or "
+                          f"launch: {type(e).__name__}: {e}") from e
 
 
 _modules: Dict[str, object] = {}
@@ -497,7 +729,7 @@ def _load_source(src: str):
     """Import generated Triton source from the build directory (written
     once per distinct text).  Triton itself is imported here, never at
     module import: the CPU tests import this module without it."""
-    from .build import build_dir, import_triton
+    from .build import KernelError, build_dir, import_triton
     digest = hashlib.sha256(src.encode()).hexdigest()[:20]
     with _modules_lock:
         mod = _modules.get(digest)
@@ -514,6 +746,10 @@ def _load_source(src: str):
         spec = importlib.util.spec_from_file_location(
             f"cello_stream_{digest}", path)
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        try:
+            spec.loader.exec_module(mod)
+        except Exception as e:
+            raise KernelError(f"generated Triton source {path.name} does "
+                              f"not load: {type(e).__name__}: {e}") from e
         _modules[digest] = mod
         return mod

@@ -132,6 +132,35 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
+def test_solver_serving_imports_and_runs_with_jax_absent():
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+from repro_torch.api import ServeConfig, Session
+from repro_torch.runtime import run_with_restarts
+from repro_torch.serve import PlanRouter, Server, request
+srv = Server(PlanRouter(Session(device="cpu")),
+             ServeConfig(max_batch_size=4, autostart=False))
+futs = [srv.submit(request("cg_sparse", n=64, iters=2, seed=s,
+                           backend="cuda")) for s in range(3)]
+srv.start()
+res = [f.result(timeout=120) for f in futs]
+srv.close()
+assert [r.batch_size for r in res] == [3, 3, 3], res
+assert srv.stats()["batches"] == 1
+assert run_with_restarts(lambda s: None, lambda s: s, 2)["completed"] == 2
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_session_without_cuda_raises(monkeypatch):
     from repro_torch.api import Session
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
