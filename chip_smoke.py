@@ -14,7 +14,9 @@ Phases, each of which raises (exit code 1) on failure:
    of the main path, in fp32 and fp64, with its time, the plain version's
    time, one library call's time as a yardstick and its bytes bound:
    B1 (generated Triton stream passes: cg's Ap/pAp and r/rs passes at
-   n=4096), B2 (CSR SpMV, 5-point Laplacian, n=2^20), B3 (tile-staged
+   n=4096; in its deferred-finalize mode the same passes at one shard of
+   the K=4 mesh, 1024 of 4096 rows with ``p`` gathered whole, bitwise
+   against the ordinary pass, beside ``mv`` + ``dot`` on the block), B2 (CSR SpMV, 5-point Laplacian, n=2^20), B3 (tile-staged
    CSR SpMV whose prefix tiles' copies carry an L2 evict_last hint,
    bitwise, on the overbooked path's operand: banded n=131072, bandwidth
    16, the 40 MiB plan's prefix; beside it B3 with no hint (prefix 0), B2
@@ -120,7 +122,20 @@ Phases, each of which raises (exit code 1) on failure:
    kernels, timed beside their bytes bounds and a library yardstick
    (``A @ X`` plus column dots, ``torch.sparse.mm``, batched ``conv2d``);
    last, a write to the cg bucket's operator shows in the next replay,
-   bound to the router's plan and copied by an unbound one.
+   bound to the router's plan and copied by an unbound one;
+8. the device mesh, ``Session(device="cuda") -> trace -> codesign ->
+   lower(mesh=4, backend="cuda") -> run()``: four device slots on the one
+   card (``launch.mesh``), each shard's stream passes on B2 and B1's
+   deferred-finalize mode, the reductions summed over the shards in shard
+   order: cg(n=4096, iters=64) fp32, cg_sparse(n=2^20, iters=64,
+   laplacian5) fp32 and fp64, jacobi2d(n=4096, sweeps=8) fp32 (halo rows;
+   torch ops, no B4, as the JAX package's sharded plans), and the
+   crossover cell, cg under a 32 MiB buffer a slot, where ``A`` streams
+   at K=1 and pins at K=4.  Each held to phase 4's limits against the
+   port's ``ShardedReference`` on the card and against numpy, one graph
+   replay a run (``check_dispatch``), timed beside its eager walk and the
+   unsharded plan's run(); cg at K=1 bitwise equal to the unsharded
+   run().
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -172,6 +187,12 @@ EAGER_LAUNCHES = {
         "stream": 193, "stream_finalize": 128, "spmv": 65},
     ("jacobi2d(n=4096, sweeps=8)", "float32"): {"stencil2d": 8},
 }
+#: the mesh paths (phase 8): K device slots, all on the one card
+MESH_K = 4
+#: cg's buffer for the crossover cell: ``A`` (64 MiB in fp32) does not fit
+#: one slot's explicit region at 32 MiB and pins at K=4 (128 MiB in all),
+#: TABLE 11's crossover
+CROSSOVER_CAPACITY = 32 << 20
 #: host API calls that launch one kernel, as ``torch.profiler`` names them:
 #: ``cudaLaunchKernel*`` (the CUDA C++ kernels), ``cuLaunchKernel*`` (Triton)
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -534,6 +555,88 @@ def check_stream(cg_prog, A_np, results, dtypes):
                    case=f"cg n=4096 {label} pass", dtype=dt, err=err,
                    rel_err=rel, tol=KERNEL_TOL[dt], nbytes=nbytes, flops=flops, times=times,
                    block_r=k.block_r, programs=k.n_prog)
+
+
+def check_stream_deferred(mesh_prog, A_np, results, dtypes):
+    """B1's deferred-finalize mode on the cg template's Ap/pAp and r/rs
+    passes of one shard of the K=4 mesh plan (1024 of 4096 rows, ``p``
+    gathered whole).  Held bitwise against the ordinary B1 pass on the same
+    inputs (the same main kernel and fold: every streamed output equal,
+    every raw sum equal to the pass's reduction before its square root)
+    and against a second call; the elementwise outputs bitwise against the
+    plain version, the rest within ``KERNEL_TOL`` of it (the tree inside a
+    program and the matvec's K loop are not the plain version's order).
+    Timed beside the bytes bound and ``mv`` + ``dot`` on the same block."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.stream import StreamKernel
+    passes = {}
+    for call in mesh_prog._tmpl:
+        k = call.unit.pass_
+        if k is None:
+            continue
+        assert k.defer and k.names == ("stream_deferred",
+                                       "stream_deferred_finalize")
+        ops = {nd.op for nd in k.nodes}
+        if "matmul" in ops:
+            passes.setdefault("Ap/pAp", k)
+        elif "dot" in ops and "axpy" in ops:
+            passes.setdefault("r/rs", k)
+    assert set(passes) == {"Ap/pAp", "r/rs"}, sorted(passes)
+    for dt in dtypes:
+        tdt = getattr(torch, dt)
+        for label, k in passes.items():
+            A = torch.from_numpy(A_np[:k.rows]).to("cuda", tdt)
+            rng = np.random.default_rng(11)
+            env = _pass_env(k, A, rng, tdt, "cuda")
+            ordinary = StreamKernel(k.nodes, k.shapes, set(k.out_names),
+                                    k.rows)
+            got = k(env)                          # the wrapper: launches
+            again = k(env)
+            whole = ordinary(env)
+            torch.cuda.synchronize()
+            want = k.plain(env)
+            assert sorted(got) == sorted(k.stream_out + k.red_out)
+            for n in got:
+                assert torch.equal(got[n], again[n]), (label, dt, n)
+                pass_n = (torch.sqrt(got[n]) if n in k.norm_reductions
+                          else got[n])
+                assert torch.equal(pass_n, whole[n]), (
+                    "deferred vs the ordinary pass", label, dt, n)
+            contracted = {nd.name for nd in k.nodes
+                          if nd.op in ("matmul", "einsum")}
+            err = rel = 0.0
+            for n in want:
+                if n in k.stream_out and not contracted & {n}:
+                    assert torch.equal(got[n], want[n]), (label, dt, n)
+                scale = max(float(want[n].double().abs().max()), 1e-30)
+                e = max_err(got[n], want[n])
+                assert e <= KERNEL_TOL[dt] * scale, (label, dt, n, e, scale)
+                err, rel = max(err, e), max(rel, e / scale)
+            nbytes = sum(env[n].numel() * env[n].element_size()
+                         for n in k.in_names)
+            nbytes += sum(v.numel() * v.element_size()
+                          for v in got.values())
+            flops = sum(2 * int(np.prod(k.shapes[nd.inputs[0]]))
+                        for nd in k.nodes if nd.op in ("matmul", "dot",
+                                                       "norm", "axpy"))
+            lib = None              # no one torch call computes r/rs
+            if label == "Ap/pAp":
+                mv = next(nd for nd in k.nodes if nd.op == "matmul")
+                p_g = env[mv.inputs[1]]
+                pap = next(nd for nd in k.nodes if nd.op == "dot")
+                p_loc = env[next(t for t in pap.inputs if t != mv.name)]
+
+                def lib():
+                    return torch.dot(p_loc, torch.mv(A, p_g))
+            times = measure(lambda: k(env), lambda: k.plain(env), lib)
+            record(results, f"B1 deferred {label:7s}",
+                   kernel="stream_deferred",
+                   case=f"cg n=4096 K=4 shard ({k.rows} rows) {label} pass",
+                   dtype=dt, err=err, rel_err=rel, tol=KERNEL_TOL[dt],
+                   nbytes=nbytes, flops=flops, times=times,
+                   block_r=k.block_r, programs=k.n_prog,
+                   bitwise_vs_pass=True)
 
 
 def check_spmv(csr, results, dtypes):
@@ -1543,7 +1646,7 @@ def api_calls(fn):
             "memcpys": sum(n.startswith("cudaMemcpy") for n in names)}
 
 
-def check_dispatch(name, plan, feeds, dt, traces):
+def check_dispatch(name, plan, feeds, dt, traces, walk_torch_ops=False):
     """run()'s one dispatch on one path, against the eager walk that its
     graph captured (``CudaProgram.walk``): run 1 with the path's feeds and
     run 2 with other feeds (seed 1) each bitwise equal to the walk of their
@@ -1552,7 +1655,9 @@ def check_dispatch(name, plan, feeds, dt, traces):
     launches of two runs twice the walk's (and ``EAGER_LAUNCHES`` where
     it lists the path), and a profiled warm run() making one graph launch and
     no kernel launch, where the walk's profile shows every launch it
-    counts (the control: the profiler sees launches)."""
+    counts (the control: the profiler sees launches; ``walk_torch_ops``:
+    the walk also launches torch's own kernels, the mesh's exchanges and
+    scalar chains, so it shows at least the counted ones)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1591,7 +1696,9 @@ def check_dispatch(name, plan, feeds, dt, traces):
     walk_calls = api_calls(lambda: prog.walk(feeds))
     assert run_calls["graph_launches"] == 1, run_calls
     assert run_calls["kernel_launches"] == 0, run_calls
-    assert walk_calls["kernel_launches"] == sum(per_run.values()), (
+    seen_launches = walk_calls["kernel_launches"]
+    assert (seen_launches >= sum(per_run.values()) if walk_torch_ops
+            else seen_launches == sum(per_run.values())), (
         "the profiler misses launches", walk_calls, per_run)
     rec = dict(launches_per_run=per_run, stats=after,
                api_calls_run=run_calls, api_calls_walk=walk_calls)
@@ -1845,6 +1952,121 @@ def drive_overbooked(plans, feeds, dtypes, paths, seen, profile=False):
                 f"{b['perunit_graph_ms_set_aside']:.3f} ms (0); the share "
                 f"actually held is not measurable here (no L2 counters)")
     return totals
+
+
+# --------------------------------------------------------------------------
+# phase 8: the device mesh
+# --------------------------------------------------------------------------
+
+def mesh_plans(sess, designs):
+    """The mesh paths' plans, ``{name: (mesh plan, unsharded plan)}``: cg,
+    cg_sparse and jacobi2d at ``MESH_K`` shards from phase 4's codesign
+    (``lower`` codesigns again at K x the capacity), cg at K=1, and the
+    crossover cell: cg under ``CROSSOVER_CAPACITY``, where ``A`` streams at
+    K=1 and pins at ``MESH_K``."""
+    from repro_torch.api import Session
+    plans = {}
+    for name, (cd, single) in designs.items():
+        plans[name] = (cd.lower(mesh=MESH_K, backend="cuda"), single)
+    cg_cd, cg_single = designs["cg(n=4096, iters=64)"]
+    plans["cg(n=4096, iters=64) K=1"] = (
+        cg_cd.lower(mesh=1, backend="cuda"), cg_single)
+    x_sess = Session(device="cuda", capacity_bytes=CROSSOVER_CAPACITY)
+    x_cd = x_sess.trace(workload="cg", n=4096, iters=64).analyze() \
+        .codesign()
+    x_single = x_cd.lower(backend="cuda")
+    x_mesh = x_cd.lower(mesh=MESH_K, backend="cuda")
+    pins = {k: sorted(p.codesigned.best.schedule.pins)
+            for k, p in ((1, x_single), (MESH_K, x_mesh))}
+    log(f"  crossover, cg(n=4096) at {CROSSOVER_CAPACITY >> 20} MiB a slot: "
+        f"K=1 pins {len(pins[1])} tensors, A {'pinned' if 'A' in pins[1] else 'streamed'}; "
+        f"K={MESH_K} ({MESH_K * CROSSOVER_CAPACITY >> 20} MiB) pins "
+        f"{len(pins[MESH_K])}: {pins[MESH_K]}, A "
+        f"{'pinned' if 'A' in pins[MESH_K] else 'streamed'}")
+    assert "A" not in pins[1] and "A" in pins[MESH_K], pins
+    plans[f"cg(n=4096, iters=64) crossover {CROSSOVER_CAPACITY >> 20} MiB"] \
+        = (x_mesh, x_single)
+    return plans
+
+
+def drive_mesh(name, plan, single, feeds_np, dt, paths, seen, *,
+               residual=None, replay=None):
+    """One mesh path: run() against the port's ``ShardedReference`` on the
+    card (``PATH_TOL``) and numpy (the residual of x within
+    ``RESIDUAL_GAP`` of the oracle's, with the lower-precision control, or
+    a replay of the sweeps), ``check_dispatch`` (one graph replay a run,
+    bitwise equal to the eager walk), then run(), the eager walk and the
+    unsharded plan's run() timed side by side, and one profiled run()
+    (device busy share, the kernels that take the most device time).
+    Returns the launch counts of one run()."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.frontends import feeds_from_numpy
+    feeds = feeds_from_numpy(feeds_np, "cuda")
+    sharded = plan.sharded
+    kernels.reset_launches()
+    out = plan.run(feeds)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    seen.setdefault(id(plan), set()).add(dt)
+    prog = plan.compiled()
+    oracle = plan.compiled("reference")
+    assert type(prog).__name__ == ("ShardedProgram" if sharded.n_shards > 1
+                                   else "CudaProgram"), type(prog)
+    assert type(oracle).__name__ == ("ShardedReference"
+                                     if sharded.n_shards > 1
+                                     else "function"), type(oracle)
+    ref = plan.run(feeds, backend="reference")
+    torch.cuda.synchronize()
+    b = feeds_np.get("b")
+    scale_b = float(np.abs(b).max()) if b is not None else 0.0
+    rel = _compare(out, ref, scale_b, dt, name)
+    if residual is not None:
+        extra = _residual_check({tag: residual(_solution(o), feeds_np)
+                                 for tag, o in (("cuda", out),
+                                                ("reference", ref))})
+        extra.update(tolerance_control(plan, feeds, feeds_np, ref, scale_b,
+                                       dt, residual,
+                                       extra["rel_residual_reference"]))
+    else:
+        extra = replay(out, feeds_np)
+    extra["dispatch"] = check_dispatch(name, plan, feeds, dt,
+                                       len(seen[id(plan)]),
+                                       walk_torch_ops=True)
+    mean_s, min_s = run_timing(lambda: plan.run(feeds))
+    walk_mean, walk_min = run_timing(lambda: prog.walk(feeds))
+    one_mean, one_min = run_timing(lambda: single.run(feeds))
+    extra["profile"] = profile_fn(lambda: plan.run(feeds))
+    pins = plan.codesigned.best.schedule.pins
+    paths.append(dict(path=name, dtype=dt, card=CARD, shards=sharded.n_shards,
+                      mesh=sharded.describe(), pins=len(pins),
+                      operator_pinned="A" in pins, launches=counts,
+                      max_rel_err_vs_sharded_reference=rel,
+                      run_ms=mean_s * 1e3, run_ms_min=min_s * 1e3,
+                      walk_ms=walk_mean * 1e3, walk_ms_min=walk_min * 1e3,
+                      unsharded_run_ms=one_mean * 1e3,
+                      unsharded_run_ms_min=one_min * 1e3, **extra))
+    log(f"  {name} {dt} over {sharded.n_shards} slot(s): launches "
+        f"{ {k: v for k, v in counts.items() if v} }  max rel err vs "
+        f"ShardedReference {rel:.3e}  {extra}  run() {mean_s * 1e3:.3f} ms "
+        f"(min {min_s * 1e3:.3f}); eager walk {walk_mean * 1e3:.3f} (min "
+        f"{walk_min * 1e3:.3f}); unsharded run() {one_mean * 1e3:.3f} (min "
+        f"{one_min * 1e3:.3f})")
+    return counts
+
+
+def check_mesh_of_one(plan, single, feeds_np):
+    """K=1 is the unsharded plan: run() bitwise equal to the unsharded
+    plan's run()."""
+    import torch
+    from repro_torch.frontends import feeds_from_numpy
+    feeds = feeds_from_numpy(feeds_np, "cuda")
+    a, b = plan.run(feeds), single.run(feeds)
+    torch.cuda.synchronize()
+    for k in b:
+        assert torch.equal(a[k], b[k]), ("K=1 vs unsharded", k)
+    log("  K=1: run() bitwise equal to the unsharded plan's run()")
 
 
 # --------------------------------------------------------------------------
@@ -2824,21 +3046,32 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sess = Session(device="cuda")
     cg_traced = sess.trace(workload="cg", n=4096, iters=64)
-    cg_plan = cg_traced.analyze().codesign().lower(backend="cuda")
+    cg_cd = cg_traced.analyze().codesign()
+    cg_plan = cg_cd.lower(backend="cuda")
     cg_feeds = {dt: make_feeds(cg_traced.program, seed=0,
                                dtype=getattr(np, dt)) for dt in dtypes}
     sp_traced = sess.trace(workload="cg_sparse", n=1 << 20, iters=64,
                            pattern="laplacian5")
-    sp_plan = sp_traced.analyze().codesign().lower(backend="cuda")
+    sp_cd = sp_traced.analyze().codesign()
+    sp_plan = sp_cd.lower(backend="cuda")
     sp_feeds = {dt: make_feeds(sp_traced.program, seed=0,
                                dtype=getattr(np, dt)) for dt in dtypes}
     jc_traced = sess.trace(workload="jacobi2d", n=4096, sweeps=8)
-    jc_plan = jc_traced.analyze().codesign().lower(backend="cuda")
+    jc_cd = jc_traced.analyze().codesign()
+    jc_plan = jc_cd.lower(backend="cuda")
     jc_feeds = make_feeds(jc_traced.program, seed=0)
     ob_plans, ob_feeds = overbooked_plans(dtypes)
+    cg_name = "cg(n=4096, iters=64)"
+    sp_name = "cg_sparse(n=1048576, iters=64, laplacian5)"
+    jc_name = "jacobi2d(n=4096, sweeps=8)"
+    mesh = mesh_plans(sess, {cg_name: (cg_cd, cg_plan),
+                             sp_name: (sp_cd, sp_plan),
+                             jc_name: (jc_cd, jc_plan)})
     log(f"  plans and feeds made in {time.perf_counter() - t0:.1f} s")
     check_stream(cg_plan.compiled(), cg_feeds["float64"]["A"], results,
                  dtypes)
+    check_stream_deferred(mesh[cg_name][0].compiled(),
+                          cg_feeds["float64"]["A"], results, dtypes)
     csr = tuple(sp_feeds["float64"][f"A.{c}"]
                 for c in ("indptr", "indices", "data"))
     check_spmv(csr, results, dtypes)
@@ -2916,6 +3149,38 @@ def main(argv=None) -> int:
     del routers
     torch.cuda.empty_cache()
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 8: the device mesh
+    card_phase(f"8: the device mesh, Session(device='cuda') -> codesign -> "
+               f"lower(mesh={MESH_K}, backend='cuda') -> run(), "
+               f"{MESH_K} slots on one card")
+    t0 = time.perf_counter()
+    seen, mesh_totals = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+    crossover = (f"{cg_name} crossover {CROSSOVER_CAPACITY >> 20} MiB")
+    for name, feeds, dt, check in (
+            (cg_name, cg_feeds["float32"], "float32",
+             dict(residual=dense_residual)),
+            (sp_name, sp_feeds["float32"], "float32",
+             dict(residual=sparse_residual)),
+            (sp_name, sp_feeds["float64"], "float64",
+             dict(residual=sparse_residual)),
+            (jc_name, jc_feeds, "float32", dict(replay=jacobi_numpy(8))),
+            (crossover, cg_feeds["float32"], "float32",
+             dict(residual=dense_residual))):
+        plan, single = mesh[name]
+        counts = drive_mesh(f"{name} mesh={MESH_K}", plan, single, feeds, dt,
+                            paths, seen, **check)
+        for k, v in counts.items():
+            totals[k] += v
+            mesh_totals[k] += v
+    check_mesh_of_one(*mesh[f"{cg_name} K=1"], cg_feeds["float32"])
+    for k in ("stream_deferred", "stream_deferred_finalize", "spmv"):
+        assert mesh_totals[k] > 0, f"kernel {k} was never launched on the mesh"
+    log(f"  launches over the mesh paths: "
+        f"{ {k: v for k, v in mesh_totals.items() if v} }")
+    del mesh
+    torch.cuda.empty_cache()
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -2950,6 +3215,11 @@ def main(argv=None) -> int:
                        "src/repro/exec/pallas.py:595", "float32"),
         "stencil2d_lanes": ("cuda", "src/repro_torch/csrc/stencil.cu",
                             "src/repro/exec/pallas.py:687", "float32"),
+        # B1's deferred-finalize mode: each mesh shard's pass
+        # (src/repro/exec/sharded.py:366-369 builds _StreamCall with
+        # defer_finalize=True)
+        "stream_deferred": ("triton", "src/repro_torch/kernels/stream.py",
+                            "src/repro/exec/pallas.py:427", "float32"),
     }
     table = []
     for k, (route, source, replaces, path_dt) in meta.items():
@@ -2962,7 +3232,7 @@ def main(argv=None) -> int:
                      bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                      library_ms=head["library_ms"], case=head["case"],
                      dtype=head["dtype"], cases=cases)
-        if k in ("stream", "stream_lanes"):
+        if k in ("stream", "stream_lanes", "stream_deferred"):
             entry["finalize_launches"] = totals[f"{k}_finalize"]
         table.append(entry)
     if args.out:

@@ -19,7 +19,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 from ..configs.base import ArchConfig
 from ..core.graph import OpGraph
-from ..core.lowering import ExecPlan, GroupKernel
+from ..core.lowering import ExecPlan, GroupKernel, ShardedExecPlan
 from ..core.policy import CelloPlan
 from ..core.reuse import ReuseAnalysis
 from ..core.schedule import CoDesignResult, EvaluatedSchedule
@@ -175,6 +175,11 @@ class CompiledPlan:
     # (`core.lowering.plan_execution`)
     exec_plan: Optional[ExecPlan] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # mesh partitioning (frontend plans lowered with mesh=): row blocks,
+    # CSR entry windows, gather/psum/halo exchange sets
+    # (`core.lowering.partition_plan`); None for single-device plans
+    sharded: Optional[ShardedExecPlan] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def arch(self) -> str:
@@ -201,11 +206,13 @@ class CompiledPlan:
         overrides the plan's default.  ``feeds`` are torch tensors or
         numpy arrays (moved to the device); without them the feeds are
         made from ``seed``.  On a CUDA device the call returns once the
-        work is enqueued: synchronize before timing it."""
+        work is enqueued: synchronize before timing it.  A plan lowered
+        with ``mesh=`` runs on its mesh on either backend."""
         if config is not None:
             if backend is not None:
                 raise TypeError("run(): pass either config= or backend=, "
                                 "not both")
+            _fixed_mesh(config)
             backend = config.backend
         if self.trace is None or self.trace.program is None:
             raise ValueError("run() needs a frontend-traced plan "
@@ -222,11 +229,13 @@ class CompiledPlan:
         ``repro_torch.serve.BatchedPlan``.  ``backend`` (or
         ``config=ExecConfig(backend=...)``) overrides the plan's default.
         On the ``cuda`` backends a plan whose spmv op holds an overbooked
-        pin raises :class:`NotImplementedError` (B3 has no lane form yet)."""
+        pin raises :class:`NotImplementedError` (B3 has no lane form yet),
+        and a mesh-sharded plan :class:`ValueError`."""
         if config is not None:
             if backend is not None:
                 raise TypeError("batched(): pass either config= or "
                                 "backend=, not both")
+            _fixed_mesh(config)
             backend = config.backend
         if self.trace is None or self.trace.program is None:
             raise ValueError("batched() needs a frontend-traced plan "
@@ -262,6 +271,11 @@ class CompiledPlan:
             out["exec_fused_from"] = ep.n_prefuse
             out["rolled_iters"] = (ep.roll.n_iters
                                    if ep.roll is not None else 0)
+        if self.sharded is not None:
+            out["mesh"] = {"axis": self.sharded.axis,
+                           "n_shards": self.sharded.n_shards,
+                           "rows_per_shard": self.sharded.rows_per_shard,
+                           "plan": self.sharded.describe()}
         cd = self.codesigned
         if cd is not None:
             m = cd.best.metrics
@@ -355,6 +369,14 @@ class CompiledPlan:
                              f"{self.exec_plan.describe()}")
                 lines += [f"  cuda spmv kernel  : {ln}" for ln in
                           _spmv_kernels(self.trace.program, self.exec_plan)]
+            if self.sharded is not None:
+                from ..launch.mesh import make_solver_mesh
+                mesh = make_solver_mesh(self.sharded.n_shards,
+                                        axis=self.sharded.axis,
+                                        device=self.device)
+                lines.append(f"  device mesh       : "
+                             f"{self.sharded.describe()}; "
+                             f"{mesh.describe()}")
         else:
             lines += [
                 f"  flash attention   : {p.use_flash_attention} "
@@ -377,6 +399,13 @@ class CompiledPlan:
                     f"fused_mlp={self.plan.use_fused_mlp})")
         return (f"CompiledPlan({self.arch!r}, {tag}{how}, "
                 f"backend={self.backend!r})")
+
+
+def _fixed_mesh(config) -> None:
+    """A run or batch takes the plan's mesh: a config naming one raises."""
+    if config.mesh is not None:
+        raise ValueError("the mesh is fixed when the plan is lowered; "
+                         "re-lower with Session.lower(..., mesh=...)")
 
 
 def _spmv_kernels(program, exec_plan) -> List[str]:

@@ -11,7 +11,7 @@ shim) have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple, Union
 
 from ..core.search import DEFAULT_SPLITS
 
@@ -37,10 +37,16 @@ class CodesignConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
-    """Execution knobs (``Session.lower``, ``CompiledPlan.run``):
-    ``backend`` — any name registered in ``repro_torch.exec`` (None keeps
-    the surface's default, ``"cuda"``)."""
+    """Execution knobs (``Session.lower``, ``CompiledPlan.run`` /
+    ``batched``): ``backend`` — any name registered in
+    ``repro_torch.exec`` (None keeps the surface's default, ``"cuda"``);
+    ``mesh`` — shard count ``K`` or ``(axis_name, K)``: ``Session.lower``
+    partitions the co-designed DAG into K row blocks over the device
+    slots of a solver mesh (``repro_torch.launch.mesh``; on one card all K
+    share it).  The mesh is fixed when the plan is lowered: ``run`` and
+    ``batched`` reject a config that names one."""
     backend: Optional[str] = None
+    mesh: Optional[Union[int, Tuple[str, int]]] = None
 
 
 @dataclasses.dataclass(frozen=True)

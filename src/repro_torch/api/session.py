@@ -39,14 +39,14 @@ from ..configs import get_config, list_archs
 from ..configs.base import ArchConfig
 from ..core.costmodel import HardwareModel, V5E
 from ..core.graph import OpGraph
-from ..core.lowering import (decode_graph, layer_graph, plan_execution,
-                             select_group_kernels)
+from ..core.lowering import (decode_graph, layer_graph, partition_plan,
+                             plan_execution, select_group_kernels)
 from ..core.policy import CelloPlan
 from ..core.policy import default_plan as _default_plan
 from ..core.policy import lower_codesign
 from ..core.reuse import analyze as _analyze
 from ..core.schedule import sparse_operand_groups
-from ..core.search import get_strategy, run_codesign
+from ..core.search import DEFAULT_SPLITS, get_strategy, run_codesign
 from .artifacts import AnalyzedGraph, CoDesigned, CompiledPlan, TracedGraph
 from .config import CodesignConfig, ExecConfig
 
@@ -298,28 +298,36 @@ class Session:
         plan that serves (``seq`` sizes its blocks; it defaults to the
         traced shape).  A frontend trace lowers to a plan that runs:
         ``backend`` picks the default backend of ``plan.run()``, ``"cuda"``
-        (the default) or ``"reference"``.  ``mesh`` partitioning is not
-        ported yet and must be None.
+        (the default) or ``"reference"``.
+
+        ``mesh`` (frontend plans only) partitions the co-designed DAG into
+        K row blocks over the device slots of a solver mesh
+        (``launch.mesh``): the shard count ``K`` or an ``(axis, K)`` pair.
+        For K > 1 the schedule × buffer search runs again at the mesh's
+        aggregate capacity ``K·C`` (each shard pins or streams its own row
+        block), and the plan runs on the mesh: ``ShardedProgram`` on the
+        ``cuda`` backend, ``ShardedReference`` on ``reference``
+        (``exec.sharded``).  An :class:`ExecConfig` carries both knobs.
         """
         if config is not None:
-            if backend is not None:
+            if backend is not None or mesh is not None:
                 raise TypeError("Session.lower: pass either config= or "
-                                "backend=, not both")
-            backend = _check_config(config, ExecConfig,
-                                    "Session.lower").backend
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= partitioning is not ported to repro_torch yet "
-                "(ROADMAP.md); lower with mesh=None")
+                                "backend=/mesh=, not both")
+            config = _check_config(config, ExecConfig, "Session.lower")
+            backend, mesh = config.backend, config.mesh
         backend = backend if backend is not None else DEFAULT_BACKEND
         traced = designed.trace
         with _stage("lower", arch=traced.arch, phase=traced.phase,
                     backend=backend):
-            return self._lower(designed, traced, seq, backend)
+            return self._lower(designed, traced, seq, backend, mesh)
 
     def _lower(self, designed: CoDesigned, traced: TracedGraph,
-               seq: Optional[int], backend: str) -> CompiledPlan:
+               seq: Optional[int], backend: str, mesh) -> CompiledPlan:
         if traced.phase != "hpc":
+            if mesh is not None:
+                raise ValueError("mesh= partitioning applies to frontend "
+                                 "(HPC) plans; LLM plans serve on one "
+                                 "device")
             if seq is None:
                 seq = traced.seq if traced.seq is not None else \
                     (traced.kv_len or 4096)
@@ -330,6 +338,26 @@ class Session:
         if seq is not None:
             raise ValueError("frontend (HPC) plans take no seq=: block "
                              "sizing comes from the expression shapes")
+        axis, n_shards = ("shards", 1) if mesh is None else \
+            (("shards", mesh) if isinstance(mesh, int)
+             else (mesh[0], int(mesh[1])))
+        if n_shards > 1:
+            # co-design the global graph against the mesh's aggregate
+            # buffer capacity K·C: each shard holds a 1/K row block, so a
+            # pin that fits K·C globally fits C per shard (TABLE 11's
+            # crossover)
+            capacity = designed.capacity_bytes * n_shards
+            strategy = get_strategy(designed.strategy)
+            with _stage("codesign", arch=traced.arch, phase=traced.phase,
+                        shards=n_shards):
+                result = run_codesign(
+                    traced.graph, capacity_bytes=capacity, hw=self.hw,
+                    max_orders=16, strategy=strategy,
+                    splits=list(DEFAULT_SPLITS),
+                    overbook=getattr(designed.result, "overbook", 0.0))
+            designed = CoDesigned(trace=traced, result=result,
+                                  strategy=strategy.name,
+                                  capacity_bytes=capacity)
         sched = designed.result.best.schedule
         partial = dict(getattr(sched.pins, "partial", None) or {})
         kernels = select_group_kernels(traced.graph, sched.groups,
@@ -349,6 +377,14 @@ class Session:
         exec_plan = plan_execution(traced.graph, kernels,
                                    sched.config.explicit_bytes,
                                    program=traced.program, partial=partial)
+        sharded = None
+        if mesh is not None:
+            # K=1 still goes through partition_plan, so the degenerate
+            # mesh validates as a real one does; the executors take the
+            # sharded route only for n_shards > 1
+            sharded = partition_plan(exec_plan, (axis, n_shards),
+                                     program=traced.program)
+            sparse_note += f" mesh={axis}:{n_shards}"
         plan = CelloPlan(
             arch=traced.arch,
             use_flash_attention=False, q_block=0, kv_block=0,
@@ -361,7 +397,7 @@ class Session:
                    + sparse_note))
         return CompiledPlan(plan=plan, trace=traced, codesigned=designed,
                             backend=backend, group_kernels=kernels,
-                            exec_plan=exec_plan)
+                            exec_plan=exec_plan, sharded=sharded)
 
     # -- fast path (no search) -------------------------------------------
     def default_plan(self, *, seq: int = 4096) -> CompiledPlan:

@@ -10,7 +10,9 @@ The two halves of ``repro.core.lowering``:
 * execution planning for frontend (HPC) plans: fusion group -> kernel
   shape selection (``select_group_kernels``), the flat dispatch units, the
   cross-pass residency planner (``fuse_units``) and rolled-loop detection
-  (``detect_rolled_loop``), joined by ``plan_execution``.
+  (``detect_rolled_loop``), joined by ``plan_execution``; and mesh
+  partitioning (``partition_plan``): a plan split into K contiguous row
+  blocks, one per device slot of a solver mesh (``launch.mesh``).
 
 Both are pure Python and equal to the JAX package's field for field, so
 the two packages lower the same co-designed schedule to the same plan.
@@ -23,6 +25,7 @@ backend maps a unit onto the card is in ``repro_torch.exec.cuda``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 from ..configs.base import ArchConfig
@@ -929,3 +932,292 @@ def plan_execution(graph: OpGraph, kernels, explicit_bytes: int,
     roll = detect_rolled_loop(program, fused)
     return ExecPlan(units=fused, roll=roll, spans=resident_spans(fused),
                     n_prefuse=n_pre)
+
+
+# ---------------------------------------------------------------------------
+# mesh partitioning: contiguous row-block shards of an ExecPlan
+# ---------------------------------------------------------------------------
+#
+# A co-designed :class:`ExecPlan` runs its streamed passes over one global
+# leading dimension.  :func:`partition_plan` splits that dimension into K
+# contiguous row blocks — one per device slot of a 1-D solver mesh —
+# and proves the split is sound for every unit of the plan:
+#
+#   * dense streamed operands split into equal row blocks (a shard is a
+#     :class:`ResidentSlice` with a nonzero ``row0``, reusing the
+#     overbooked-pin machinery rather than re-inventing it);
+#   * CSR operands split at *indptr-aligned* row boundaries: the exact
+#     per-shard entry windows come from the deterministic pattern
+#     generators (``frontends.sparse.row_counts``), padded to one static
+#     per-shard width so every shard runs the same program;
+#   * contraction right-hand sides and spmv ``x`` vectors are exchanged
+#     whole (``all_gather``) before each pass — the gathered-x exchange;
+#   * ``stencil2d`` sweeps exchange one halo row with each mesh neighbour
+#     (``ppermute``) instead of gathering the grid;
+#   * rank-0 dot/norm reductions combine per-shard partials with ``psum``
+#     (the reference oracle instead gathers operands whole so its sharded
+#     results stay bitwise-identical to the single-device rules).
+#
+# Shapes the row-block story cannot express raise
+# :class:`PlanPartitionError` — loudly, at lower time, never at dispatch.
+
+class PlanPartitionError(ValueError):
+    """A co-designed plan cannot be split into contiguous row blocks."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrShardLayout:
+    """Static row-block split of one CSR operand triple.
+
+    ``entry_starts[k]`` is the global CSR entry index of shard ``k``'s
+    first row (``entry_starts[K] == nnz``) — by construction the value of
+    ``indptr[k * rows_per_shard]``, so every boundary is indptr-aligned.
+    At dispatch each shard slices ``pad_entries`` entries starting at its
+    boundary out of the (zero-padded) global indices/data, so all shards
+    share one static shape; positions past a shard's true window resolve
+    to local row id ``rows_per_shard`` and are dropped by the same
+    out-of-range mask the tile kernels already apply."""
+    indptr: str
+    indices: str
+    data: str
+    rows: int                        # global row count
+    nnz: int                         # global stored entries
+    entry_starts: Tuple[int, ...]    # len n_shards + 1, indptr-aligned
+    pad_entries: int                 # static per-shard entry window
+    slices: Tuple[ResidentSlice, ...]   # shard k's row/entry window
+
+    def describe(self) -> str:
+        blocks = "/".join(str(b - a) for a, b in
+                          zip(self.entry_starts, self.entry_starts[1:]))
+        return (f"csr[{self.data}: {self.rows}r {self.nnz}nnz -> "
+                f"{blocks} entries, pad {self.pad_entries}]")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedExecPlan:
+    """A partitioned execution plan: the single-device plan, its localized
+    (per-shard) twin, and everything an executor needs to wire the
+    exchanges — which names are row-sharded, which get gathered whole,
+    which ops halo-exchange, and which rank-0 values psum."""
+    base: ExecPlan                   # global plan (unchanged)
+    local: ExecPlan                  # per-shard plan: rows / tiles ÷ K
+    n_shards: int
+    axis: str                        # mesh axis name
+    rows: int                        # global streamed leading dim
+    shards: Tuple[ResidentSlice, ...]      # shard k's row block
+    csr: Tuple[CsrShardLayout, ...]        # per CSR operand triple
+    sharded: Tuple[str, ...]         # names split along their leading dim
+    gathered: Tuple[str, ...]        # row-sharded names exchanged whole
+    halo: Tuple[str, ...]            # ops needing halo exchange
+    reduced: Tuple[str, ...]         # rank-0 values combined across shards
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.rows // self.n_shards
+
+    def is_sharded(self, name: str) -> bool:
+        return name in self._sharded_set
+
+    @property
+    def _sharded_set(self):
+        return set(self.sharded)
+
+    def describe(self) -> str:
+        bits = [f"{self.n_shards} shards x {self.rows_per_shard} rows "
+                f"over '{self.axis}'"]
+        if self.gathered:
+            bits.append("gather=" + "+".join(self.gathered))
+        if self.reduced:
+            bits.append("psum=" + "+".join(self.reduced))
+        if self.halo:
+            bits.append("halo=" + "+".join(self.halo))
+        for lay in self.csr:
+            bits.append(lay.describe())
+        return "; ".join(bits)
+
+
+def _localize_tile(tile_rows: int, rows_loc: int) -> int:
+    """The per-shard row tile: the global tile when it still divides the
+    local row count, otherwise the largest divisor not exceeding it."""
+    t = min(tile_rows, rows_loc)
+    if rows_loc % t:
+        t = math.gcd(t, rows_loc)
+    return max(t, 1)
+
+
+def _localize_pass(sp: StreamPass, n_shards: int) -> StreamPass:
+    rows_loc = sp.rows // n_shards
+    return dataclasses.replace(
+        sp, rows=rows_loc, tile_rows=_localize_tile(sp.tile_rows, rows_loc))
+
+
+def _csr_layout(program, node, n_shards: int) -> CsrShardLayout:
+    """Indptr-aligned entry windows for one spmv's CSR triple, derived
+    from the deterministic pattern meta on the triple's leaves."""
+    from ..frontends.sparse import row_counts
+    indptr, indices, data = node.inputs[:3]
+    rows = int(node.shape[0])
+    nnz = int(program.nodes[indices].shape[0])
+    leaf = program.nodes[indptr]
+    pattern = leaf.param("pattern")
+    if pattern is None:
+        raise PlanPartitionError(
+            f"spmv '{node.name}': CSR operand '{data}' carries no pattern "
+            f"meta; cannot compute indptr-aligned shard boundaries")
+    try:
+        counts = row_counts(pattern, rows,
+                            density=leaf.param("density"),
+                            bandwidth=leaf.param("bandwidth"))
+    except Exception as e:                       # unknown pattern/params
+        raise PlanPartitionError(
+            f"spmv '{node.name}': unusable CSR pattern meta "
+            f"({pattern!r}): {e}") from e
+    cum = [0]
+    for c in counts:
+        cum.append(cum[-1] + int(c))
+    if cum[-1] != nnz:
+        raise PlanPartitionError(
+            f"spmv '{node.name}': pattern meta predicts {cum[-1]} entries "
+            f"but '{indices}' holds {nnz}")
+    rows_loc = rows // n_shards
+    starts = tuple(cum[k * rows_loc] for k in range(n_shards + 1))
+    widest = max(b - a for a, b in zip(starts, starts[1:]))
+    pad = max(8, -(-widest // 8) * 8)
+    slices = tuple(
+        ResidentSlice(tensors=(indptr, indices, data), rows=rows_loc,
+                      total_rows=rows, entries=starts[k + 1] - starts[k],
+                      total_entries=nnz, row0=k * rows_loc,
+                      entry0=starts[k])
+        for k in range(n_shards))
+    return CsrShardLayout(indptr=indptr, indices=indices, data=data,
+                          rows=rows, nnz=nnz, entry_starts=starts,
+                          pad_entries=pad, slices=slices)
+
+
+def partition_plan(exec_plan: ExecPlan, mesh_axes, *,
+                   program) -> ShardedExecPlan:
+    """Split a co-designed :class:`ExecPlan` into contiguous row blocks.
+
+    ``mesh_axes`` is either the shard count ``K`` or an ``(axis, K)``
+    pair naming the 1-D mesh axis.  ``program`` is the frontend
+    expression :class:`~repro_torch.frontends.expr.Program` the plan was
+    lowered from — partitioning needs its op/shape/CSR-meta view.
+
+    Raises :class:`PlanPartitionError` for anything the row-block story
+    cannot express: ragged row counts, einsums other than ``ab,b->a`` /
+    ``a,a->``, irregular gathers/scans, overbooked partial pins
+    (fractional residency and sharding both claim the row dimension),
+    non-scalar jnp fallbacks, or CSR operands without consistent
+    deterministic pattern meta."""
+    axis, n_shards = (("shards", mesh_axes) if isinstance(mesh_axes, int)
+                      else (mesh_axes[0], int(mesh_axes[1])))
+    if n_shards < 1:
+        raise PlanPartitionError(f"shard count must be >= 1, got {n_shards}")
+    if program is None:
+        raise PlanPartitionError(
+            "partitioning needs the frontend expression program "
+            "(plan was lowered without one)")
+
+    rows: Optional[int] = None
+
+    def claim_rows(n: int, what: str) -> None:
+        nonlocal rows
+        if rows is None:
+            rows = n
+        elif rows != n:
+            raise PlanPartitionError(
+                f"{what}: leading dim {n} != plan row dim {rows}; "
+                f"mixed streamed lengths cannot share one row split")
+
+    csr: Dict[str, CsrShardLayout] = {}
+    gathered: List[str] = []
+    halo: List[str] = []
+    reduced: List[str] = []
+
+    for unit in exec_plan.units:
+        if unit.kind == "stream":
+            sp = unit.sp
+            if sp.slices:
+                raise PlanPartitionError(
+                    f"pass {'+'.join(sp.ops)} carries overbooked partial "
+                    f"pins; fractional residency and mesh sharding both "
+                    f"claim the row dimension — re-codesign with "
+                    f"overbook=0 to shard")
+            claim_rows(sp.rows, f"pass {'+'.join(sp.ops)}")
+            for o in sp.ops:
+                nd = program.nodes[o]
+                if nd.op == "spmv":
+                    data = nd.inputs[2]
+                    if data not in csr:
+                        csr[data] = _csr_layout(program, nd, n_shards)
+                    x = nd.inputs[3]
+                    if (program.nodes[x].shape
+                            and program.nodes[x].shape[0] == sp.rows
+                            and x not in gathered):
+                        gathered.append(x)
+                elif nd.op in ("matmul", "einsum") and nd.shape != ():
+                    spec = nd.param("spec")
+                    if spec != "ab,b->a":
+                        raise PlanPartitionError(
+                            f"op '{o}': einsum {spec!r} has no row-block "
+                            f"split (only 'ab,b->a' contractions and "
+                            f"'a,a->' reductions shard)")
+                    rhs = nd.inputs[1]
+                    if (program.nodes[rhs].shape
+                            and program.nodes[rhs].shape[0] == sp.rows
+                            and rhs not in gathered):
+                        gathered.append(rhs)
+                elif (nd.op in ("dot", "norm")
+                      or (nd.op in ("matmul", "einsum")
+                          and nd.shape == ())):
+                    # rank-0 reductions over streamed vectors: per-shard
+                    # partials combine with psum (scalar ew epilogues
+                    # recompute replicated from those, no exchange)
+                    if o not in reduced:
+                        reduced.append(o)
+        elif unit.kind == "block":
+            for o in unit.ops:
+                nd = program.nodes[o]
+                claim_rows(nd.shape[0], f"block op '{o}'")
+                if nd.op == "stencil2d":
+                    halo.append(o)
+        else:                                    # jnp fallback
+            for o in unit.ops:
+                nd = program.nodes[o]
+                if nd.irregular or nd.op in ("gather", "scan"):
+                    raise PlanPartitionError(
+                        f"op '{o}' ({nd.op}) is data-dependent; "
+                        f"irregular addressing has no contiguous row split")
+                if nd.shape != ():
+                    raise PlanPartitionError(
+                        f"jnp-fallback op '{o}' produces shape "
+                        f"{nd.shape}; only scalar fallbacks replicate")
+
+    if rows is None:
+        raise PlanPartitionError("plan has no streamed rows to shard")
+    if rows % n_shards:
+        raise PlanPartitionError(
+            f"{rows} rows do not split evenly over {n_shards} shards")
+
+    rows_loc = rows // n_shards
+    csr_members = {m for lay in csr.values()
+                   for m in (lay.indptr, lay.indices, lay.data)}
+    sharded = tuple(
+        n for n, nd in program.nodes.items()
+        if nd.shape and nd.shape[0] == rows and n not in csr_members)
+
+    local_units = tuple(
+        dataclasses.replace(u, sp=_localize_pass(u.sp, n_shards))
+        if u.kind == "stream" else u
+        for u in exec_plan.units)
+    local = dataclasses.replace(exec_plan, units=local_units)
+
+    shards = tuple(
+        ResidentSlice(tensors=(), rows=rows_loc, total_rows=rows,
+                      entries=0, total_entries=0, row0=k * rows_loc)
+        for k in range(n_shards))
+    return ShardedExecPlan(
+        base=exec_plan, local=local, n_shards=n_shards, axis=axis,
+        rows=rows, shards=shards, csr=tuple(csr.values()),
+        sharded=sharded, gathered=tuple(gathered), halo=tuple(halo),
+        reduced=tuple(reduced))

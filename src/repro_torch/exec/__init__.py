@@ -11,6 +11,10 @@
   ``reference``  — the torch interpreter (op by op, full tensors), the
                    oracle the ``cuda`` backend is held against.
 
+A plan lowered with ``mesh=K`` (K > 1) runs on its mesh: ``cuda`` compiles
+it to ``sharded.ShardedProgram``, ``reference`` to
+``sharded.ShardedReference``; ``cuda-perunit`` runs the unsharded walk.
+
 Add a backend by subclassing :class:`Executor` and calling
 :func:`register_backend`.
 """

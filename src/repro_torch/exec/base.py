@@ -163,6 +163,12 @@ def plan_device(plan) -> str:
     return plan.trace.session.device
 
 
+def plan_shards(plan) -> int:
+    """The shard count of a plan lowered with ``mesh=`` (1 without)."""
+    sharded = getattr(plan, "sharded", None)
+    return 1 if sharded is None else sharded.n_shards
+
+
 def plan_groups(plan) -> List[List[str]]:
     """The co-designed fusion groups in scheduled order (each op its own
     group, in build order, when no search was run)."""

@@ -67,6 +67,10 @@ serving router holds a bucket's) has its graphs read those tensors in
 place, and every run must pass them; an unbound program copies the
 operator into its own buffers, one set per dtype shared by its graphs, on
 every run.
+
+A plan lowered with ``mesh=K`` (K > 1) compiles to
+``exec.sharded.ShardedProgram``: this program's capture, replay and
+``stats`` over a walk of K shards.
 """
 from __future__ import annotations
 
@@ -83,7 +87,7 @@ from ..kernels.spmv import arrange, spmv, spmv_lanes
 from ..kernels.stencil import stencil2d, stencil2d_lanes
 from ..kernels.stream import LaneStreamKernel, StreamKernel
 from ..testing import faults
-from .base import Executor, plan_device, plan_program
+from .base import Executor, plan_device, plan_program, plan_shards
 from .reference import as_tensor, eval_node
 
 _TRACES = obs.registry().counter(
@@ -163,10 +167,13 @@ class _Pass:
 class _StreamUnit:
     """A ``stream`` unit: B3 or B2 launches for its spmv ops, then one B1
     pass.  With ``lanes``, its lane form: B2's lane form for an spmv op
-    whose vector carries lanes, B1's for the pass (see :class:`_Pass`)."""
+    whose vector carries lanes, B1's for the pass (see :class:`_Pass`).
+    With ``defer_finalize``, a mesh shard's unit: B1 in its
+    deferred-finalize mode (``exec.sharded``)."""
 
     def __init__(self, program, unit, needed: Set[str],
-                 lanes: Optional[Set[str]] = None):
+                 lanes: Optional[Set[str]] = None, *,
+                 defer_finalize: bool = False):
         sp = unit.sp
         nodes = [program.nodes[o] for o in sp.ops]
         self.spmv_nodes = [nd for nd in nodes if nd.op == "spmv"]
@@ -190,7 +197,8 @@ class _StreamUnit:
         shapes = {n: program.nodes[n].shape
                   for nd in nodes for n in (*nd.inputs, nd.name)}
         if rest and lanes is None:
-            self.pass_ = StreamKernel(rest, shapes, needed, sp.rows)
+            self.pass_ = StreamKernel(rest, shapes, needed, sp.rows,
+                                      defer_finalize=defer_finalize)
         else:
             self.pass_ = (_Pass(rest, shapes, needed, sp.rows, lanes)
                           if rest else None)
@@ -378,6 +386,25 @@ def _unit_needed(program, units):
     return needed, consumers
 
 
+def _segments(program, units, roll):
+    """Per-unit needed sets, with the loop-carried values added (they must
+    leave their units even when the straight-line view says nothing later
+    reads them), and the unit indices of the prologue, the rolled loop's
+    template and the epilogue."""
+    needed, _ = _unit_needed(program, units)
+    if roll is None:
+        return needed, range(len(units)), (), ()
+    updates = {sl.update for sl in roll.slots}
+    inits = {sl.init for sl in roll.slots if sl.init is not None}
+    for ui in range(roll.first, roll.first + roll.per_iter):
+        needed[ui] = needed[ui] | (updates & set(units[ui].ops))
+    for ui in range(roll.first):
+        needed[ui] = needed[ui] | (inits & set(units[ui].ops))
+    return (needed, range(roll.first),
+            range(roll.first, roll.first + roll.per_iter),
+            range(roll.stop, len(units)))
+
+
 def _leaf_tensors(leaf_names, feeds, device):
     """The leaves as tensors on ``device``, and the run's one float dtype,
     resolved from them (integer leaves, CSR indptr/indices, keep their
@@ -427,21 +454,7 @@ class CudaProgram:
         self.device = torch.device(plan_device(plan))
         self.lanes = lanes
         units, roll = ep.units, ep.roll
-        needed, _ = _unit_needed(program, units)
-        if roll is not None:
-            # loop-carried values must leave their units even when the
-            # straight-line view says nothing later reads them
-            updates = {sl.update for sl in roll.slots}
-            inits = {sl.init for sl in roll.slots if sl.init is not None}
-            for ui in range(roll.first, roll.first + roll.per_iter):
-                needed[ui] = needed[ui] | (updates & set(units[ui].ops))
-            for ui in range(roll.first):
-                needed[ui] = needed[ui] | (inits & set(units[ui].ops))
-            pro = range(roll.first)
-            tmpl = range(roll.first, roll.first + roll.per_iter)
-            epi = range(roll.stop, len(units))
-        else:
-            pro, tmpl, epi = range(len(units)), (), ()
+        needed, pro, tmpl, epi = _segments(program, units, roll)
 
         def build(i):
             return _build_unit(program, units[i], needed[i], lanes)
@@ -450,8 +463,6 @@ class CudaProgram:
         self._tmpl = [build(i) for i in tmpl]
         self._epi = [build(i) for i in epi]
         self.roll = roll
-        self.leaf_names = [nd.name for nd in program.leaves()]
-        self.out_names = list(program.outputs)
         if roll is not None:
             tmpl_ops = {o for i in tmpl for o in units[i].ops}
             reads = {sl.read for sl in roll.slots if sl.read is not None}
@@ -460,12 +471,19 @@ class CudaProgram:
                 if n not in tmpl_ops and n not in reads))
             self._slot_shapes = [program.nodes[sl.update].shape
                                  for sl in roll.slots]
+        self._init_run_state(program, [units[i] for i in (*pro, *tmpl, *epi)])
+
+    def _init_run_state(self, program, units) -> None:
+        """The run's state: leaves and outputs, the counters under
+        this program's own ``obs`` scope, the graphs and their lock."""
+        self.leaf_names = [nd.name for nd in program.leaves()]
+        self.out_names = list(program.outputs)
         self.out_shapes = {o: program.nodes[o].shape for o in self.out_names}
         # counters live on the port's registry under this program's own
         # scope label, as the JAX package's single program keeps them
         self._scope = obs.next_scope("cuda")
-        for i in (*pro, *tmpl, *epi):
-            _UNITS.inc(backend="cuda", kind=units[i].kind, scope=self._scope)
+        for unit in units:
+            _UNITS.inc(backend="cuda", kind=unit.kind, scope=self._scope)
         self._runs = 0
         self._launches = dict.fromkeys(kernels.LAUNCHES, 0)
         self._stats_lock = threading.Lock()
@@ -692,16 +710,26 @@ class CudaExecutor(Executor):
     name = "cuda"
 
     def compile(self, plan) -> CudaProgram:
+        """The plan's program; a plan lowered with ``mesh=K`` (K > 1) runs
+        on the mesh (``exec.sharded.ShardedProgram``)."""
         # fault-injection site exec.compile@cuda: here as well as in
         # Executor.compiled, as the JAX package's pallas backend has it
         faults.check("exec.compile", backend=self.name)
+        if plan_shards(plan) > 1:
+            from .sharded import ShardedProgram
+            return ShardedProgram(plan)
         return CudaProgram(plan)
 
     def compile_batched(self, plan, shared=None) -> CudaLaneProgram:
         """The lane-batched program: B1, B2 and B4 in their lane forms, one
         graph replay per (lanes, dtype, leaf shapes) signature, its graphs
-        reading the operator ``shared`` binds in place."""
+        reading the operator ``shared`` binds in place.  A mesh-sharded
+        plan has none."""
         faults.check("exec.compile", backend=self.name)
+        if plan_shards(plan) > 1:
+            raise ValueError(
+                "mesh-sharded plans have no lane-batched program; "
+                "serve/batch them unsharded or run() them directly")
         return CudaLaneProgram(plan, shared)
 
 
@@ -712,7 +740,8 @@ class PerUnitCudaExecutor(Executor):
     The twin of the JAX package's ``pallas-perunit``
     (``repro/exec/pallas.py:1005-1045``): it walks the *unfused* unit
     sequence (``flatten_units``: no cross-pass residency, no rolled loop)
-    and captures nothing.  The A/B baseline of the ``cuda`` backend's one
+    and captures nothing; a mesh-sharded plan runs this unsharded walk too,
+    as on ``pallas-perunit``.  The A/B baseline of the ``cuda`` backend's one
     replay per run, and the eager path for a caller who names it; its
     batched form walks the same units in their lane forms.
     """

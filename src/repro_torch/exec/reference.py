@@ -13,6 +13,9 @@ CUDA device ``index_add_`` adds through atomics in no fixed order, so the
 oracle is exact there only up to reassociation).  Those two rules are the
 plain versions of the B2 and B4 kernels (``repro_torch.kernels``).
 
+A plan lowered with ``mesh=K`` (K > 1) compiles to
+``exec.sharded.ShardedReference``: these rules over K row blocks.
+
 Its batched form (``compile_batched``, for serving) is
 :meth:`Executor.compile_batched`'s default: the interpreter once a lane,
 on the plan's device (the exact oracle a server falls back to).
@@ -27,7 +30,8 @@ import torch
 from ..kernels.spmv import spmv_plain
 from ..kernels.stencil import stencil2d_plain
 from ..testing import faults
-from .base import Executor, plan_device, plan_order, plan_program
+from .base import (Executor, plan_device, plan_order, plan_program,
+                   plan_shards)
 
 
 def eval_node(node, ins: List[Any]):
@@ -145,6 +149,11 @@ class ReferenceExecutor(Executor):
         # the JAX package, for callers that compile without
         # Executor.compiled)
         faults.check("exec.compile", backend=self.name)
+        if plan_shards(plan) > 1:
+            # a mesh-partitioned plan: the same rules over K row blocks,
+            # reductions on gathered-whole operands (bitwise the same)
+            from .sharded import ShardedReference
+            return ShardedReference(plan)
         program = plan_program(plan)
         order = plan_order(plan)
         device = plan_device(plan)

@@ -15,6 +15,9 @@ torch version.
                  serves L requests, the shared operator read once; counted
                  as ``stream_lanes`` / ``stream_lanes_finalize``,
                  ``spmv_lanes``, ``stencil2d_lanes``),
+  B1 also has a deferred-finalize mode for the shards of a mesh-partitioned
+                 plan (raw reduction sums, no scalar chain; counted as
+                 ``stream_deferred`` / ``stream_deferred_finalize``),
   ``flash_attention`` — B5, online-softmax attention, CUDA C++
                  (``csrc/flash_attention.cu``),
   ``fused_mlp`` — B6, the fused (gated) MLP, CUDA C++
@@ -52,6 +55,8 @@ LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
                             "stream_lanes": 0, "stream_lanes_finalize": 0,
                             "spmv_lanes": 0, "stencil2d_lanes": 0,
+                            "stream_deferred": 0,
+                            "stream_deferred_finalize": 0,
                             "flash_attention": 0,
                             "fused_mlp": 0, "rmsnorm": 0, "rglru": 0,
                             "wkv6": 0}

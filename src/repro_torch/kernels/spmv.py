@@ -51,11 +51,14 @@ def spmv_plain(indptr: torch.Tensor, indices: torch.Tensor,
                ) -> torch.Tensor:
     """CSR SpMV by gather + segment sum: one product per stored entry,
     each row's products added in ascending entry order (on the CPU; on a
-    CUDA device ``index_add_`` adds through atomics in no fixed order)."""
+    CUDA device ``index_add_`` adds through atomics in no fixed order).
+    Entries past ``indptr[rows]`` (a mesh shard's padded entry window) add
+    to no row, as the kernel never reads them: their row id is ``rows``,
+    one past the result."""
     seg = csr_row_ids(indptr, data.shape[0])
     contrib = data * x.index_select(0, indices.long())
-    out = torch.zeros(rows, dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, seg, contrib)
+    out = torch.zeros(rows + 1, dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, seg, contrib)[:rows]
 
 
 def spmv_sliced_plain(indptr: torch.Tensor, indices: torch.Tensor,

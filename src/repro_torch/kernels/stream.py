@@ -28,6 +28,26 @@ run as parallel programs, so the pass is two generated kernels:
   scalars and writes the pass's scalar outputs.  The order never changes
   between runs, so results repeat bitwise from run to run.
 
+**Deferred-finalize mode** (``defer_finalize=True``; replaces the
+``defer_finalize`` switch of ``repro/exec/pallas.py:170``, ``:181-185``,
+``:194-197``, ``:276``, ``:440-441``, ``:510``, ``:567-568``) is the pass
+of one shard of a mesh-partitioned plan (``exec.sharded.ShardedProgram``):
+it returns one **raw** sum per reduction, folded from its programs'
+partials in the kernel's fixed order, and applies no square root to norms,
+computes no epilogue scalar and writes no scalar output.  The sharded
+program sums the shards' raw sums (``psum``), takes the square roots
+(:attr:`StreamKernel.norm_reductions`) and replays the scalar chain
+(:attr:`StreamKernel.finalize_nodes`).  Its main kernel is the pass's main
+kernel; its finalize kernel is generated fold-only (the same tree over the
+partial vector, one raw sum stored per reduction).  The fold stays on the
+shard, rather than handing all K x programs partials to the combine,
+because that is the contract of the TPU kernel: each shard's pass yields
+one value per reduction, and the cross-shard sum is a fold over K values
+in shard order.  So the combine is K - 1 adds whatever a shard's program
+count, and a deferred pass's raw sum is bitwise the ordinary pass's
+reduction on the same rows before its square root.  Launches count as
+``stream_deferred`` and ``stream_deferred_finalize``.
+
 Every pass has its own body, assembled from its node list, so the kernel
 source is generated here, written under the build directory keyed by a hash
 of its text, and imported; passes with the same structure share one
@@ -137,8 +157,12 @@ class StreamKernel:
     names = ("stream", "stream_finalize")
 
     def __init__(self, nodes: Sequence, shapes: Dict[str, Tuple[int, ...]],
-                 needed: Set[str], rows: int):
+                 needed: Set[str], rows: int, *,
+                 defer_finalize: bool = False):
         self.nodes = list(nodes)
+        self.defer = defer_finalize
+        if defer_finalize:
+            self.names = ("stream_deferred", "stream_deferred_finalize")
         self.shapes = dict(shapes)
         self.rows = int(rows)
         self.classes = classify_nodes(self.nodes)
@@ -187,9 +211,9 @@ class StreamKernel:
         self.stream_out = [nd.name for nd in self.nodes
                            if self.classes[nd.name] == "tiled"
                            and nd.name in needed]
-        self.scalar_out = [nd.name for nd in self.nodes
-                           if self.classes[nd.name] != "tiled"
-                           and nd.name in needed]
+        self.scalar_out = [] if defer_finalize else [
+            nd.name for nd in self.nodes
+            if self.classes[nd.name] != "tiled" and nd.name in needed]
         streams_matrix = any(
             len(self.shapes[n]) == 2
             for nd in self.nodes if self.classes[nd.name] == "tiled"
@@ -213,6 +237,31 @@ class StreamKernel:
     def _shape(self, name: str, n_lanes: Optional[int]) -> Tuple[int, ...]:
         shape = tuple(self.shapes[name])
         return (n_lanes, *shape) if name in self.lanes else shape
+
+    @property
+    def out_names(self) -> List[str]:
+        """What a call returns: the streamed products read after the pass,
+        then its scalar outputs (deferred: every reduction's raw sum)."""
+        return self.stream_out + self._fin_out
+
+    @property
+    def _fin_out(self) -> List[str]:
+        """The finalize kernel's outputs."""
+        return self.red_out if self.defer else self.scalar_out
+
+    @property
+    def finalize_nodes(self) -> list:
+        """The scalar (eager and epilogue) nodes that a deferring caller
+        replays after combining the reductions, in pass order."""
+        return [nd for nd in self.nodes
+                if self.classes[nd.name] in ("eager", "epilogue")]
+
+    @property
+    def norm_reductions(self) -> Set[str]:
+        """The reductions whose deferred value is a sum of squares (the
+        square root applies after the cross-shard sum)."""
+        return {nd.name for nd in self.nodes
+                if nd.op == "norm" and self.classes[nd.name] == "reduce"}
 
     def n_lanes(self, env) -> Optional[int]:
         """The lane count of ``env``'s lane operands (None when single)."""
@@ -244,7 +293,8 @@ class StreamKernel:
             parts = torch.nn.functional.pad(prod, (0, pad)).reshape(
                 self.n_prog, self.block_r).sum(1)
             total = parts.sum()
-            return torch.sqrt(total) if nd.op == "norm" else total
+            return (torch.sqrt(total) if nd.op == "norm" and not self.defer
+                    else total)
         if nd.op in ("matmul", "einsum"):
             rhs = STREAM_EINSUMS[nd.param("spec")]
             return ins[1 - rhs] @ ins[rhs]
@@ -252,11 +302,13 @@ class StreamKernel:
 
     def plain(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The pass in torch, with the kernel's row blocks for the
-        reduction partials."""
+        reduction partials (deferred: raw sums, no epilogue)."""
         vals = {n: env[n] for n in self.in_names}
         for nd in self.nodes:
+            if self.defer and self.classes[nd.name] == "epilogue":
+                continue
             vals[nd.name] = self._plain_node(nd, [vals[t] for t in nd.inputs])
-        return {n: vals[n] for n in self.stream_out + self.scalar_out}
+        return {n: vals[n] for n in self.out_names}
 
     # -- the kernels ------------------------------------------------------
     def _check_operands(self, ins) -> torch.dtype:
@@ -275,18 +327,18 @@ class StreamKernel:
         main, fin = self._compiled(dtype)
         dev = ins[0].device
         outs = {n: torch.empty(self.shapes[n], dtype=dtype, device=dev)
-                for n in self.stream_out + self.scalar_out}
+                for n in self.out_names}
         part = torch.empty((max(len(self.red_out), 1), self.n_prog),
                            dtype=dtype, device=dev)
         count(self.names[0])
         _launch(self.names[0], main, (self.n_prog,), *ins,
                 *[outs[n] for n in self.stream_out], part,
                 num_warps=self._warps, enable_fp_fusion=False)
-        if self.scalar_out:
+        if self._fin_out:
             fin_ins = [env[n] for n in self._fin_scalar_in]
             count(self.names[1])
             _launch(self.names[1], fin, (1,), part, *fin_ins,
-                    *[outs[n] for n in self.scalar_out],
+                    *[outs[n] for n in self._fin_out],
                     num_warps=4, enable_fp_fusion=False)
         return outs
 
@@ -306,6 +358,8 @@ class StreamKernel:
     # -- code generation --------------------------------------------------
     @property
     def _fin_scalar_in(self) -> List[str]:
+        if self.defer:
+            return []
         used = {t for nd in self.nodes
                 if self.classes[nd.name] in ("eager", "epilogue")
                 for t in nd.inputs}
@@ -511,9 +565,10 @@ class StreamKernel:
                 main += per[g]
 
         # ---- finalize kernel ----
-        # lanes: one program a lane, each the single-request finalize
+        # lanes: one program a lane, each the single-request finalize;
+        # deferred: the fold alone, one raw sum stored per reduction
         fin_args = (["part"] + [f"p_{v(n)}" for n in self._fin_scalar_in]
-                    + [f"o_{v(n)}" for n in self.scalar_out]
+                    + [f"o_{v(n)}" for n in self._fin_out]
                     + (["L"] if lanes else []))
 
         def fptr(kind: str, name: str) -> str:
@@ -534,13 +589,14 @@ class StreamKernel:
                         f"({j} * L + lane) * {self.n_prog}")
                 tot = (f"tl.sum(tl.load(part + {slot} + i, mask=im, "
                        "other=0.0), axis=0)")
-                fin.append(f"{v(nd.name)} = " + (f"{sqrt}({tot})"
-                                                 if nd.op == "norm" else tot))
-            elif cls in ("eager", "epilogue"):
+                fin.append(f"{v(nd.name)} = " + (
+                    f"{sqrt}({tot})" if nd.op == "norm" and not self.defer
+                    else tot))
+            elif cls in ("eager", "epilogue") and not self.defer:
                 fin.append(f"{v(nd.name)} = " + ew(
                     nd, [v(t) for t in nd.inputs], [True] * len(nd.inputs),
                     "()"))
-        for n in self.scalar_out:
+        for n in self._fin_out:
             fin.append(f"tl.store({fptr('o', n)}, {v(n)})")
 
         # a lane count is a plain argument: one compile serves every count

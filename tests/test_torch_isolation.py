@@ -60,6 +60,34 @@ print("ok", plan.backend)
     assert res.stdout.strip() == "ok cuda"
 
 
+def test_mesh_lowers_and_runs_with_jax_absent():
+    """``lower(mesh=4)``, its ``ShardedProgram`` and ``ShardedReference``
+    import and run with jax absent."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+from repro_torch.api import Session
+plan = (Session(device="cpu").trace(workload="cg_sparse", n=64, iters=3)
+        .analyze().codesign().lower(mesh=4))
+out = plan.run()
+ref = plan.run(backend="reference")
+assert type(plan.compiled()).__name__ == "ShardedProgram"
+assert set(out) == set(ref) == {"x3", "r3"}
+assert all(bool(torch.allclose(out[k], ref[k], rtol=2e-4, atol=1e-5))
+           for k in out)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok", plan.sharded.n_shards)
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok 4"
+
+
 def test_recurrent_families_serve_with_jax_absent():
     """The recurrent models and the B8/B9 modules import and serve a
     reduced recurrentgemma-2b and rwkv6-7b with jax absent."""
@@ -178,8 +206,11 @@ def test_lower_defaults_to_cuda_backend_and_rejects_mesh():
     assert designed.lower().backend == "cuda"
     assert designed.lower(ExecConfig(backend="reference")).backend == \
         "reference"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        designed.lower(mesh=2)
+    # frontend plans lower onto a mesh (tests/test_torch_sharded.py); a
+    # mesh that does not split the plan's rows is rejected at lower time
+    assert designed.lower(mesh=2).sharded.n_shards == 2
+    with pytest.raises(ValueError, match="shards"):
+        designed.lower(mesh=3)
 
 
 def test_tf32_is_off():
