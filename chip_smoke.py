@@ -27,7 +27,10 @@ Phases, each of which raises (exit code 1) on failure:
    one whose longest rows exceed a staged window, with prefixes of none,
    part and all rows), B4 (periodic stencil, 4096x4096, timed; bitwise
    also without f, at odd and tiny grids and with an operand not 16-byte
-   aligned);
+   aligned); off the main path, B1's ``ab,bc->ac`` passes of an FFN phase
+   against the reference, also at tiles and a K of 384 columns (walked in
+   chunks of 256), and there in fp32 B1's three forms against the plain
+   version;
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
    d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
@@ -54,14 +57,18 @@ Phases, each of which raises (exit code 1) on failure:
    cg_sparse(n=131072, iters=64) and jacobi_sparse(n=131072, sweeps=64)
    on a banded operand (bandwidth 16), codesigned with ``overbook=0.25``
    (a prefix pin of 0.80 of the rows: B3, 65 and 64 launches per run())
-   and with ``overbook=0`` (the operand streams: B2), in fp32 and fp64.
+   and with ``overbook=0`` (the operand streams: B2), in fp32 and fp64;
+   then each overbooked plan batched (``plan.batched(backend="cuda")
+   .run_many`` of 16 requests: B3's lane form; its overbook-0 twin on B2's),
+   every lane bitwise equal to its unbatched run(), one graph replay a
+   batch, timed beside 16 sequential run() and the twin's batch.
    Each is held against the port's
    ``reference`` backend on the card and against numpy (relative residual
    of the returned x, or a numpy replay of the sweeps); each Krylov path
    also holds its limits against a control, the reference computed with
    its products' operands cut to TF32 (fp32) or fp32 (fp64), which the
-   limits must reject; the launch counts of
-   B1, B2, B3 and B4 over these runs must be > 0.  Every path's run() is
+   limits must reject; the launch counts of B1, B2, B3, B4 and B3's lane
+   form over these runs must be > 0.  Every path's run() is
    one CUDA-graph replay (``check_dispatch``): bitwise equal to the eager
    walk that its graph captured, at its own feeds and at a second set, run
    1's outputs unchanged by run 2, one capture per float dtype,
@@ -116,8 +123,9 @@ Phases, each of which raises (exit code 1) on failure:
    worker's own clock), a warm batch's time from numpy feeds and from
    feeds on the card beside its device busy time; the fallback under
    ``serve.dispatch@cuda=fail`` (the reference on the card, within
-   ``PATH_TOL`` of the cuda lanes, the breaker open); then B1, B2 and B4's
-   lane forms at 16 lanes on phase 3's operands against their plain
+   ``PATH_TOL`` of the cuda lanes, the breaker open); then B1, B2, B3 and
+   B4's lane forms at 16 lanes on phase 3's operands (B3's: the
+   overbooked operand with its plan's prefix) against their plain
    versions and, lane by lane, bitwise against the single-request
    kernels, timed beside their bytes bounds and a library yardstick
    (``A @ X`` plus column dots, ``torch.sparse.mm``, batched ``conv2d``);
@@ -952,29 +960,59 @@ def ffn_program(pkg, m, d, f):
 def check_off_path(dtypes):
     """Code paths of B1 and B4 that no main-path workload reaches, held
     for correctness only: generated ``ab,bc->ac`` passes (tl.dot, the left
-    operand from memory and from the block's own tile), and a block unit
-    with elementwise ops between stencil sweeps."""
+    operand from memory and from the block's own tile), also with tiles
+    and a K of 384 columns (walked in chunks of 256) against the reference
+    and, in fp32, in all three forms of B1 against the plain version, and
+    a block unit with elementwise ops between stencil sweeps."""
     import numpy as np
     import torch
     from repro_torch import frontends
     from repro_torch.api import Session
     from repro_torch.core.lowering import ExecUnit
     from repro_torch.exec.cuda import _BlockUnit
-    ffn = ffn_program(frontends, 4096, 64, 128)
-    plan = Session.from_graph(ffn, device="cuda").codesign().lower()
-    assert any(u.kind == "stream" and {"up", "ffn_out"} <= set(u.ops)
-               for u in plan.exec_plan.units), plan.exec_plan.describe()
+    from repro_torch.kernels.stream import (MAX_TILE_WIDTH, LaneStreamKernel,
+                                            StreamKernel)
+    ffns = {f: ffn_program(frontends, 4096, 64, f) for f in (128, 384)}
+    plans = {f: Session.from_graph(p, device="cuda").codesign().lower()
+             for f, p in ffns.items()}
+    for plan in plans.values():
+        assert any(u.kind == "stream" and {"up", "ffn_out"} <= set(u.ops)
+                   for u in plan.exec_plan.units), plan.exec_plan.describe()
+    wide = plans[384].compiled()
+    wide_pass = next(k for c in (*wide._pro, *wide._tmpl, *wide._epi)
+                     for k in [getattr(c, "pass_", None)]
+                     if k is not None and "ffn_out" in k.out_names)
+    assert max(s[1] for s in wide_pass.shapes.values()
+               if len(s) == 2) > MAX_TILE_WIDTH
+    args = (wide_pass.nodes, wide_pass.shapes, {"ffn_out"}, wide_pass.rows)
+    forms = {"single": StreamKernel(*args),
+             "deferred": StreamKernel(*args, defer_finalize=True),
+             "lanes": LaneStreamKernel(*args, lanes={"x"})}
     relax = relax_program(frontends, 1024)
     unit = ExecUnit(tuple(relax.schedulable_order()), "block")
     block = _BlockUnit(relax, unit, set(relax.outputs))
     for dt in dtypes:
-        feeds = frontends.feeds_from_numpy(frontends.make_feeds(
-            ffn, seed=0, dtype=getattr(np, dt)), "cuda")
-        got, want = plan.run(feeds), plan.run(feeds, backend="reference")
-        torch.cuda.synchronize()
-        e = max_err(got["ffn_out"], want["ffn_out"])
-        scale = float(want["ffn_out"].double().abs().max())
-        assert e <= KERNEL_TOL[dt] * scale, ("ffn", dt, e, scale)
+        for f, plan in plans.items():
+            feeds = frontends.feeds_from_numpy(frontends.make_feeds(
+                ffns[f], seed=0, dtype=getattr(np, dt)), "cuda")
+            got, want = plan.run(feeds), plan.run(feeds, backend="reference")
+            torch.cuda.synchronize()
+            e = max_err(got["ffn_out"], want["ffn_out"])
+            scale = float(want["ffn_out"].double().abs().max())
+            assert e <= KERNEL_TOL[dt] * scale, ("ffn", f, dt, e, scale)
+        wide_errs = {}
+        for form, k in forms.items() if dt == "float32" else ():
+            env = {n: feeds[n] for n in k.in_names}
+            if form == "lanes":
+                env["x"] = torch.stack([feeds["x"], 2.0 * feeds["x"]])
+            got, want = k(env), k.plain(env)
+            torch.cuda.synchronize()
+            for n in want:
+                e = max_err(got[n], want[n])
+                scale = float(want[n].double().abs().max())
+                assert e <= KERNEL_TOL[dt] * scale, ("wide B1", form, dt, n,
+                                                     e, scale)
+                wide_errs[form] = max(wide_errs.get(form, 0.0), e / scale)
         feeds = frontends.feeds_from_numpy(frontends.make_feeds(
             relax, seed=0, dtype=getattr(np, dt)), "cuda")
         got = block(feeds)
@@ -983,9 +1021,11 @@ def check_off_path(dtypes):
         for k in want:
             assert torch.equal(got[k], want[k]), ("block", dt, k,
                                                   max_err(got[k], want[k]))
-        log(f"  off the main path {dt}: ffn ab,bc->ac passes max|err| "
-            f"{e:.3e} (tol {KERNEL_TOL[dt] * scale:.3e}); block unit with "
-            "elementwise ops between sweeps bitwise equal to the reference")
+        log(f"  off the main path {dt}: ffn ab,bc->ac passes (f 128 and "
+            f"384) within {KERNEL_TOL[dt]} of the reference; B1's forms at "
+            f"tiles and K of 384 columns against the plain version, rel err "
+            f"{wide_errs or 'not run'}; block unit with elementwise ops "
+            "between sweeps bitwise equal to the reference")
 
 
 def _rand(rng, shape, dtype, scale=1.0):
@@ -1954,6 +1994,95 @@ def drive_overbooked(plans, feeds, dtypes, paths, seen, profile=False):
     return totals
 
 
+def drive_overbooked_batched(plans, feeds, dtypes, paths):
+    """The overbooked cells batched: ``plan.batched(backend="cuda")
+    .run_many`` of ``LANES`` requests (seeds 0-15; the operator from seed
+    0) on each overbooked plan (B3's lane form) and on its overbook-0 twin
+    (B2's).  Every lane is bitwise equal to its request's unbatched
+    ``run()`` and finite; one capture and one graph replay a batch
+    (``dispatches == batches``; for the overbooked plan a profiled warm
+    batch with one graph launch and no kernel launch).  Timed: a warm
+    batch from feeds on the card (``run_batch``) beside ``LANES``
+    sequential ``run()`` and the overbook-0 plan's batch.  Returns the
+    launch counts of the overbooked plans' first batches, each read just
+    after it with the counts set to 0 just before."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.frontends import feeds_from_numpy, make_feeds
+    totals = {}
+    for wl in ("cg_sparse", "jacobi_sparse"):
+        for dt in dtypes:
+            prog = plans[wl, 0.25, dt].trace.program
+            shared = {n: v for n, v in feeds[wl, dt].items()
+                      if prog.nodes[n].op == "operator"}
+            reqs = [make_feeds(prog, seed=s, dtype=getattr(np, dt),
+                               only=[nd.name for nd in prog.leaves()
+                                     if nd.op != "operator"])
+                    for s in range(LANES)]
+            dev_shared = feeds_from_numpy(shared, "cuda")
+            dev_reqs = [feeds_from_numpy(r, "cuda") for r in reqs]
+            stacked = {**dev_shared, **{n: torch.stack([r[n] for r in
+                                                        dev_reqs])
+                                         for n in dev_reqs[0]}}
+            row = dict(path=f"{wl} overbooked, batched", dtype=dt,
+                       card=CARD, lanes=LANES)
+            for overbook in (0.25, 0.0):
+                plan = plans[wl, overbook, dt]
+                bp = plan.batched(backend="cuda")
+                kernels.reset_launches()
+                outs = bp.run_many(dev_reqs, dev_shared)
+                torch.cuda.synchronize()
+                counts = kernels.launches()
+                lane_spmv = "spmv_sliced_lanes" if overbook else "spmv_lanes"
+                other = "spmv_lanes" if overbook else "spmv_sliced_lanes"
+                assert counts[lane_spmv] > 0 and counts[other] == 0, (
+                    wl, dt, overbook, counts)
+                if overbook:
+                    for k, v in counts.items():
+                        totals[k] = totals.get(k, 0) + v
+                for i, (r, out) in enumerate(zip(dev_reqs, outs)):
+                    one = plan.run({**dev_shared, **r})
+                    for k in one:
+                        assert torch.equal(out[k], one[k]), (
+                            "lane vs run()", wl, dt, overbook, i, k)
+                        assert bool(torch.isfinite(out[k]).all()), (
+                            wl, dt, overbook, i, k)
+                batch_s, batch_min = run_timing(
+                    lambda: bp.run_batch(stacked))
+                st, pst = bp.stats, bp.program_stats
+                assert st["traces"] == 1 and pst["traces"] == 1, (st, pst)
+                assert st["dispatches"] == pst["dispatches"] \
+                    == pst["runs"] == RUN_REPS + 2, (st, pst)
+                tag = "b3" if overbook else "b2"
+                row.update({f"{tag}_batch_ms": batch_s * 1e3,
+                            f"{tag}_batch_ms_min": batch_min * 1e3,
+                            f"{tag}_launches_first_batch": {
+                                k: v for k, v in counts.items() if v}})
+                if overbook:
+                    row["api_calls_batch"] = calls = api_calls(
+                        lambda: bp.run_batch(stacked))
+                    assert calls["graph_launches"] == 1, calls
+                    assert calls["kernel_launches"] == 0, calls
+                    seq_s, seq_min = run_timing(lambda: [
+                        plan.run({**dev_shared, **r}) for r in dev_reqs],
+                        max(1, RUN_REPS // 2))
+                    row.update(sequential_ms=seq_s * 1e3,
+                               sequential_ms_min=seq_min * 1e3,
+                               prefix_rows=prefix_rows(plan))
+            paths.append(row)
+            log(f"  {wl} {dt} batched, {LANES} lanes: every lane bitwise "
+                f"equal to its run(), one graph replay a batch; overbook "
+                f"0.25 (B3 lanes) batch {row['b3_batch_ms']:.3f} ms (min "
+                f"{row['b3_batch_ms_min']:.3f}), {LANES} sequential run() "
+                f"{row['sequential_ms']:.3f} ms (min "
+                f"{row['sequential_ms_min']:.3f}), overbook 0 (B2 lanes) "
+                f"batch {row['b2_batch_ms']:.3f} ms (min "
+                f"{row['b2_batch_ms_min']:.3f}); launches of the first "
+                f"batch {row['b3_launches_first_batch']}")
+    return totals
+
+
 # --------------------------------------------------------------------------
 # phase 8: the device mesh
 # --------------------------------------------------------------------------
@@ -2799,11 +2928,13 @@ def drive_solver_serving(results, paths):
     return counts, routers
 
 
-def check_lanes(routers, results, dtypes):
-    """B1, B2 and B4 in their lane forms at ``LANES`` lanes on phase 3's
-    operands (the served buckets' own), each against its plain version,
-    each lane bitwise against the single-request kernel on it alone,
-    timed beside its bytes bound and a library yardstick."""
+def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
+    """B1, B2, B3 and B4 in their lane forms at ``LANES`` lanes on phase
+    3's operands (the served buckets' own; B3's the overbooked path's
+    banded operand, ``ob_csr``, with its plan's resident prefix), each
+    against its plain version, each lane bitwise against the
+    single-request kernel on it alone, timed beside its bytes bound and a
+    library yardstick."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2910,6 +3041,8 @@ def check_lanes(routers, results, dtypes):
                flops=2 * nnz * LANES, times=times, lanes=LANES,
                lanes_vs_single="bitwise")
 
+    check_spmv_sliced_lanes(ob_csr, ob_prefix, results, dtypes, rng)
+
     # B4: 16 grids of 4096^2 with their f
     n = 4096
     for dt in dtypes:
@@ -2941,6 +3074,78 @@ def check_lanes(routers, results, dtypes):
                lanes=LANES, lanes_vs_single="bitwise")
         del U, Fs, got
         torch.cuda.empty_cache()
+
+
+def check_spmv_sliced_lanes(csr, prefix_rows, results, dtypes, rng):
+    """B3's lane form at ``LANES`` lanes on the overbooked path's operand
+    with its plan's resident prefix: bitwise against its plain version and,
+    lane by lane, against single-request B3; timed beside its bound (as
+    B3's: the bytes a call must read with the prefix in L2, here with x and
+    y of every lane), ``torch.sparse.mm`` on the 16 right-hand sides,
+    itself with no hint (prefix 0), 16 single-request B3 calls and B2's
+    lane form on the same operand (the overbook-0 plan's kernel).  The
+    plain version's loop length is read on the host, so it is timed
+    eagerly."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spmv import (spmv, spmv_lanes,
+                                          spmv_sliced_lanes,
+                                          spmv_sliced_lanes_plain)
+    indptr_np, indices_np, data_np = csr
+    n, nnz = indptr_np.shape[0] - 1, indices_np.shape[0]
+    indptr = torch.from_numpy(indptr_np).cuda()
+    indices = torch.from_numpy(indices_np).cuda()
+    for dt in dtypes:
+        tdt = getattr(torch, dt)
+        data = torch.from_numpy(data_np).to("cuda", tdt)
+        X = torch.from_numpy(rng.standard_normal((LANES, n))).to("cuda", tdt)
+
+        def kernel(rows=prefix_rows):
+            return spmv_sliced_lanes(indptr, indices, data, X, n, rows)
+
+        def plain():
+            return spmv_sliced_lanes_plain(indptr, indices, data, X, n,
+                                           prefix_rows)
+
+        def singles():
+            return [spmv(indptr, indices, data, X[i], n, prefix_rows)
+                    for i in range(LANES)]
+        got = kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain()), ("spmv_sliced_lanes vs plain", dt,
+                                           max_err(got, plain()))
+        for i, one in enumerate(singles()):
+            assert torch.equal(got[i], one), ("B3 lane vs B3", dt, i,
+                                              max_err(got[i], one))
+        with warnings.catch_warnings():      # beta-state notices
+            warnings.simplefilter("ignore")
+            A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+        XT = X.t().contiguous()
+        times = dict(ms=graph_ms(kernel), call_ms=cuda_ms(kernel),
+                     plain_ms=cuda_ms(plain, reps=5),
+                     library_ms=graph_ms(lambda: torch.sparse.mm(A, XT)))
+        es = data.element_size()
+        resident = (4 + es) * int(indptr_np[prefix_rows])
+        all_bytes = 4 * (n + 1) + (4 + es) * nnz + 2 * LANES * es * n
+        extra = dict(unhinted_ms=graph_ms(lambda: kernel(0)),
+                     single_b3_x16_ms=graph_ms(singles, inner=2),
+                     spmv_b2_lanes_ms=graph_ms(lambda: spmv_lanes(
+                         indptr, indices, data, X, n)))
+        record(results, "B3 lanes       ", kernel="spmv_sliced_lanes",
+               case=f"banded n={n} bandwidth={OB_BANDWIDTH} nnz={nnz} "
+               f"prefix {prefix_rows} rows, {LANES} lanes", dtype=dt,
+               err=0.0, rel_err=0.0, tol=0.0, nbytes=all_bytes - resident,
+               flops=2 * nnz * LANES, times=times, lanes=LANES,
+               lanes_vs_single="bitwise", all_operand_bytes=all_bytes,
+               bound_ms_all_operand=all_bytes / PEAK_BYTES_S * 1e3,
+               resident_bytes=resident, prefix_rows=prefix_rows,
+               plain_timing="eager", **extra)
+        log(f"  B3 lanes {dt}: bitwise equal to its plain version and, "
+            f"lane by lane, to B3; {LANES} lanes {times['ms']:.4f} ms, "
+            f"unhinted (prefix 0) {extra['unhinted_ms']:.4f} ms, {LANES} "
+            f"single-request B3 calls {extra['single_b3_x16_ms']:.4f} ms, "
+            f"B2 lanes {extra['spmv_b2_lanes_ms']:.4f} ms, torch.sparse.mm "
+            f"{times['library_ms']:.4f} ms")
 
 
 def check_bound_operator(routers):
@@ -3077,12 +3282,13 @@ def main(argv=None) -> int:
     check_spmv(csr, results, dtypes)
     ob_csr = tuple(ob_feeds["cg_sparse", "float64"][f"A.{c}"]
                    for c in ("indptr", "indices", "data"))
-    check_spmv_sliced(ob_csr,
-                      prefix_rows(ob_plans["cg_sparse", 0.25, "float64"]),
-                      results, dtypes)
+    ob_prefix = prefix_rows(ob_plans["cg_sparse", 0.25, "float64"])
+    check_spmv_sliced(ob_csr, ob_prefix, results, dtypes)
     b3_shapes = check_spmv_sliced_shapes(b3_patterns(csr), dtypes)
     b4_shapes = check_stencil(results, dtypes)
+    t0 = time.perf_counter()
     check_off_path(dtypes)
+    log(f"  off-path checks took {time.perf_counter() - t0:.1f} s")
     check_rmsnorm(results)
     check_flash(results)
     check_flash_hybrid(results)
@@ -3113,12 +3319,20 @@ def main(argv=None) -> int:
                               profile=args.profile)
     for k, v in counts.items():
         totals[k] += v
-    for k in ("stream", "spmv", "spmv_sliced", "stencil2d"):
+    t0 = time.perf_counter()
+    counts = drive_overbooked_batched(ob_plans, ob_feeds, dtypes, paths)
+    for k, v in counts.items():
+        totals[k] += v
+    log(f"  the batched overbooked plans took {time.perf_counter() - t0:.1f}"
+        " s")
+    for k in ("stream", "spmv", "spmv_sliced", "stencil2d",
+              "spmv_sliced_lanes"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
     log(f"  launches over the HPC path: {totals}")
     two_threads = check_two_threads(
         (("cg(n=4096, iters=64) float32", cg_plan, cg_feeds["float32"]),
          ("jacobi2d(n=4096, sweeps=8) float32", jc_plan, jc_feeds)))
+    log(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phases 5 and 6: the LLM serving paths
     for arch, seq, layer_kind, want, tols in SERVE_PATHS:
@@ -3131,6 +3345,7 @@ def main(argv=None) -> int:
                                profile=args.profile)
         for k, v in counts.items():
             totals[k] += v
+        log(f"  {arch} done at {time.perf_counter() - t_start:.1f} s")
     for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
 
@@ -3144,7 +3359,7 @@ def main(argv=None) -> int:
     for k in ("stream_lanes", "stream_lanes_finalize", "spmv_lanes",
               "stencil2d_lanes"):
         assert counts[k] > 0, f"lane kernel {k} never ran while serving"
-    check_lanes(routers, results, dtypes)
+    check_lanes(routers, results, dtypes, ob_csr, ob_prefix)
     check_bound_operator(routers)
     del routers
     torch.cuda.empty_cache()
@@ -3215,6 +3430,8 @@ def main(argv=None) -> int:
                        "src/repro/exec/pallas.py:595", "float32"),
         "stencil2d_lanes": ("cuda", "src/repro_torch/csrc/stencil.cu",
                             "src/repro/exec/pallas.py:687", "float32"),
+        "spmv_sliced_lanes": ("cuda", "src/repro_torch/csrc/spmv.cu",
+                              "src/repro/exec/pallas.py:616", "float32"),
         # B1's deferred-finalize mode: each mesh shard's pass
         # (src/repro/exec/sharded.py:366-369 builds _StreamCall with
         # defer_finalize=True)

@@ -190,13 +190,15 @@ class CompiledPlan:
         return self.trace.session.device
 
     # -- execution ------------------------------------------------------
-    def serve(self):
-        """Serving bundle (prefill/decode fns + greedy generate driver)."""
+    def serve(self, *, unroll: bool = False):
+        """Serving bundle (prefill/decode fns + greedy generate loop);
+        ``unroll`` is kept on it and changes no output (see
+        ``launch.serve``)."""
         if self.cfg is None:
             raise ValueError("frontend (HPC) plans have no LLM serving "
                              "stack; execute them with plan.run()")
         from ..launch.serve import make_serving
-        return make_serving(self.cfg, self.plan)
+        return make_serving(self.cfg, self.plan, unroll=unroll)
 
     def run(self, feeds=None, *, seed: int = 0,
             backend: Optional[str] = None,
@@ -228,9 +230,8 @@ class CompiledPlan:
         requests, operator leaves shared and input leaves batched — see
         ``repro_torch.serve.BatchedPlan``.  ``backend`` (or
         ``config=ExecConfig(backend=...)``) overrides the plan's default.
-        On the ``cuda`` backends a plan whose spmv op holds an overbooked
-        pin raises :class:`NotImplementedError` (B3 has no lane form yet),
-        and a mesh-sharded plan :class:`ValueError`."""
+        An spmv op whose operand holds an overbooked (prefix) pin runs on
+        B3's lane form.  A mesh-sharded plan raises :class:`ValueError`."""
         if config is not None:
             if backend is not None:
                 raise TypeError("batched(): pass either config= or "

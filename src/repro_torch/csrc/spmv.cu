@@ -88,6 +88,22 @@
 // that lane alone.  Lanes past L are skipped by a uniform branch.
 // Bound: bytes, the operand once per group of 16 lanes plus, per lane, x
 // (gathered through L2) and y.
+//
+// B3's lane form (`spmv_tiled_lanes_kernel`) is the counterpart of the TPU
+// kernel :616 under jax.vmap (CompiledPlan.batched() on an overbooked plan):
+// L SpMVs, lane-major x (L, n) and y (L, rows), against one operand whose
+// row prefix is pinned.  It keeps B3's design (128-row tiles, windows of the
+// tile's indices and data staged in shared memory by cp.async, double
+// buffered, the prefix tiles' copies evict_last and the tail's evict_first)
+// and adds B2's lane group: each thread carries kLaneGroup accumulators, so
+// each staged window serves the 16 lanes of a group and the operand is read
+// from memory once per group.  A second grid axis walks the groups (lanes
+// past L skip by a uniform branch; no lane writes outside y).  Each lane
+// adds its row's products in ascending entry order from zero with B2's
+// rounded products and adds, so every lane is bitwise equal to single-
+// request B3 (and so to B2) on that lane alone.
+// Bound: bytes, as B3's: with the prefix in L2, the tail's entries, indptr,
+// then x and y of every lane; x[l][col] is gathered through L1/L2.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -259,6 +275,23 @@ __device__ __forceinline__ Span next_window(const int* __restrict__ indptr, cons
   return t < tiles ? first_window(indptr, t, rows) : Span{t, 0, 0, 0};
 }
 
+// stage window w of the tile's entries into `to`: a tile wholly inside the
+// prefix with the evict_last policy, the tail's with evict_first, none when
+// there is no prefix; one cp.async group
+template <typename T>
+__device__ __forceinline__ void fetch_window(const Span& w, Window<T>& to,
+                                             const int* __restrict__ indices,
+                                             const T* __restrict__ data, int nnz, int rows,
+                                             int prefix_rows, uint64_t pol_last,
+                                             uint64_t pol_first) {
+  const bool in_prefix = min((w.tile + 1) * kTileRows, rows) <= prefix_rows;
+  const int hint = prefix_rows == 0 ? kNoHint : (in_prefix ? kEvictLast : kEvictFirst);
+  const uint64_t pol = in_prefix ? pol_last : pol_first;
+  stage(to.idx, indices, w.e0, w.e1, nnz, hint, pol);
+  stage(to.val, data, w.e0, w.e1, nnz, hint, pol);
+  cp_async_commit();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kTileRows)
     spmv_tiled_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
@@ -273,17 +306,12 @@ __global__ void __launch_bounds__(kTileRows)
   const uint64_t pol_last = make_policy(prefix_rows > 0 ? kEvictLast : kNoHint);
   const uint64_t pol_first = make_policy(prefix_rows > 0 ? kEvictFirst : kNoHint);
 
-  auto issue = [&](const Span& w, Window<T>& to) {
-    const bool in_prefix = min((w.tile + 1) * kTileRows, rows) <= prefix_rows;
-    const int hint = prefix_rows == 0 ? kNoHint : (in_prefix ? kEvictLast : kEvictFirst);
-    const uint64_t pol = in_prefix ? pol_last : pol_first;
-    stage(to.idx, indices, w.e0, w.e1, nnz, hint, pol);
-    stage(to.val, data, w.e0, w.e1, nnz, hint, pol);
-    cp_async_commit();
+  auto fetch = [&](const Span& w, Window<T>& to) {
+    fetch_window(w, to, indices, data, nnz, rows, prefix_rows, pol_last, pol_first);
   };
 
   Span cur = first_window(indptr, blockIdx.x, rows);
-  issue(cur, buf[0]);
+  fetch(cur, buf[0]);
   int b = 0;
   int row = cur.tile * kTileRows + static_cast<int>(threadIdx.x);
   int rs = row < rows ? indptr[row] : 0;
@@ -293,7 +321,7 @@ __global__ void __launch_bounds__(kTileRows)
     const Span nxt = next_window(indptr, cur, rows);
     const bool more = nxt.tile < tiles;
     if (more) {
-      issue(nxt, buf[b ^ 1]);
+      fetch(nxt, buf[b ^ 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -327,23 +355,99 @@ __global__ void __launch_bounds__(kTileRows)
   }
 }
 
+// B3's lane form: spmv_tiled_kernel's walk over tiles and windows, with
+// kLaneGroup accumulators a thread (lanes blockIdx.y * kLaneGroup + g)
+template <typename T>
+__global__ void __launch_bounds__(kTileRows)
+    spmv_tiled_lanes_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                            const T* __restrict__ data, const T* __restrict__ x,
+                            T* __restrict__ y, int rows, int cols, int lanes, int prefix_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Window<T>* buf = reinterpret_cast<Window<T>*>(smem);
+  constexpr int kPerT = 16 / static_cast<int>(sizeof(T));
+  const int tiles = (rows + kTileRows - 1) / kTileRows;
+  if (static_cast<int>(blockIdx.x) >= tiles) return;
+  const int l0 = static_cast<int>(blockIdx.y) * kLaneGroup;
+  const int nl = min(kLaneGroup, lanes - l0);
+  const T* __restrict__ xl = x + static_cast<size_t>(l0) * cols;
+  T* __restrict__ yl = y + static_cast<size_t>(l0) * rows;
+  const int nnz = indptr[rows];
+  const uint64_t pol_last = make_policy(prefix_rows > 0 ? kEvictLast : kNoHint);
+  const uint64_t pol_first = make_policy(prefix_rows > 0 ? kEvictFirst : kNoHint);
+
+  auto fetch = [&](const Span& w, Window<T>& to) {
+    fetch_window(w, to, indices, data, nnz, rows, prefix_rows, pol_last, pol_first);
+  };
+
+  Span cur = first_window(indptr, blockIdx.x, rows);
+  fetch(cur, buf[0]);
+  int b = 0;
+  int row = cur.tile * kTileRows + static_cast<int>(threadIdx.x);
+  int rs = row < rows ? indptr[row] : 0;
+  int re = row < rows ? indptr[row + 1] : 0;
+  T acc[kLaneGroup];
+#pragma unroll
+  for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+  for (;;) {
+    const Span nxt = next_window(indptr, cur, rows);
+    const bool more = nxt.tile < tiles;
+    if (more) {
+      fetch(nxt, buf[b ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                      // the current window has landed
+    const int lo = max(rs, cur.e0), hi = min(re, cur.e1);
+    const int* sidx = buf[b].idx + (lo - (cur.e0 & ~3));
+    const T* sval = buf[b].val + (lo - (cur.e0 & ~(kPerT - 1)));
+    const int n = max(hi - lo, 0);
+    for (int k = 0; k < n; ++k) {         // each entry once for the group
+      const int c = sidx[k];
+      const T v = sval[k];
+#pragma unroll
+      for (int g = 0; g < kLaneGroup; ++g) {
+        if (g < nl) acc[g] = add_rn(acc[g], mul_rn(v, xl[static_cast<size_t>(g) * cols + c]));
+      }
+    }
+    if (cur.e1 == cur.end && row < rows) {
+#pragma unroll
+      for (int g = 0; g < kLaneGroup; ++g) {
+        if (g < nl) yl[static_cast<size_t>(g) * rows + row] = acc[g];
+      }
+    }
+    __syncthreads();                      // the buffer is read: it may be refilled
+    if (!more) break;
+    if (nxt.tile != cur.tile) {
+      row = nxt.tile * kTileRows + static_cast<int>(threadIdx.x);
+      rs = row < rows ? indptr[row] : 0;
+      re = row < rows ? indptr[row + 1] : 0;
+#pragma unroll
+      for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+    }
+    cur = nxt;
+    b ^= 1;
+  }
+}
+
 struct TiledLaunch {
   cudaError_t err;
   int blocks_per_sm, sms;
 };
 
-template <typename T>
-TiledLaunch tiled_setup() {
+// the shared-memory attribute and the blocks that fit on the card, for one
+// of the tiled kernels (B3 or its lane form)
+template <typename T, typename Kernel>
+TiledLaunch tiled_setup(Kernel kernel) {
   TiledLaunch s{cudaSuccess, 0, 0};
   const int smem = static_cast<int>(2 * sizeof(Window<T>));
   int dev = 0;
   s.err = cudaGetDevice(&dev);
   if (s.err == cudaSuccess)
-    s.err = cudaFuncSetAttribute(spmv_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+    s.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (s.err == cudaSuccess)
-    s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm, spmv_tiled_kernel<T>,
-                                                          kTileRows, smem);
+    s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm, kernel, kTileRows,
+                                                          smem);
   if (s.err == cudaSuccess)
     s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
   if (s.err == cudaSuccess && s.blocks_per_sm < 1) s.err = cudaErrorInvalidConfiguration;
@@ -354,7 +458,7 @@ template <typename T>
 int launch_b3(const void* indptr, const void* indices, const void* data, const void* x, void* y,
               int rows, int prefix_rows, void* stream) {
   // once per instantiation, at the first call: not during a CUDA-graph capture
-  static const TiledLaunch setup = tiled_setup<T>();
+  static const TiledLaunch setup = tiled_setup<T>(spmv_tiled_kernel<T>);
   if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
   if ((reinterpret_cast<uintptr_t>(indices) | reinterpret_cast<uintptr_t>(data)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -366,6 +470,27 @@ int launch_b3(const void* indptr, const void* indices, const void* data, const v
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows,
         prefix_rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_b3_lanes(const void* indptr, const void* indices, const void* data, const void* x,
+                    void* y, int rows, int cols, int lanes, int prefix_rows, void* stream) {
+  // once per instantiation, at the first call: not during a CUDA-graph capture
+  static const TiledLaunch setup = tiled_setup<T>(spmv_tiled_lanes_kernel<T>);
+  if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
+  if ((reinterpret_cast<uintptr_t>(indices) | reinterpret_cast<uintptr_t>(data)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (rows > 0 && lanes > 0) {
+    const int tiles = (rows + kTileRows - 1) / kTileRows;
+    const dim3 grid(min(tiles, setup.blocks_per_sm * setup.sms),
+                    (lanes + kLaneGroup - 1) / kLaneGroup);
+    spmv_tiled_lanes_kernel<T><<<grid, kTileRows, 2 * sizeof(Window<T>),
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows, cols,
+        lanes, prefix_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -404,4 +529,18 @@ extern "C" int cello_spmv_lanes_f64(const void* indptr, const void* indices, con
                                     const void* x, void* y, int rows, int cols, int lanes,
                                     void* stream) {
   return launch_b2_lanes<double>(indptr, indices, data, x, y, rows, cols, lanes, stream);
+}
+
+extern "C" int cello_spmv_sliced_lanes_f32(const void* indptr, const void* indices,
+                                           const void* data, const void* x, void* y, int rows,
+                                           int cols, int lanes, int prefix_rows, void* stream) {
+  return launch_b3_lanes<float>(indptr, indices, data, x, y, rows, cols, lanes, prefix_rows,
+                                stream);
+}
+
+extern "C" int cello_spmv_sliced_lanes_f64(const void* indptr, const void* indices,
+                                           const void* data, const void* x, void* y, int rows,
+                                           int cols, int lanes, int prefix_rows, void* stream) {
+  return launch_b3_lanes<double>(indptr, indices, data, x, y, rows, cols, lanes, prefix_rows,
+                                 stream);
 }

@@ -60,13 +60,13 @@ axis when one of its inputs does, starting from the input leaves
 alone, are the single-request tensors and run once.  Every tensor with
 lanes is lane-major (the request first, as the feeds come), so no unit
 converts a layout: stream units run B1's lane form (B2's for their spmv
-ops), block units B4's, ``jnp`` units ``torch.func.vmap`` of the reference
-rules.  Its graphs are one per (lanes, dtype, leaf shapes).  A program
-built with the operator bound (``shared``: tensors on its device, as the
-serving router holds a bucket's) has its graphs read those tensors in
-place, and every run must pass them; an unbound program copies the
-operator into its own buffers, one set per dtype shared by its graphs, on
-every run.
+ops, B3's for those that run on B3 unbatched), block units B4's, ``jnp``
+units ``torch.func.vmap`` of the reference rules.  Its graphs are one per
+(lanes, dtype, leaf shapes).  A program built with the operator bound
+(``shared``: tensors on its device, as the serving router holds a
+bucket's) has its graphs read those tensors in place, and every run must
+pass them; an unbound program copies the operator into its own buffers,
+one set per dtype shared by its graphs, on every run.
 
 A plan lowered with ``mesh=K`` (K > 1) compiles to
 ``exec.sharded.ShardedProgram``: this program's capture, replay and
@@ -83,7 +83,7 @@ import torch
 
 from .. import kernels, obs
 from ..core.lowering import flatten_units
-from ..kernels.spmv import arrange, spmv, spmv_lanes
+from ..kernels.spmv import arrange, spmv, spmv_lanes, spmv_sliced_lanes
 from ..kernels.stencil import stencil2d, stencil2d_lanes
 from ..kernels.stream import LaneStreamKernel, StreamKernel
 from ..testing import faults
@@ -166,8 +166,9 @@ class _Pass:
 
 class _StreamUnit:
     """A ``stream`` unit: B3 or B2 launches for its spmv ops, then one B1
-    pass.  With ``lanes``, its lane form: B2's lane form for an spmv op
-    whose vector carries lanes, B1's for the pass (see :class:`_Pass`).
+    pass.  With ``lanes``, its lane form: B3's or B2's lane form for an
+    spmv op whose vector carries lanes (B3's where the op runs on B3
+    unbatched), B1's for the pass (see :class:`_Pass`).
     With ``defer_finalize``, a mesh shard's unit: B1 in its
     deferred-finalize mode (``exec.sharded``)."""
 
@@ -180,14 +181,6 @@ class _StreamUnit:
         self.prefix = spmv_prefixes(program, sp)
         self.lanes = lanes
         if lanes is not None:
-            pinned = sorted(o for o, k in self.prefix.items()
-                            if k is not None and o in lanes)
-            if pinned:
-                raise NotImplementedError(
-                    f"spmv op(s) {pinned} hold an overbooked (prefix) pin, "
-                    "which runs on B3, and B3 has no lane form yet "
-                    "(ROADMAP.md §2, \"B3's lane form\"): serve a plan "
-                    "codesigned without overbook")
             for nd in self.spmv_nodes:
                 if any(t in lanes for t in nd.inputs[:3]):
                     raise NotImplementedError(
@@ -210,10 +203,12 @@ class _StreamUnit:
 
     def _spmv(self, nd, env):
         operands = [env[t] for t in nd.inputs]
+        prefix = self.prefix[nd.name]
         if self.lanes is not None and nd.name in self.lanes:
-            return spmv_lanes(*operands, rows=nd.shape[0])
-        return spmv(*operands, rows=nd.shape[0],
-                    prefix_rows=self.prefix[nd.name])
+            return (spmv_lanes(*operands, rows=nd.shape[0]) if prefix is None
+                    else spmv_sliced_lanes(*operands, rows=nd.shape[0],
+                                           prefix_rows=prefix))
+        return spmv(*operands, rows=nd.shape[0], prefix_rows=prefix)
 
     def __call__(self, env: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         vals = {nd.name: self._spmv(nd, env) for nd in self.spmv_nodes}
@@ -641,8 +636,7 @@ class CudaLaneProgram(CudaProgram):
     ``shared``, when given, binds the operator: contiguous tensors on the
     plan's device, in the dtype of every run, that the graphs read in
     place, so a write to them shows in the next run; each call must pass
-    these very tensors.  Raises :class:`NotImplementedError` for a plan
-    whose spmv op holds an overbooked pin (B3 has no lane form yet)."""
+    these very tensors."""
 
     def __init__(self, plan, shared: Optional[Dict[str, torch.Tensor]] = None):
         program = plan_program(plan)
@@ -721,7 +715,7 @@ class CudaExecutor(Executor):
         return CudaProgram(plan)
 
     def compile_batched(self, plan, shared=None) -> CudaLaneProgram:
-        """The lane-batched program: B1, B2 and B4 in their lane forms, one
+        """The lane-batched program: B1-B4 in their lane forms, one
         graph replay per (lanes, dtype, leaf shapes) signature, its graphs
         reading the operator ``shared`` binds in place.  A mesh-sharded
         plan has none."""

@@ -11,10 +11,10 @@ torch version.
                  ``spmv_sliced``,
   ``stencil``  — B4, the periodic 5-point stencil, CUDA C++
                  (``csrc/stencil.cu``),
-  B1, B2 and B4 also have a lane form for batched serving (one launch
-                 serves L requests, the shared operator read once; counted
-                 as ``stream_lanes`` / ``stream_lanes_finalize``,
-                 ``spmv_lanes``, ``stencil2d_lanes``),
+  B1, B2, B3 and B4 also have a lane form for batched serving (one
+                 launch serves L requests, the shared operator read once;
+                 counted as ``stream_lanes`` / ``stream_lanes_finalize``,
+                 ``spmv_lanes``, ``spmv_sliced_lanes``, ``stencil2d_lanes``),
   B1 also has a deferred-finalize mode for the shards of a mesh-partitioned
                  plan (raw reduction sums, no scalar chain; counted as
                  ``stream_deferred`` / ``stream_deferred_finalize``),
@@ -54,7 +54,8 @@ from typing import Dict, Iterator
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
                             "stream_lanes": 0, "stream_lanes_finalize": 0,
-                            "spmv_lanes": 0, "stencil2d_lanes": 0,
+                            "spmv_lanes": 0, "spmv_sliced_lanes": 0,
+                            "stencil2d_lanes": 0,
                             "stream_deferred": 0,
                             "stream_deferred_finalize": 0,
                             "flash_attention": 0,

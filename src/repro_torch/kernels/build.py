@@ -116,6 +116,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp]
         fn.restype = i32
+    for name in ("cello_spmv_sliced_lanes_f32",
+                 "cello_spmv_sliced_lanes_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+        fn.restype = i32
     for name in ("cello_stencil2d_lanes_f32", "cello_stencil2d_lanes_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, i32, i32, f64, i32, i32, i32, vp]

@@ -10,6 +10,10 @@ the B1 pass that holds the spmv op, and the pass streams its output.
 B2's lane form (:func:`spmv_lanes`) serves a batch of requests against
 one operand: ``x`` and ``y`` carry a leading lane axis, each entry of the
 operand is read once for 16 lanes, and each lane equals B2 on it alone.
+B3's lane form (:func:`spmv_sliced_lanes`, ``csrc/spmv.cu::
+spmv_tiled_lanes_kernel``) does the same for an operand with an
+overbooked pin: each staged window of B3 serves 16 lanes, and each lane
+equals B3 (and B2) on it alone, bitwise.
 
 B3 replaces ``:616`` ``_spmv_sliced_tile`` together with its arrangement,
 ``:300`` ``_StreamCall._arrange``.  An overbooked pin keeps an
@@ -68,8 +72,20 @@ def spmv_sliced_plain(indptr: torch.Tensor, indices: torch.Tensor,
     ascending entry order from zero, one entry slot of every row per step:
     the kernel's order, on any device.  ``prefix_rows`` is where the
     kernel's resident prefix ends; it does not change the result."""
+    return spmv_sliced_lanes_plain(indptr, indices, data, x[None], rows,
+                                   prefix_rows)[0]
+
+
+def spmv_sliced_lanes_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                            data: torch.Tensor, x: torch.Tensor, rows: int,
+                            prefix_rows: int) -> torch.Tensor:
+    """B3's lane form in torch, and with one lane B3's plain version:
+    ``y[l] = A @ x[l]`` for lane-major ``x`` ``(L, n)``, every lane's
+    products added in ascending entry order from zero, one entry slot of
+    every row per step (the kernel's order, on any device)."""
     _check_prefix(rows, prefix_rows)
-    out = torch.zeros(rows, dtype=data.dtype, device=data.device)
+    out = torch.zeros((x.shape[0], rows), dtype=data.dtype,
+                      device=data.device)
     nnz = data.shape[0]
     if nnz == 0 or rows == 0:
         return out
@@ -77,9 +93,31 @@ def spmv_sliced_plain(indptr: torch.Tensor, indices: torch.Tensor,
     counts = indptr[1:].long() - start
     for k in range(int(counts.max())):
         e = (start + k).clamp_(max=nnz - 1)
-        prod = data[e] * x[indices[e].long()]
+        prod = data[e] * x[:, indices[e].long()]
         out = torch.where(counts > k, out + prod, out)
     return out
+
+
+def _check_csr(name, indptr, indices, data, x, rows, aligned) -> None:
+    """The kernels' argument checks: int32 indices, one float dtype,
+    ``rows`` rows, contiguous tensors, and (B3's staged copies) 16-byte
+    aligned ``indices`` and ``data``."""
+    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
+        raise TypeError(f"{name} kernel takes int32 indptr/indices")
+    if data.dtype != x.dtype or data.dtype not in (torch.float32,
+                                                   torch.float64):
+        raise TypeError(f"{name} kernel takes float32/float64 data and x of "
+                        f"one dtype, got {data.dtype}, {x.dtype}")
+    if indptr.shape != (rows + 1,) or indices.shape != data.shape:
+        raise ValueError(f"{name}: indptr {tuple(indptr.shape)}, indices "
+                         f"{tuple(indices.shape)}, data {tuple(data.shape)} "
+                         f"do not describe {rows} rows")
+    for t in (indptr, indices, data, x):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors")
+    if aligned and (indices.data_ptr() | data.data_ptr()) % 16:
+        raise ValueError(f"{name} kernel stages 16-byte chunks: indices "
+                         "and data must start 16-byte aligned")
 
 
 def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
@@ -96,22 +134,7 @@ def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
                 if sliced else spmv_plain(indptr, indices, data, x, rows))
     from .build import check, cuda_library
     name = "spmv_sliced" if sliced else "spmv"
-    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
-        raise TypeError(f"{name} kernel takes int32 indptr/indices")
-    if data.dtype != x.dtype or data.dtype not in (torch.float32,
-                                                   torch.float64):
-        raise TypeError(f"{name} kernel takes float32/float64 data and x of "
-                        f"one dtype, got {data.dtype}, {x.dtype}")
-    if indptr.shape != (rows + 1,) or indices.shape != data.shape:
-        raise ValueError(f"{name}: indptr {tuple(indptr.shape)}, indices "
-                         f"{tuple(indices.shape)}, data {tuple(data.shape)} "
-                         f"do not describe {rows} rows")
-    for t in (indptr, indices, data, x):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous tensors")
-    if sliced and (indices.data_ptr() | data.data_ptr()) % 16:
-        raise ValueError("spmv_sliced kernel stages 16-byte chunks: indices "
-                         "and data must start 16-byte aligned")
+    _check_csr(name, indptr, indices, data, x, rows, aligned=sliced)
     y = torch.empty(rows, dtype=x.dtype, device=x.device)
     suffix = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(cuda_library(), f"cello_{name}_{suffix}")
@@ -149,19 +172,7 @@ def spmv_lanes(indptr: torch.Tensor, indices: torch.Tensor,
     if not on_cuda(indptr, indices, data, x):
         return spmv_lanes_plain(indptr, indices, data, x, rows)
     from .build import check, cuda_library
-    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
-        raise TypeError("spmv_lanes kernel takes int32 indptr/indices")
-    if data.dtype != x.dtype or data.dtype not in (torch.float32,
-                                                   torch.float64):
-        raise TypeError(f"spmv_lanes kernel takes float32/float64 data and "
-                        f"x of one dtype, got {data.dtype}, {x.dtype}")
-    if indptr.shape != (rows + 1,) or indices.shape != data.shape:
-        raise ValueError(f"spmv_lanes: indptr {tuple(indptr.shape)}, "
-                         f"indices {tuple(indices.shape)}, data "
-                         f"{tuple(data.shape)} do not describe {rows} rows")
-    for t in (indptr, indices, data, x):
-        if not t.is_contiguous():
-            raise ValueError("spmv_lanes kernel takes contiguous tensors")
+    _check_csr("spmv_lanes", indptr, indices, data, x, rows, aligned=False)
     lanes, cols = x.shape
     y = torch.empty((lanes, rows), dtype=x.dtype, device=x.device)
     suffix = "f32" if x.dtype == torch.float32 else "f64"
@@ -171,6 +182,38 @@ def spmv_lanes(indptr: torch.Tensor, indices: torch.Tensor,
     check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
              x.data_ptr(), y.data_ptr(), rows, cols, lanes, stream),
           "spmv_lanes")
+    return y
+
+
+def spmv_sliced_lanes(indptr: torch.Tensor, indices: torch.Tensor,
+                      data: torch.Tensor, x: torch.Tensor, rows: int,
+                      prefix_rows: int) -> torch.Tensor:
+    """B3's lane form: ``y[l] = A @ x[l]`` for L right-hand sides at once,
+    ``x`` lane-major ``(L, n)``, ``y`` ``(L, rows)``, against an operand
+    whose rows ``[0, prefix_rows)`` are the resident prefix of an
+    overbooked pin (from :func:`arrange`).  Each staged window of the
+    operand serves a group of 16 lanes, and each lane equals
+    :func:`spmv` with that ``prefix_rows`` on that lane alone, bitwise
+    (see ``csrc/spmv.cu``)."""
+    if x.dim() != 2:
+        raise ValueError(f"spmv_sliced_lanes takes a lane-major (L, n) x, "
+                         f"got {tuple(x.shape)}")
+    _check_prefix(rows, prefix_rows)
+    if not on_cuda(indptr, indices, data, x):
+        return spmv_sliced_lanes_plain(indptr, indices, data, x, rows,
+                                       prefix_rows)
+    from .build import check, cuda_library
+    _check_csr("spmv_sliced_lanes", indptr, indices, data, x, rows,
+               aligned=True)
+    lanes, cols = x.shape
+    y = torch.empty((lanes, rows), dtype=x.dtype, device=x.device)
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(cuda_library(), f"cello_spmv_sliced_lanes_{suffix}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    count("spmv_sliced_lanes")
+    check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+             x.data_ptr(), y.data_ptr(), rows, cols, lanes, prefix_rows,
+             stream), "spmv_sliced_lanes")
     return y
 
 

@@ -54,7 +54,14 @@ of its text, and imported; passes with the same structure share one
 compiled kernel.  ``BLOCK_R`` is the kernel's own choice, not the plan's
 ``tile_rows`` (which the co-designer sized for a 128 MiB VMEM: 1024 rows at
 n=4096 would leave 128 of the card's 132 SMs idle).  Matvec passes take 16
-rows per program and loop over K in blocks of 128 columns.
+rows per program and loop over K in blocks of 128 columns.  A ``(rows, C)``
+tile wider than ``MAX_TILE_WIDTH`` (256) columns is held and walked as
+chunks of at most 256 columns: elementwise ops, loads and stores act chunk
+by chunk (a column's result depends on its own column alone), an
+``ab,bc->ac`` product keeps one accumulator a chunk of C, and a product
+whose left operand is a tile of the block with K > 256 adds its K chunks'
+products in ascending order, as the plain version does.  A tile of at most
+256 columns generates the text it always did.
 
 Bound on the H100: bytes.  A cg matvec pass at n=4096 in fp32 reads the
 64 MiB operator once (about 20 us at 3.35 TB/s); the vector passes move a
@@ -81,7 +88,8 @@ import torch
 from ..core.lowering import STREAM_EINSUMS
 from . import count, on_cuda
 
-#: widest ``(rows, C)`` tile a program holds in registers
+#: widest column chunk of a ``(rows, C)`` tile that a program holds as one
+#: Triton tensor; a wider tile is walked in chunks of this many columns
 MAX_TILE_WIDTH = 256
 #: rows per program for passes that stream a matrix, and the K block
 MATRIX_BLOCK_R, MATRIX_BLOCK_K = 16, 128
@@ -121,6 +129,14 @@ def _pw(w: int) -> int:
     """Padded tile width of a ``(rows, w)`` operand (``tl.dot`` takes
     dimensions of 16 or more)."""
     return max(16, _p2(w))
+
+
+def _chunks(w: int) -> List[Tuple[int, int]]:
+    """(first column, padded width) of each column chunk of a width-``w``
+    tile: one chunk up to ``MAX_TILE_WIDTH`` columns, else chunks of
+    ``MAX_TILE_WIDTH`` and a ragged last one."""
+    return [(c0, _pw(min(MAX_TILE_WIDTH, w - c0)))
+            for c0 in range(0, w, MAX_TILE_WIDTH)]
 
 
 def _plain_op(op: str, ins):
@@ -206,6 +222,7 @@ class StreamKernel:
             assert self.rows * (shape[1] if len(shape) == 2 else 1) < 2 ** 31
         self.stream_in, self.res_in, self.scalar_in = \
             stream_in, res_in, scalar_in
+        self._produced = produced
         self.red_out = [nd.name for nd in self.nodes
                         if self.classes[nd.name] == "reduce"]
         self.stream_out = [nd.name for nd in self.nodes
@@ -297,7 +314,16 @@ class StreamKernel:
                     else total)
         if nd.op in ("matmul", "einsum"):
             rhs = STREAM_EINSUMS[nd.param("spec")]
-            return ins[1 - rhs] @ ins[rhs]
+            a, b = ins[1 - rhs], ins[rhs]
+            k = b.shape[0]
+            if nd.inputs[1 - rhs] not in self._produced or k <= MAX_TILE_WIDTH:
+                return a @ b
+            # the kernel's order: the left tile's column chunks, ascending
+            out = a[:, :MAX_TILE_WIDTH] @ b[:MAX_TILE_WIDTH]
+            for k0 in range(MAX_TILE_WIDTH, k, MAX_TILE_WIDTH):
+                k1 = k0 + MAX_TILE_WIDTH
+                out = out + a[:, k0:k1] @ b[k0:k1]
+            return out
         return _plain_op(nd.op, ins)
 
     def plain(self, env: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -435,9 +461,10 @@ class StreamKernel:
             shape = self.shapes[name]
             return shape[1] if len(shape) == 2 else None
 
-        def tile_shape(name: str) -> str:
+        def chunk_shape(name: str, j: int) -> str:
+            """The block shape of chunk ``j`` of ``name``'s tile."""
             w = width(name)
-            return f"({br},)" if w is None else f"({br}, {_pw(w)})"
+            return f"({br},)" if w is None else f"({br}, {_chunks(w)[j][1]})"
 
         # ---- main kernel ----
         args = ([f"p_{v(n)}" for n in self.in_names]
@@ -456,40 +483,47 @@ class StreamKernel:
         loaded: Set[Tuple[str, Optional[int]]] = set()
         col_ranges: Set[str] = set()
 
-        def cols(w: int, out: List[str]) -> str:
-            name = f"c{w}"
-            if name not in col_ranges:
+        def cols(w: int, out: List[str]) -> List[str]:
+            """The column ranges of a width-``w`` tile: one, or one a chunk
+            of ``MAX_TILE_WIDTH`` columns (the last one ragged)."""
+            names = []
+            chunks = _chunks(w)
+            for j, (c0, pw) in enumerate(chunks):
+                name = f"c{w}" if len(chunks) == 1 else f"c{w}_{j}"
+                names.append(name)
+                if name in col_ranges:
+                    continue
                 col_ranges.add(name)
-                if w > MAX_TILE_WIDTH:
-                    raise NotImplementedError(
-                        f"stream pass tile of width {w} > {MAX_TILE_WIDTH}")
-                out.append(f"{name} = tl.arange(0, {_pw(w)})")
+                out.append(f"{name} = tl.arange(0, {pw})" if c0 == 0 else
+                           f"{name} = {c0} + tl.arange(0, {pw})")
                 out.append(f"{name}m = {name} < {w}")
-            return name
+            return names
 
         def target(name: str, g: Optional[int]) -> List[str]:
             return shared if lanes and name not in self.lanes else per[g]
 
-        def tile(name: str, g: Optional[int]) -> str:
-            """The value of a streamed input or product in this block."""
+        def tile(name: str, g: Optional[int]) -> List[str]:
+            """The value of a streamed input or product in this block: one
+            variable, or one a column chunk of a wide tile."""
             lg = lane_of(name, g)
-            if name in produced:
-                return v(name, lg)
-            if (name, lg) in loaded:
-                return v(name, lg)
+            w = width(name)
+            n = 1 if w is None else len(_chunks(w))
+            chunks = [v(name, lg) if n == 1 else f"{v(name, lg)}_c{j}"
+                      for j in range(n)]
+            if name in produced or (name, lg) in loaded:
+                return chunks
             loaded.add((name, lg))
             out = target(name, g)
-            w = width(name)
             p = ptr("p", name, g)
             if w is None:
-                out.append(f"{v(name, lg)} = tl.load({p} + r, mask=rm, "
+                out.append(f"{chunks[0]} = tl.load({p} + r, mask=rm, "
                            "other=0.0)")
-            else:
-                c = cols(w, shared if lanes else out)
-                out.append(f"{v(name, lg)} = tl.load({p} + r[:, None] "
+                return chunks
+            for var_, c in zip(chunks, cols(w, shared if lanes else out)):
+                out.append(f"{var_} = tl.load({p} + r[:, None] "
                            f"* {w} + {c}[None, :], mask=rm[:, None] & "
                            f"{c}m[None, :], other=0.0)")
-            return v(name, lg)
+            return chunks
 
         def scalar(name: str, g: Optional[int]) -> str:
             lg = lane_of(name, g)
@@ -500,7 +534,8 @@ class StreamKernel:
                                    f"tl.load({ptr('p', name, g)})")
             return v(name, lg)
 
-        def operand(name: str, g: Optional[int]) -> str:
+        def operand(name: str, g: Optional[int]):
+            """A scalar's variable, or a tile's (one a column chunk)."""
             return (scalar(name, g) if self.shapes[name] == ()
                     else tile(name, g))
 
@@ -526,8 +561,12 @@ class StreamKernel:
                 elif cls == "epilogue":
                     continue
                 elif cls == "reduce":
-                    a = tile(nd.inputs[0], g)
-                    b = a if nd.op == "norm" else tile(nd.inputs[1], g)
+                    if width(nd.inputs[0]) is not None:
+                        raise NotImplementedError(
+                            f"{nd.name}: a {nd.op} over a (rows, C) tile "
+                            "in a stream pass")
+                    (a,) = tile(nd.inputs[0], g)
+                    (b,) = [a] if nd.op == "norm" else tile(nd.inputs[1], g)
                     j = red_index[nd.name]
                     slot = (f"{j} * {self.n_prog}" if not lanes else
                             f"({j} * L + l{g}) * {self.n_prog}")
@@ -543,8 +582,10 @@ class StreamKernel:
                 else:
                     ins = [operand(t, g) for t in nd.inputs]
                     scal = [self.shapes[t] == () for t in nd.inputs]
-                    body.append(f"{v(nd.name, g)} = " + ew(
-                        nd, ins, scal, tile_shape(nd.name)))
+                    for j, out in enumerate(tile(nd.name, g)):
+                        body.append(f"{out} = " + ew(
+                            nd, [x if sc else x[j] for x, sc in zip(ins, scal)],
+                            scal, chunk_shape(nd.name, j)))
                 if nd.name in self.stream_out:
                     w = width(nd.name)
                     o = ptr("o", nd.name, g)
@@ -552,10 +593,11 @@ class StreamKernel:
                         body.append(f"tl.store({o} + r, "
                                     f"{v(nd.name, g)}, mask=rm)")
                     else:
-                        c = cols(w, shared if lanes else body)
-                        body.append(f"tl.store({o} + r[:, None] * {w}"
-                                    f" + {c}[None, :], {v(nd.name, g)}, "
-                                    f"mask=rm[:, None] & {c}m[None, :])")
+                        for out, c in zip(tile(nd.name, g),
+                                          cols(w, shared if lanes else body)):
+                            body.append(f"tl.store({o} + r[:, None] * {w}"
+                                        f" + {c}[None, :], {out}, "
+                                        f"mask=rm[:, None] & {c}m[None, :])")
         main = head + shared
         for g in gs:
             if group > 1:
@@ -628,44 +670,59 @@ class StreamKernel:
                   else "out_dtype=tl.float64")
         if not matvec:
             c = self.shapes[rhs_n][1]
-            cc = cols(c)
+            ccs = cols(c)
         if lhs_n in produced:
             # the left operand is a tile of this block: one product over
-            # all of K, its padded columns zeroed
+            # each column chunk of it (all of K when K <= MAX_TILE_WIDTH),
+            # its padded columns zeroed, the chunks' products added in
+            # ascending K (the plain version's order)
             (g,) = gs
-            out, pr = v(nd.name, g), ptr("p", rhs_n, g)
-            kc = cols(k)
-            a = f"tl.where({kc}m[None, :], {tile(lhs_n, g)}, 0.0)"
-            if matvec:
-                lines.append(f"{out} = tl.sum({a} * tl.load({pr} + {kc}, "
-                             f"mask={kc}m, other=0.0)[None, :], axis=1)")
-            else:
-                b = (f"tl.load({pr} + {kc}[:, None] * {c} + {cc}[None, :], "
-                     f"mask={kc}m[:, None] & {cc}m[None, :], other=0.0)")
-                lines.append(f"{out} = tl.dot({a}, {b}, {dot_kw})")
+            outs = [v(nd.name, g)] if matvec else tile(nd.name, g)
+            pr = ptr("p", rhs_n, g)
+            kcs = cols(k)
+            lhs = tile(lhs_n, g)
+            for oi, out in enumerate(outs):
+                for kc, lt in zip(kcs, lhs):
+                    a = f"tl.where({kc}m[None, :], {lt}, 0.0)"
+                    if matvec:
+                        term = (f"tl.sum({a} * tl.load({pr} + {kc}, "
+                                f"mask={kc}m, other=0.0)[None, :], axis=1)")
+                    else:
+                        cc = ccs[oi]
+                        b = (f"tl.load({pr} + {kc}[:, None] * {c} + "
+                             f"{cc}[None, :], mask={kc}m[:, None] & "
+                             f"{cc}m[None, :], other=0.0)")
+                        term = f"tl.dot({a}, {b}, {dot_kw})"
+                    lines.append(f"{out} = {term}" if kc == kcs[0] else
+                                 f"{out} = {out} + {term}")
             return lines
         # the left operand streams from memory: loop over K blocks
         bk = MATRIX_BLOCK_K if matvec else 16
         pl = ptr("p", lhs_n, gs[0])
-        acc_shape = (f"({self.block_r},)" if matvec
-                     else f"({self.block_r}, {_pw(c)})")
-        lines += [f"{v(nd.name, g)} = tl.zeros({acc_shape}, dtype={tdt})"
-                  for g in gs]
+        # the accumulators of each lane: one, or one a column chunk
+        accs = {g: [v(nd.name, g)] if matvec else tile(nd.name, g)
+                for g in gs}
+        shapes = ([f"({self.block_r},)"] if matvec else
+                  [f"({self.block_r}, {pw})" for _c0, pw in _chunks(c)])
+        lines += [f"{acc} = tl.zeros({shape}, dtype={tdt})"
+                  for g in gs for acc, shape in zip(accs[g], shapes)]
         lines += [f"for k0 in range(0, {k}, {bk}):",
                   f"    kk = k0 + tl.arange(0, {bk})",
                   f"    km = kk < {k}",
                   f"    a = tl.load({pl} + r[:, None] * {k} + kk[None, :], "
                   "mask=rm[:, None] & km[None, :], other=0.0)"]
         for g in gs:
-            out, pr = v(nd.name, g), ptr("p", rhs_n, g)
+            pr = ptr("p", rhs_n, g)
             ind = "    "
             if guard:
                 lines.append(f"    if l{g} < L:")
                 ind = "        "
             if matvec:
+                (out,) = accs[g]
                 lines += [f"{ind}b = tl.load({pr} + kk, mask=km, other=0.0)",
                           f"{ind}{out} += tl.sum(a * b[None, :], axis=1)"]
-            else:
+                continue
+            for out, cc in zip(accs[g], ccs):
                 lines.append(f"{ind}b = tl.load({pr} + kk[:, None] * {c} + "
                              f"{cc}[None, :], mask=km[:, None] & "
                              f"{cc}m[None, :], other=0.0)")

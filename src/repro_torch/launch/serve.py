@@ -9,6 +9,12 @@ cache-donating step, without its mesh (that comes with the device mesh):
 on a CUDA device it captures the donating decode step
 (``models.decode_step(..., donate=True)``) into one CUDA graph and replays
 it once per step.  ``ServeBundle.generate`` decodes through it.
+
+Every entry point takes the reference's ``unroll=`` and the bundle keeps
+it (``ServeBundle.unroll``).  In the JAX package it swaps the layer
+period's ``lax.scan`` for a Python loop; the port always walks the layers
+in a Python loop (and a decode step is one captured graph either way), so
+``unroll`` changes no launch and no output.
 """
 from __future__ import annotations
 
@@ -33,7 +39,9 @@ _DISPATCHES = obs.registry().counter(
     "replays (on the CPU: eager steps), per step object (scope label)")
 
 
-def make_prefill_fn(cfg: ArchConfig, plan: CelloPlan):
+def make_prefill_fn(cfg: ArchConfig, plan: CelloPlan, *,
+                    unroll: bool = False):
+    # ``unroll``: the layers already run in a Python loop (module docstring)
     def prefill(params, tokens):
         logits, _ = forward(params, cfg, plan, tokens, mode="prefill")
         return logits
@@ -41,7 +49,7 @@ def make_prefill_fn(cfg: ArchConfig, plan: CelloPlan):
 
 
 def make_decode_fn(cfg: ArchConfig, plan: CelloPlan, *,
-                   donate: bool = False):
+                   donate: bool = False, unroll: bool = False):
     def serve_step(params, cache, tokens, pos):
         return decode_step(params, cache, cfg, plan, tokens, pos,
                            donate=donate)
@@ -84,13 +92,13 @@ class DecodeStep:
     """
 
     def __init__(self, cfg: ArchConfig, plan: CelloPlan, batch: int,
-                 seq_len: int):
+                 seq_len: int, *, unroll: bool = False):
         self.cfg, self.plan = cfg, plan
         self.batch, self.seq_len = batch, seq_len
         # the cache this step serves, as init_cache shapes it
         self._shapes = [(t.shape, t.dtype) for t in _leaves(
             init_cache(cfg, batch, seq_len, device="meta"))]
-        self._step = make_decode_fn(cfg, plan, donate=True)
+        self._step = make_decode_fn(cfg, plan, donate=True, unroll=unroll)
         self._scope = obs.next_scope("decode")
         self._lock = threading.Lock()
         self._key: Optional[Tuple] = None
@@ -171,11 +179,11 @@ class DecodeStep:
 
 
 def jit_decode_step(cfg: ArchConfig, plan: CelloPlan, batch: int,
-                    seq_len: int) -> DecodeStep:
+                    seq_len: int, *, unroll: bool = False) -> DecodeStep:
     """The decode step ``(params, cache, tokens, pos) -> (logits, cache)``
     for ``batch`` sequences and a cache of ``seq_len`` positions: the
     donating step, one CUDA-graph replay a step (:class:`DecodeStep`)."""
-    return DecodeStep(cfg, plan, batch, seq_len)
+    return DecodeStep(cfg, plan, batch, seq_len, unroll=unroll)
 
 
 def greedy_generate(params, cfg: ArchConfig, plan: CelloPlan,
@@ -221,9 +229,11 @@ class ServeBundle:
     ``repro_torch.api.CompiledPlan.serve()``.  It keeps one decode step
     (``jit_decode``) and one cache per (batch, cache_len), and ``generate``
     decodes through them, resetting the cache first: a second ``generate``
-    of the same shape on the same params captures nothing."""
+    of the same shape on the same params captures nothing.  ``unroll`` is
+    passed to every function the bundle makes (see the module docstring)."""
     cfg: ArchConfig
     plan: CelloPlan
+    unroll: bool = False
     _steps: Dict[Any, DecodeStep] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
     _caches: Dict[Any, Any] = dataclasses.field(
@@ -233,11 +243,11 @@ class ServeBundle:
 
     @functools.cached_property
     def prefill_fn(self):
-        return make_prefill_fn(self.cfg, self.plan)
+        return make_prefill_fn(self.cfg, self.plan, unroll=self.unroll)
 
     @functools.cached_property
     def decode_fn(self):
-        return make_decode_fn(self.cfg, self.plan)
+        return make_decode_fn(self.cfg, self.plan, unroll=self.unroll)
 
     def jit_decode(self, batch: int, seq_len: int) -> DecodeStep:
         """The bundle's decode step for (batch, seq_len), made once."""
@@ -245,7 +255,7 @@ class ServeBundle:
             step = self._steps.get((batch, seq_len))
             if step is None:
                 step = self._steps[batch, seq_len] = jit_decode_step(
-                    self.cfg, self.plan, batch, seq_len)
+                    self.cfg, self.plan, batch, seq_len, unroll=self.unroll)
             return step
 
     def generate(self, params, prompt: torch.Tensor, n_new: int,
@@ -265,8 +275,9 @@ class ServeBundle:
                                step_fn=step, cache=cache)
 
 
-def make_serving(cfg: ArchConfig, plan: CelloPlan) -> ServeBundle:
-    return ServeBundle(cfg=cfg, plan=plan)
+def make_serving(cfg: ArchConfig, plan: CelloPlan, *,
+                 unroll: bool = False) -> ServeBundle:
+    return ServeBundle(cfg=cfg, plan=plan, unroll=unroll)
 
 
 @dataclasses.dataclass

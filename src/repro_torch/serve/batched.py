@@ -18,7 +18,7 @@ program (:meth:`repro_torch.exec.base.Executor.compile_batched`):
   ``b``, ``x0``, ... stacked on a new leading (lane) axis.
 
 On the ``cuda`` backend a ``run_batch()`` is one CUDA-graph replay over
-B1, B2 and B4 in their lane forms, whatever the batch size: the
+B1-B4 in their lane forms, whatever the batch size: the
 serving-layer image of the one-replay-per-``run()`` guarantee, and
 ``stats`` mirrors its counters: ``dispatches`` counts ``run_batch``
 calls, ``traces`` the distinct (lanes, dtype, leaf shapes) signatures
@@ -28,10 +28,11 @@ five signatures a dtype up to 16 lanes.  The JAX package's ``donate``
 has no counterpart: the graph's buffers belong to the program.
 
 Numerics: a lane runs the single request's arithmetic (the same row
-blocks and reduction trees in B1, B2's entry order, B4's sweep), so a
-lane equals :meth:`run_one` of its request bitwise on the CPU; on the
-card that holds wherever the compiler keeps a lane's reductions in the
-single pass's order (``chip_smoke.py`` records which held).
+blocks and reduction trees in B1, B2's and B3's entry order, B4's
+sweep), so a lane equals :meth:`run_one` of its request bitwise on the
+CPU; on the card that holds wherever the compiler keeps a lane's
+reductions in the single pass's order (``chip_smoke.py`` records which
+held).
 """
 from __future__ import annotations
 
@@ -64,9 +65,7 @@ class BatchedPlan:
     operator leaves at their traced shape (shared across the batch), input
     leaves with one extra leading batch axis.  :meth:`run_many` stacks
     per-request feed dicts for you.  ``shared`` binds the operator leaves
-    (see the module docstring).  Raises :class:`NotImplementedError`
-    on the ``cuda`` backends for a plan whose spmv op holds an overbooked
-    pin (B3 has no lane form yet).
+    (see the module docstring).
     """
 
     def __init__(self, plan, *, backend: Optional[str] = None,

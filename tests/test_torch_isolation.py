@@ -218,3 +218,58 @@ def test_tf32_is_off():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_overbooked_batches_and_wide_tiles_run_with_jax_absent():
+    """``batched()`` on an overbooked plan (B3's lane form), a B1 pass with
+    a tile wider than 256 columns and ``serve(unroll=True)`` import and run
+    with jax absent."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+from repro_torch import frontends
+from repro_torch.api import CodesignConfig, Session
+from repro_torch.configs import get_config
+from repro_torch.kernels.stream import StreamKernel
+from repro_torch.models import init_params
+plan = (Session(device="cpu").trace(workload="cg_sparse", n=4096, iters=2,
+                                    pattern="banded", bandwidth=16)
+        .analyze().codesign(CodesignConfig(capacity_bytes=1317278,
+                                           overbook=0.25)).lower())
+prog = plan.trace.program
+ops = [nd.name for nd in prog.leaves() if nd.op == "operator"]
+shared = frontends.make_feeds(prog, seed=0, only=ops)
+reqs = [frontends.make_feeds(prog, seed=s, only=[
+    nd.name for nd in prog.leaves() if nd.op != "operator"]) for s in range(3)]
+for backend in ("cuda", "cuda-perunit"):
+    outs = plan.batched(backend=backend).run_many(reqs, shared)
+    for r, o in zip(reqs, outs):
+        one = plan.run({**shared, **r})
+        assert all(torch.equal(o[k], one[k]) for k in one)
+p = frontends.Program("wide")
+X = p.input("X", (64, 300))
+p.output(p.add(p.matmul(p.operator("A", (64, 64)), X, name="AX"), X,
+               name="Y"))
+wide = Session.from_graph(p, device="cpu").codesign().lower()
+assert bool(torch.isfinite(wide.run()["Y"]).all())
+nodes = [p.nodes["AX"], p.nodes["Y"]]
+shapes = {n: p.nodes[n].shape for nd in nodes for n in (*nd.inputs, nd.name)}
+assert "c300_1" in StreamKernel(nodes, shapes, {"Y"}, 64).source(torch.float32)
+cfg = get_config("granite-3-8b").reduced()
+bundle = (Session(cfg, device="cpu").trace("prefill", batch=1, seq=32)
+          .analyze().codesign().lower().serve(unroll=True))
+assert bundle.unroll
+params = init_params(cfg, seed=0, device="cpu")
+toks = bundle.generate(params, torch.zeros((1, 4), dtype=torch.long), 3)
+assert toks.shape == (1, 7)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

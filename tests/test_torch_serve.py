@@ -474,10 +474,19 @@ def test_overbooked_plan_has_no_lane_form_yet(backend):
     assert any(k is not None
                for u in plan.exec_plan.units if u.kind == "stream"
                for k in spmv_prefixes(prog, u.sp).values())
-    with pytest.raises(NotImplementedError, match="B3's lane form"):
-        plan.batched(backend=backend)
-    # the reference serves it
-    assert plan.batched(backend="reference").backend == "reference"
+    # the gap this test once asserted is closed: the plan batches on B3's
+    # lane form, and each lane equals the reference's and its own run()
+    bp = plan.batched(backend=backend)
+    assert bp.backend == backend
+    shared, per_req = _split(prog, range(3), np.float32)
+    got = bp.run_many(per_req, shared)
+    want = plan.batched(backend="reference").run_many(per_req, shared)
+    for g, w, r in zip(got, want, per_req):
+        one = plan.run({**shared, **r})
+        for k in w:
+            np.testing.assert_allclose(_np(g[k]), _np(w[k]),
+                                       **TOL[np.float32], err_msg=k)
+            assert torch.equal(g[k], one[k]), k
 
 
 # ---------------------------------------------------------------------------
