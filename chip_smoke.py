@@ -127,7 +127,8 @@ Phases, each of which raises (exit code 1) on failure:
    B4's lane forms at 16 lanes on phase 3's operands (B3's: the
    overbooked operand with its plan's prefix) against their plain
    versions and, lane by lane, bitwise against the single-request
-   kernels, timed beside their bytes bounds and a library yardstick
+   kernels (B1's and B2's also at 1, 5 and 17 lanes, ``LANE_COUNTS``),
+   timed beside their bytes bounds and a library yardstick
    (``A @ X`` plus column dots, ``torch.sparse.mm``, batched ``conv2d``);
    last, a write to the cg bucket's operator shows in the next replay,
    bound to the router's plan and copied by an unbound one;
@@ -424,23 +425,59 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 NO_SPILL = ("flash_bf16_kernel", "mlp_tc_kernel", "mlp_rows_kernel")
 
 
-def tensor_core_spills(log_text):
-    """{entry: spill store + load bytes} from ``-Xptxas -v``, for every
-    instantiation of the ``NO_SPILL`` kernels."""
+def ptxas_usage(log_text, names):
+    """{entry: {"registers": n, "spill_bytes": stores + loads}} from
+    ``-Xptxas -v``, for every instantiation of the kernels ``names``."""
     import re
     out, entry = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1) if any(k in m.group(1)
-                                      for k in NO_SPILL) else None
+                                      for k in names) else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry:
-            out[entry] = int(m.group(1)) + int(m.group(2))
+            out.setdefault(entry, {})["spill_bytes"] = (int(m.group(1))
+                                                        + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
             entry = None
     return out
+
+
+#: the SASS opcodes counted in a Triton kernel: cross-thread shuffles,
+#: barriers, shared-memory and spill (local) traffic beside the loads and
+#: the arithmetic
+SASS_OPS = ("SHFL", "BAR", "LDS", "STS", "LDL", "STL", "LDG", "STG",
+            "FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA")
+
+
+def triton_resources(jit_fn):
+    """Registers, spilled registers and shared bytes of a Triton kernel
+    launched at least once, and its SASS's instruction count by opcode
+    (``SASS_OPS``); ``{"error": ...}`` when this Triton does not say."""
+    import re
+    try:
+        for store in jit_fn.device_caches.values():
+            for part in store:
+                for ck in part.values() if isinstance(part, dict) else ():
+                    if not hasattr(ck, "asm"):
+                        continue
+                    ck._init_handles()
+                    ops = re.findall(r"^(?:[^\t\n]*\t|\s+/\*[0-9a-f]+\*/\s+)"
+                                     r"(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                                     ck.asm["sass"], re.M)
+                    return dict(n_regs=ck.n_regs, n_spills=ck.n_spills,
+                                shared=ck.metadata.shared,
+                                num_warps=ck.metadata.num_warps,
+                                sass=len(ops),
+                                **{op: ops.count(op) for op in SASS_OPS})
+    except Exception as e:               # a Triton that keeps them elsewhere
+        return {"error": f"{type(e).__name__}: {e}"}
+    return {"error": "no compiled kernel in the JIT function's caches"}
 
 
 def _cu(name, *args):
@@ -1000,7 +1037,7 @@ def check_off_path(dtypes):
             e = max_err(got["ffn_out"], want["ffn_out"])
             scale = float(want["ffn_out"].double().abs().max())
             assert e <= KERNEL_TOL[dt] * scale, ("ffn", f, dt, e, scale)
-        wide_errs = {}
+        wide_errs, wide_ms = {}, {}
         for form, k in forms.items() if dt == "float32" else ():
             env = {n: feeds[n] for n in k.in_names}
             if form == "lanes":
@@ -1013,6 +1050,9 @@ def check_off_path(dtypes):
                 assert e <= KERNEL_TOL[dt] * scale, ("wide B1", form, dt, n,
                                                      e, scale)
                 wide_errs[form] = max(wide_errs.get(form, 0.0), e / scale)
+            # the lane form streams nothing without lanes (x carries
+            # them), so it runs one lane a program
+            wide_ms[form] = graph_ms(lambda: k(env))
         feeds = frontends.feeds_from_numpy(frontends.make_feeds(
             relax, seed=0, dtype=getattr(np, dt)), "cuda")
         got = block(feeds)
@@ -1024,8 +1064,9 @@ def check_off_path(dtypes):
         log(f"  off the main path {dt}: ffn ab,bc->ac passes (f 128 and "
             f"384) within {KERNEL_TOL[dt]} of the reference; B1's forms at "
             f"tiles and K of 384 columns against the plain version, rel err "
-            f"{wide_errs or 'not run'}; block unit with elementwise ops "
-            "between sweeps bitwise equal to the reference")
+            f"{wide_errs or 'not run'}, ms {wide_ms or 'not run'} (lanes: 2 "
+            f"lanes, {forms['lanes'].group} a program); block unit with "
+            "elementwise ops between sweeps bitwise equal to the reference")
 
 
 def _rand(rng, shape, dtype, scale=1.0):
@@ -2565,6 +2606,10 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
 
 #: lanes of the lane forms' checks against their plain versions
 LANES = 16
+#: lane counts at which phase 7 holds B1's and B2's lane forms bitwise,
+#: lane by lane, against the single-request kernels: one lane, a part of a
+#: group, a whole group and a ragged second group
+LANE_COUNTS = (1, 5, 16, 17)
 #: the served buckets, phase 4's shapes: (workload, params, dtype,
 #: max_batch_size of their server).  fp32 cg runs 32 iterations: its
 #: operator is well conditioned, so rs leaves fp32's range before
@@ -2934,10 +2979,12 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
     banded operand, ``ob_csr``, with its plan's resident prefix), each
     against its plain version, each lane bitwise against the
     single-request kernel on it alone, timed beside its bytes bound and a
-    library yardstick."""
+    library yardstick.  B1 and B2 are also held so at every count of
+    ``LANE_COUNTS`` (17: a ragged second group)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.build import build_log
     from repro_torch.kernels.spmv import spmv, spmv_lanes, spmv_lanes_plain
     from repro_torch.kernels.stencil import (stencil2d, stencil2d_lanes,
                                              stencil2d_plain)
@@ -2967,27 +3014,32 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
             kl = LaneStreamKernel(k.nodes, k.shapes,
                                   set(k.stream_out + k.scalar_out), k.rows,
                                   {n for n in k.in_names if n != "A"})
-            env = {n: A if n == "A" else torch.from_numpy(
-                np.asarray(rng.standard_normal((LANES, *k.shapes[n]))
-                           if k.shapes[n] else rng.uniform(0.5, 1.5, LANES))
-            ).to("cuda", tdt) for n in k.in_names}
-            got = kl(env)
-            want = kl.plain(env)
-            torch.cuda.synchronize()
             err = rel = 0.0
-            for n in want:
-                scale = max(float(want[n].double().abs().max()), 1e-30)
-                e = max_err(got[n], want[n])
-                assert e <= KERNEL_TOL[dt] * scale, (label, dt, n, e, scale)
-                err, rel = max(err, e), max(rel, e / scale)
-            for i in range(LANES):
-                one = k({n: env[n] if n == "A" else env[n][i]
-                         for n in k.in_names})
-                for n in one:
-                    # a lane keeps the single pass's row blocks and trees
-                    assert torch.equal(got[n][i], one[n]), (
-                        "B1 lane vs B1", label, dt, i, n,
-                        max_err(got[n][i], one[n]))
+            for n_lanes in LANE_COUNTS:
+                env_l = {n: A if n == "A" else torch.from_numpy(np.asarray(
+                    rng.standard_normal((n_lanes, *k.shapes[n]))
+                    if k.shapes[n] else rng.uniform(0.5, 1.5, n_lanes))
+                ).to("cuda", tdt) for n in k.in_names}
+                got_l = kl(env_l)
+                want = kl.plain(env_l)
+                torch.cuda.synchronize()
+                for n in want:
+                    scale = max(float(want[n].double().abs().max()), 1e-30)
+                    e = max_err(got_l[n], want[n])
+                    assert e <= KERNEL_TOL[dt] * scale, (label, dt, n_lanes,
+                                                         n, e, scale)
+                    err, rel = max(err, e), max(rel, e / scale)
+                for i in range(n_lanes):
+                    one = k({n: env_l[n] if n == "A" else env_l[n][i]
+                             for n in k.in_names})
+                    for n in one:
+                        # a lane adds the single pass's products in its
+                        # order and folds them through its tree
+                        assert torch.equal(got_l[n][i], one[n]), (
+                            "B1 lane vs B1", label, dt, n_lanes, i, n,
+                            max_err(got_l[n][i], one[n]))
+                if n_lanes == LANES:
+                    env, got = env_l, got_l
             nbytes = sum(env[n].numel() * env[n].element_size()
                          for n in k.in_names)
             nbytes += sum(v.numel() * v.element_size() for v in got.values())
@@ -3002,11 +3054,18 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
                 def lib():
                     return (X * (A @ X)).sum(0)
             times = measure(lambda: kl(env), lambda: kl.plain(env), lib)
+            # what bounds the kernel beside its time: registers, spills,
+            # shared memory and the SASS mix, of the lane form and of the
+            # single-request pass it is bitwise equal to
+            res = {form: triton_resources(kern._compiled(tdt)[0])
+                   for form, kern in (("lanes", kl), ("single", k))}
             record(results, f"B1 lanes {label:7s}", kernel="stream_lanes",
                    case=f"cg n=4096 {label} pass, {LANES} lanes", dtype=dt,
                    err=err, rel_err=rel, tol=KERNEL_TOL[dt], nbytes=nbytes,
                    flops=flops, times=times, lanes=LANES,
-                   lanes_per_program=kl.group, lanes_vs_single="bitwise")
+                   lanes_per_program=kl.group, lanes_vs_single="bitwise",
+                   bitwise_lane_counts=list(LANE_COUNTS), resources=res)
+            log(f"    {label} {dt} compiled: {json.dumps(res)}")
 
     # B2: the 5-point Laplacian at n = 2^20, 16 right-hand sides
     for dt in dtypes:
@@ -3015,16 +3074,25 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
                                                         "data"))
         n = indptr.numel() - 1
         tdt = data.dtype
-        X = torch.from_numpy(rng.standard_normal((LANES, n))).to("cuda", tdt)
-        got = spmv_lanes(indptr, indices, data, X, n)
-        want = spmv_lanes_plain(indptr, indices, data, X, n)
-        torch.cuda.synchronize()
-        for i in range(LANES):
-            assert torch.equal(got[i], spmv(indptr, indices, data, X[i], n)), (
-                "B2 lane vs B2", dt, i)
-        err = max_err(got, want)
-        scale = float(want.double().abs().max())
-        assert err <= KERNEL_TOL[dt] * scale, ("spmv_lanes", dt, err, scale)
+        err = rel = 0.0
+        for n_lanes in LANE_COUNTS:
+            X = torch.from_numpy(rng.standard_normal((n_lanes, n))).to(
+                "cuda", tdt)
+            got = spmv_lanes(indptr, indices, data, X, n)
+            want = spmv_lanes_plain(indptr, indices, data, X, n)
+            torch.cuda.synchronize()
+            for i in range(n_lanes):
+                assert torch.equal(got[i], spmv(indptr, indices, data, X[i],
+                                                n)), (
+                    "B2 lane vs B2", dt, n_lanes, i)
+            e = max_err(got, want)
+            scale = float(want.double().abs().max())
+            assert e <= KERNEL_TOL[dt] * scale, ("spmv_lanes", dt, n_lanes,
+                                                 e, scale)
+            err, rel = max(err, e), max(rel, e / scale)
+            if n_lanes == LANES:
+                X16 = X
+        X = X16
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
@@ -3035,11 +3103,16 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
                         lambda: torch.sparse.mm(A, XT))
         record(results, "B2 lanes       ", kernel="spmv_lanes",
                case=f"laplacian5 n={n} nnz={nnz}, {LANES} lanes", dtype=dt,
-               err=err, rel_err=err / scale, tol=KERNEL_TOL[dt],
+               err=err, rel_err=rel, tol=KERNEL_TOL[dt],
                nbytes=(4 * (n + 1) + (4 + data.element_size()) * nnz
                        + 2 * LANES * X.element_size() * n),
                flops=2 * nnz * LANES, times=times, lanes=LANES,
-               lanes_vs_single="bitwise")
+               lanes_vs_single="bitwise",
+               bitwise_lane_counts=list(LANE_COUNTS), resources=next(
+                   (u for e, u in ptxas_usage(build_log(), (
+                       "csr_spmv_lanes_kernel",)).items()
+                    if f"kernelI{'f' if dt == 'float32' else 'd'}E" in e),
+                   None))
 
     check_spmv_sliced_lanes(ob_csr, ob_prefix, results, dtypes, rng)
 
@@ -3238,7 +3311,8 @@ def main(argv=None) -> int:
         if ("registers" in line or "Compiling entry" in line
                 or "spill" in line):
             log(f"  ptxas: {line.strip()}")
-    spills = tensor_core_spills(build.build_log())
+    spills = {e: u["spill_bytes"] for e, u in ptxas_usage(
+        build.build_log(), NO_SPILL).items()}
     log(f"  spill bytes (stores + loads) of the tensor-core and rows "
         f"kernels: {spills}")
     assert spills and not any(spills.values()), ("B5/B6 spill", spills)

@@ -78,16 +78,26 @@
 //
 // B2's lane form (`csr_spmv_lanes_kernel`) serves L requests against one
 // operand at once: Y = A [x_0 ... x_{L-1}], lane-major (x and y are (L, n)).
-// On the TPU a vmap gave the row-tile kernel a batch axis; here a thread still
-// owns one row, and reads each of its entries (col, val) once for a group of
-// kLaneGroup lanes (a second grid axis walks the groups): the operand is read
-// once per 16 requests, x[l][col] is gathered per lane (a warp's 32 rows
-// gather neighbouring columns of one lane, as B2's do) and y[l][row] stored
-// per lane.  Each lane's sum runs from zero in ascending entry order with
-// B2's rounded products and adds, so every lane is bitwise equal to B2 on
-// that lane alone.  Lanes past L are skipped by a uniform branch.
-// Bound: bytes, the operand once per group of 16 lanes plus, per lane, x
-// (gathered through L2) and y.
+// On the TPU a vmap gave the row-tile kernel a batch axis.  Here a block is
+// kLaneRows rows by a group of kLaneGroup (16) lanes: threadIdx.x is the row,
+// threadIdx.y a run of kLanesPerThread (4) lanes of the group, and a second
+// grid axis walks the groups.  A thread reads each entry (col, val) of its
+// row once for its 4 lanes, and the 4 lane-threads of a row share the entry
+// through L1; a warp's 32 rows gather neighbouring columns of one lane (as
+// B2's do), four entries' gathers in flight before their adds.  Each lane's
+// sum runs from zero in ascending entry order with B2's rounded products and
+// adds, so every lane is bitwise equal to B2 on that lane alone.  Lanes past
+// L: a lane-thread wholly past returns, a partial run skips by a branch.
+// Bound: bytes, the operand once plus, per lane, x (gathered through L2) and
+// y: at the 5-point Laplacian, n = 2^20, 16 lanes, 180 MB in fp32 (0.054 ms
+// at 3.35 TB/s) and 336 MB in fp64 (0.100 ms).  What the card said (H100
+// 80GB HBM3, 700 W; chip_smoke.py, PERF.md §6): one thread a row carrying
+// all 16 lanes (the earlier form) ran at 0.185 ms fp32, 29% of the bound,
+// its 16 gathers an entry from 16 vectors 4 MB apart; 4 lanes a thread runs
+// at 0.089 ms fp32 (60% of the bound) and 0.148 ms fp64 (68%), and on the
+// overbooked path's banded operand at 0.060 / 0.081 ms.  One lane a thread
+// (the row's entries re-read 16 times through L1), 8 lanes a thread and
+// B3's staged lane form at prefix 0 (16 lanes a thread) were each slower.
 //
 // B3's lane form (`spmv_tiled_lanes_kernel`) is the counterpart of the TPU
 // kernel :616 under jax.vmap (CompiledPlan.batched() on an overbooked plan):
@@ -147,33 +157,55 @@ int launch_b2(const void* indptr, const void* indices, const void* data,
 // B2's lane form
 // ---------------------------------------------------------------------------
 
-constexpr int kLaneGroup = 16;    // lanes a thread carries (LANE_GROUP)
+constexpr int kLaneGroup = 16;    // lanes a block carries (LANE_GROUP)
+// lanes one thread of B2's lane form carries (threadIdx.y picks the run in
+// the block's group), and rows a block (threadIdx.x): 64 x 4 threads
+constexpr int kLanesPerThread = 4;
+constexpr int kLaneThreads = kLaneGroup / kLanesPerThread;
+constexpr int kLaneRows = 64;
 
 template <typename T>
-__global__ void csr_spmv_lanes_kernel(const int* __restrict__ indptr,
-                                      const int* __restrict__ indices,
-                                      const T* __restrict__ data,
-                                      const T* __restrict__ x,
-                                      T* __restrict__ y, int rows, int cols, int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const int l0 = blockIdx.y * kLaneGroup;
-  const int nl = min(kLaneGroup, lanes - l0);
+__global__ void __launch_bounds__(kLaneRows * kLaneThreads)
+    csr_spmv_lanes_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                          const T* __restrict__ data, const T* __restrict__ x,
+                          T* __restrict__ y, int rows, int cols, int lanes) {
+  const int i = blockIdx.x * kLaneRows + threadIdx.x;
+  const int l0 = blockIdx.y * kLaneGroup + threadIdx.y * kLanesPerThread;
+  if (i >= rows || l0 >= lanes) return;
+  const int nl = min(kLanesPerThread, lanes - l0);
   const T* __restrict__ xl = x + static_cast<size_t>(l0) * cols;
-  T acc[kLaneGroup];
+  T acc[kLanesPerThread];
 #pragma unroll
-  for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+  for (int g = 0; g < kLanesPerThread; ++g) acc[g] = T(0);
   const int end = indptr[i + 1];
-  for (int e = indptr[i]; e < end; ++e) {
+  int e = indptr[i];
+  for (; e + 4 <= end; e += 4) {          // four entries' gathers in flight
+    int c[4];
+    T v[4], xs[4][kLanesPerThread];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      c[q] = indices[e + q];
+      v[q] = data[e + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int g = 0; g < kLanesPerThread; ++g)
+        xs[q][g] = g < nl ? xl[static_cast<size_t>(g) * cols + c[q]] : T(0);
+#pragma unroll
+    for (int g = 0; g < kLanesPerThread; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[g] = add_rn(acc[g], mul_rn(v[q], xs[q][g]));
+  }
+  for (; e < end; ++e) {
     const int c = indices[e];
     const T v = data[e];
 #pragma unroll
-    for (int g = 0; g < kLaneGroup; ++g) {
+    for (int g = 0; g < kLanesPerThread; ++g)
       if (g < nl) acc[g] = add_rn(acc[g], mul_rn(v, xl[static_cast<size_t>(g) * cols + c]));
-    }
   }
 #pragma unroll
-  for (int g = 0; g < kLaneGroup; ++g) {
+  for (int g = 0; g < kLanesPerThread; ++g) {
     if (g < nl) y[static_cast<size_t>(l0 + g) * rows + i] = acc[g];
   }
 }
@@ -181,10 +213,10 @@ __global__ void csr_spmv_lanes_kernel(const int* __restrict__ indptr,
 template <typename T>
 int launch_b2_lanes(const void* indptr, const void* indices, const void* data, const void* x,
                     void* y, int rows, int cols, int lanes, void* stream) {
-  constexpr int kThreads = 256;
   if (rows > 0 && lanes > 0) {
-    const dim3 grid((rows + kThreads - 1) / kThreads, (lanes + kLaneGroup - 1) / kLaneGroup);
-    csr_spmv_lanes_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((rows + kLaneRows - 1) / kLaneRows, (lanes + kLaneGroup - 1) / kLaneGroup);
+    csr_spmv_lanes_kernel<T><<<grid, dim3(kLaneRows, kLaneThreads), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows, cols,
         lanes);

@@ -8,8 +8,9 @@ design and its bound.  The CUDA backend launches it on its own just before
 the B1 pass that holds the spmv op, and the pass streams its output.
 
 B2's lane form (:func:`spmv_lanes`) serves a batch of requests against
-one operand: ``x`` and ``y`` carry a leading lane axis, each entry of the
-operand is read once for 16 lanes, and each lane equals B2 on it alone.
+one operand: ``x`` and ``y`` carry a leading lane axis, a thread reads
+each entry of its row once for 4 lanes (the row's 4 such threads share it
+through L1), and each lane equals B2 on it alone.
 B3's lane form (:func:`spmv_sliced_lanes`, ``csrc/spmv.cu::
 spmv_tiled_lanes_kernel``) does the same for an operand with an
 overbooked pin: each staged window of B3 serves 16 lanes, and each lane
@@ -163,8 +164,8 @@ def spmv_lanes(indptr: torch.Tensor, indices: torch.Tensor,
                data: torch.Tensor, x: torch.Tensor, rows: int
                ) -> torch.Tensor:
     """B2's lane form: ``y[l] = A @ x[l]`` for L right-hand sides at once,
-    ``x`` lane-major ``(L, n)``, ``y`` ``(L, rows)``; the operand is read
-    once for every group of 16 lanes, and each lane equals :func:`spmv` on
+    ``x`` lane-major ``(L, n)``, ``y`` ``(L, rows)``; a thread reads each
+    entry of its row once for 4 lanes, and each lane equals :func:`spmv` on
     that lane alone, bitwise (see ``csrc/spmv.cu``)."""
     if x.dim() != 2:
         raise ValueError(f"spmv_lanes takes a lane-major (L, n) x, got "

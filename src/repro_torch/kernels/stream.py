@@ -53,21 +53,36 @@ source is generated here, written under the build directory keyed by a hash
 of its text, and imported; passes with the same structure share one
 compiled kernel.  ``BLOCK_R`` is the kernel's own choice, not the plan's
 ``tile_rows`` (which the co-designer sized for a 128 MiB VMEM: 1024 rows at
-n=4096 would leave 128 of the card's 132 SMs idle).  Matvec passes take 16
-rows per program and loop over K in blocks of 128 columns.  A ``(rows, C)``
-tile wider than ``MAX_TILE_WIDTH`` (256) columns is held and walked as
-chunks of at most 256 columns: elementwise ops, loads and stores act chunk
-by chunk (a column's result depends on its own column alone), an
-``ab,bc->ac`` product keeps one accumulator a chunk of C, and a product
-whose left operand is a tile of the block with K > 256 adds its K chunks'
-products in ascending order, as the plain version does.  A tile of at most
-256 columns generates the text it always did.
+n=4096 would leave 128 of the card's 132 SMs idle).  Matrix passes take 16
+rows per program.  A ``(rows, C)`` tile wider than ``MAX_TILE_WIDTH`` (256)
+columns is held and walked as chunks of at most 256 columns: elementwise
+ops, loads and stores act chunk by chunk (a column's result depends on its
+own column alone), an ``ab,bc->ac`` product keeps one accumulator a chunk
+of C, and a product whose left operand is a tile of the block with K > 256
+adds its K chunks' products in ascending order, as the plain version does.
+
+**The streamed matvec** (``ab,b->a`` whose left operand streams from
+memory: cg's ``A p``) adds, for every output row, its products in
+``MATVEC_SLICES`` (32) interleaved slices of K: slice s takes the columns
+k ≡ s (mod 32) in ascending k, each product rounded before its add, and
+the 32 slice sums then fold through one fixed pairwise tree (:func:`_fold`).
+A program keeps a rows × 32 accumulator, so every add is elementwise and
+no K step reduces across threads, and it loads each K step one step ahead
+of its adds.  A matrix pass's reductions fold their per-program partial
+over the rows through the same kind of tree.  Both orders are fixed by the
+text, not by Triton's layouts, which is what lets B1's lane form run a
+group of lanes as one register tile and still equal the single request
+bitwise, lane by lane (:class:`LaneStreamKernel`).
 
 Bound on the H100: bytes.  A cg matvec pass at n=4096 in fp32 reads the
 64 MiB operator once (about 20 us at 3.35 TB/s); the vector passes move a
-few n-vectors.  At the sizes of the main path most passes are far below a
-microsecond of traffic, so a ``run()`` of ~193 units is bound by launches,
-not by the kernels (a CUDA graph over the run is the next step).
+few n-vectors, far below a microsecond of traffic at the main path's
+sizes.  What the card said (H100 80GB HBM3, 700 W; ``chip_smoke.py``,
+``PERF.md`` §6): with one cross-thread ``tl.sum`` a 128-column block,
+cg's first matvec pass took 0.0313 ms fp32; with the slices and the step
+loaded ahead it takes 0.0258 ms (78% of the bound) and 0.0470 ms fp64,
+and the deferred pass at one K=4 shard's 1024 rows 0.0083 ms (0.0137
+before).
 
 Rounding: fp32 division and square root use ``tl.div_rn`` / ``tl.sqrt_rn``
 (IEEE, as torch's), and the kernels compile with ``enable_fp_fusion=False``
@@ -91,11 +106,23 @@ from . import count, on_cuda
 #: widest column chunk of a ``(rows, C)`` tile that a program holds as one
 #: Triton tensor; a wider tile is walked in chunks of this many columns
 MAX_TILE_WIDTH = 256
-#: rows per program for passes that stream a matrix, and the K block
-MATRIX_BLOCK_R, MATRIX_BLOCK_K = 16, 128
+#: rows per program for passes that stream a matrix
+MATRIX_BLOCK_R = 16
+#: the summation order of a streamed ``ab,b->a`` matvec in every form:
+#: output i adds ``A[i, k] * x[k]`` for the k of slice s (k ≡ s mod
+#: ``MATVEC_SLICES``) in ascending k, each product rounded, then the
+#: slices fold through one fixed pairwise tree
+MATVEC_SLICES = 32
+#: columns of ``A`` a K step of the single-request matvec loads (a
+#: multiple of ``MATVEC_SLICES``; the order above does not depend on it)
+MATRIX_BLOCK_K = 256
 #: lanes one program of B1's lane form carries when its pass streams an
 #: operand without lanes (each tile of it is then read once for them all)
 LANE_GROUP = 16
+#: a lane group's matvec, per dtype: columns of ``A`` a K step loads for
+#: the group, and warps a program (the fastest of the steps and warps
+#: timed on the H100)
+LANE_STEP = {torch.float32: (128, 8), torch.float64: (64, 4)}
 
 _TILED_EW = ("add", "sub", "mul", "div", "neg", "axpy")
 
@@ -137,6 +164,30 @@ def _chunks(w: int) -> List[Tuple[int, int]]:
     ``MAX_TILE_WIDTH`` and a ragged last one."""
     return [(c0, _pw(min(MAX_TILE_WIDTH, w - c0)))
             for c0 in range(0, w, MAX_TILE_WIDTH)]
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def _fold(x: str, lead: Tuple[int, ...], n: int, target: str) -> List[str]:
+    """Lines that sum the last axis of ``x`` (shape ``(*lead, n)``, n a
+    power of two >= 2) into ``target`` (shape ``lead``) through one fixed
+    pairwise tree: elements 2i and 2i + 1 first, then those sums alike.
+    Each level is an elementwise add, so the tree is the text's, whatever
+    layout Triton gives ``x``."""
+    assert n >= 2 and n & (n - 1) == 0, n
+    lines = []
+    while n > 2:
+        n //= 2
+        shape = ", ".join(str(d) for d in (*lead, n, 2))
+        lines += [f"{x}_a, {x}_b = tl.split(tl.reshape({x}, ({shape})))",
+                  f"{x} = {x}_a + {x}_b"]
+    return lines + [f"{x}_a, {x}_b = tl.split({x})",
+                    f"{target} = {x}_a + {x}_b"]
 
 
 def _plain_op(op: str, ins):
@@ -236,6 +287,7 @@ class StreamKernel:
             for nd in self.nodes if self.classes[nd.name] == "tiled"
             for n in (nd.name, *nd.inputs))
         # vector passes: 256-4096 rows a program, at most ~1024 programs
+        self.streams_matrix = streams_matrix
         self.block_r = (MATRIX_BLOCK_R if streams_matrix else
                         min(max(_p2(-(-self.rows // 1024)), 256), 4096))
         self.n_prog = -(-self.rows // self.block_r)
@@ -359,7 +411,7 @@ class StreamKernel:
         count(self.names[0])
         _launch(self.names[0], main, (self.n_prog,), *ins,
                 *[outs[n] for n in self.stream_out], part,
-                num_warps=self._warps, enable_fp_fusion=False)
+                num_warps=self._warps(dtype), enable_fp_fusion=False)
         if self._fin_out:
             fin_ins = [env[n] for n in self._fin_scalar_in]
             count(self.names[1])
@@ -368,8 +420,9 @@ class StreamKernel:
                     num_warps=4, enable_fp_fusion=False)
         return outs
 
-    @property
-    def _warps(self) -> int:
+    def _warps(self, dtype: torch.dtype) -> int:
+        if (self.group or 1) > 1 and self.streams_matrix:
+            return LANE_STEP[dtype][1]
         return 8 if self.block_r >= 2048 else 4
 
     def _compiled(self, dtype: torch.dtype):
@@ -394,18 +447,18 @@ class StreamKernel:
     def source(self, dtype: torch.dtype) -> str:
         """The Triton source of this pass at ``dtype`` (both kernels).
 
-        In the lane form every lane of a program runs the single-request
-        body on its own operands (a lane's base pointer is the operand's
-        plus the lane times its size), so a lane's arithmetic, its row
-        blocks and its reduction trees are the single-request pass's.
-        Operands without lanes are loaded once a program, and a
-        contraction whose streamed left operand has no lanes loads each
-        tile of it once for all the program's lanes."""
+        The single request, and a lane form of one lane a program, run one
+        body (:meth:`_lane_body`; a lane's base pointer is the operand's
+        plus the lane times its size), so such a lane's arithmetic, row
+        blocks and reduction trees are the single request's.  A lane form
+        of ``LANE_GROUP`` lanes a program runs :meth:`_group_body`: the
+        same ops on ``(rows, lanes)`` tiles, each element rounded as the
+        single request rounds it, with the operand without lanes loaded
+        once a program."""
         fp32 = dtype == torch.float32
         tdt = "tl.float32" if fp32 else "tl.float64"
         lanes = self.group is not None
         group = self.group or 1
-        gs: List[Optional[int]] = list(range(group)) if lanes else [None]
         var = {}
 
         def v(name: str, g: Optional[int] = None) -> str:
@@ -413,28 +466,20 @@ class StreamKernel:
                 var[name] = f"v{len(var)}"
             return var[name] if g is None else f"{var[name]}_{g}"
 
-        def lane_of(name: str, g: Optional[int]) -> Optional[int]:
-            return g if name in self.lanes else None
-
-        def numel(name: str) -> int:
-            n = 1
-            for s in self.shapes[name]:
-                n *= s
-            return n
-
         def ptr(kind: str, name: str, g: Optional[int]) -> str:
             base = f"{kind}_{v(name)}"
-            g = lane_of(name, g)
-            return base if g is None else f"({base} + l{g} * {numel(name)})"
+            if g is None or name not in self.lanes:
+                return base
+            return f"({base} + l{g} * {_numel(self.shapes[name])})"
 
-        def div(a: str, b: str, a_sc: bool, b_sc: bool, shape: str) -> str:
+        def div(a: str, b: str, a_bc: bool, b_bc: bool, shape: str) -> str:
             if not fp32:
                 return f"({a} / {b})"
-            # div_rn takes tensors of one shape: broadcast a scalar operand
-            if a_sc and not b_sc:
-                a = f"tl.broadcast_to({a}, {shape})"
-            if b_sc and not a_sc:
-                b = f"tl.broadcast_to({b}, {shape})"
+            # div_rn takes tensors of one shape: broadcast the operands
+            # flagged as narrower than the result
+            if shape != "()":
+                a = f"tl.broadcast_to({a}, {shape})" if a_bc else a
+                b = f"tl.broadcast_to({b}, {shape})" if b_bc else b
             return f"tl.div_rn({a}, {b})"
 
         def ew(nd, args: List[str], scal: List[bool], shape: str) -> str:
@@ -454,157 +499,20 @@ class StreamKernel:
             raise NotImplementedError(nd.op)
 
         sqrt = "tl.sqrt_rn" if fp32 else "tl.sqrt"
-        produced = {nd.name for nd in self.nodes}
-        br = self.block_r
-
-        def width(name: str) -> Optional[int]:
-            shape = self.shapes[name]
-            return shape[1] if len(shape) == 2 else None
-
-        def chunk_shape(name: str, j: int) -> str:
-            """The block shape of chunk ``j`` of ``name``'s tile."""
-            w = width(name)
-            return f"({br},)" if w is None else f"({br}, {_chunks(w)[j][1]})"
 
         # ---- main kernel ----
         args = ([f"p_{v(n)}" for n in self.in_names]
                 + [f"o_{v(n)}" for n in self.stream_out] + ["part"]
                 + (["L"] if lanes else []))
-        head = [f"pid = tl.program_id(0)",
-                f"r = pid * {br} + tl.arange(0, {br})",
+        main = [f"pid = tl.program_id(0)",
+                f"r = pid * {self.block_r} + tl.arange(0, {self.block_r})",
                 f"rm = r < {self.rows}"]
-        if lanes:
-            head.append(f"lb = tl.program_id(1) * {group}")
-            head += [f"l{g} = lb + {g}" for g in gs]
-        # lines run once a program (lanes: operands without lanes), then
-        # each lane's lines; single-request passes use the lane list alone
-        shared: List[str] = []
-        per: Dict[Optional[int], List[str]] = {g: [] for g in gs}
-        loaded: Set[Tuple[str, Optional[int]]] = set()
-        col_ranges: Set[str] = set()
-
-        def cols(w: int, out: List[str]) -> List[str]:
-            """The column ranges of a width-``w`` tile: one, or one a chunk
-            of ``MAX_TILE_WIDTH`` columns (the last one ragged)."""
-            names = []
-            chunks = _chunks(w)
-            for j, (c0, pw) in enumerate(chunks):
-                name = f"c{w}" if len(chunks) == 1 else f"c{w}_{j}"
-                names.append(name)
-                if name in col_ranges:
-                    continue
-                col_ranges.add(name)
-                out.append(f"{name} = tl.arange(0, {pw})" if c0 == 0 else
-                           f"{name} = {c0} + tl.arange(0, {pw})")
-                out.append(f"{name}m = {name} < {w}")
-            return names
-
-        def target(name: str, g: Optional[int]) -> List[str]:
-            return shared if lanes and name not in self.lanes else per[g]
-
-        def tile(name: str, g: Optional[int]) -> List[str]:
-            """The value of a streamed input or product in this block: one
-            variable, or one a column chunk of a wide tile."""
-            lg = lane_of(name, g)
-            w = width(name)
-            n = 1 if w is None else len(_chunks(w))
-            chunks = [v(name, lg) if n == 1 else f"{v(name, lg)}_c{j}"
-                      for j in range(n)]
-            if name in produced or (name, lg) in loaded:
-                return chunks
-            loaded.add((name, lg))
-            out = target(name, g)
-            p = ptr("p", name, g)
-            if w is None:
-                out.append(f"{chunks[0]} = tl.load({p} + r, mask=rm, "
-                           "other=0.0)")
-                return chunks
-            for var_, c in zip(chunks, cols(w, shared if lanes else out)):
-                out.append(f"{var_} = tl.load({p} + r[:, None] "
-                           f"* {w} + {c}[None, :], mask=rm[:, None] & "
-                           f"{c}m[None, :], other=0.0)")
-            return chunks
-
-        def scalar(name: str, g: Optional[int]) -> str:
-            lg = lane_of(name, g)
-            if name in produced or (name, lg) in loaded:
-                return v(name, lg)
-            loaded.add((name, lg))
-            target(name, g).append(f"{v(name, lg)} = "
-                                   f"tl.load({ptr('p', name, g)})")
-            return v(name, lg)
-
-        def operand(name: str, g: Optional[int]):
-            """A scalar's variable, or a tile's (one a column chunk)."""
-            return (scalar(name, g) if self.shapes[name] == ()
-                    else tile(name, g))
-
-        red_index = {n: j for j, n in enumerate(self.red_out)}
-        for nd in self.nodes:
-            cls = self.classes[nd.name]
-            if nd.op in ("matmul", "einsum") and cls == "tiled" and lanes:
-                rhs_n = nd.inputs[STREAM_EINSUMS[nd.param("spec")]]
-                lhs_n = nd.inputs[1 - STREAM_EINSUMS[nd.param("spec")]]
-                if lhs_n not in produced and lhs_n not in self.lanes:
-                    # the streamed left operand has no lanes: one K loop
-                    # loads each of its tiles once for every lane
-                    shared.extend(self._contraction(
-                        nd, gs, v, ptr, tile, lambda w: cols(w, shared),
-                        fp32, tdt, produced, guard=group > 1))
-                    cls = "hoisted"
-            for g in gs:
-                body = per[g]
-                if cls == "eager":
-                    body.append(f"{v(nd.name, g)} = " + ew(
-                        nd, [scalar(t, g) for t in nd.inputs],
-                        [True] * len(nd.inputs), "()"))
-                elif cls == "epilogue":
-                    continue
-                elif cls == "reduce":
-                    if width(nd.inputs[0]) is not None:
-                        raise NotImplementedError(
-                            f"{nd.name}: a {nd.op} over a (rows, C) tile "
-                            "in a stream pass")
-                    (a,) = tile(nd.inputs[0], g)
-                    (b,) = [a] if nd.op == "norm" else tile(nd.inputs[1], g)
-                    j = red_index[nd.name]
-                    slot = (f"{j} * {self.n_prog}" if not lanes else
-                            f"({j} * L + l{g}) * {self.n_prog}")
-                    body.append(f"tl.store(part + {slot} + pid, tl.sum("
-                                f"tl.where(rm, {a} * {b}, 0.0), axis=0))")
-                elif cls == "hoisted":
-                    pass
-                elif nd.op in ("matmul", "einsum"):
-                    body.extend(self._contraction(
-                        nd, [g], v, ptr, tile,
-                        lambda w: cols(w, shared if lanes else body),
-                        fp32, tdt, produced, guard=False))
-                else:
-                    ins = [operand(t, g) for t in nd.inputs]
-                    scal = [self.shapes[t] == () for t in nd.inputs]
-                    for j, out in enumerate(tile(nd.name, g)):
-                        body.append(f"{out} = " + ew(
-                            nd, [x if sc else x[j] for x, sc in zip(ins, scal)],
-                            scal, chunk_shape(nd.name, j)))
-                if nd.name in self.stream_out:
-                    w = width(nd.name)
-                    o = ptr("o", nd.name, g)
-                    if w is None:
-                        body.append(f"tl.store({o} + r, "
-                                    f"{v(nd.name, g)}, mask=rm)")
-                    else:
-                        for out, c in zip(tile(nd.name, g),
-                                          cols(w, shared if lanes else body)):
-                            body.append(f"tl.store({o} + r[:, None] * {w}"
-                                        f" + {c}[None, :], {out}, "
-                                        f"mask=rm[:, None] & {c}m[None, :])")
-        main = head + shared
-        for g in gs:
-            if group > 1:
-                main.append(f"if l{g} < L:")
-                main += [f"    {ln}" for ln in per[g]]
-            else:
-                main += per[g]
+        if group > 1:
+            main += self._group_body(v, ew, tdt, LANE_STEP[dtype][0])
+        else:
+            if lanes:
+                main.append("l0 = tl.program_id(1)")
+            main += self._lane_body(0 if lanes else None, v, ptr, ew, tdt)
 
         # ---- finalize kernel ----
         # lanes: one program a lane, each the single-request finalize;
@@ -626,7 +534,7 @@ class StreamKernel:
         for nd in self.nodes:
             cls = self.classes[nd.name]
             if cls == "reduce":
-                j = red_index[nd.name]
+                j = self.red_out.index(nd.name)
                 slot = (f"{j} * {self.n_prog}" if not lanes else
                         f"({j} * L + lane) * {self.n_prog}")
                 tot = (f"tl.sum(tl.load(part + {slot} + i, mask=im, "
@@ -653,34 +561,283 @@ class StreamKernel:
                 + kernel("main_kernel", args, main) + "\n\n"
                 + kernel("finalize_kernel", fin_args, fin))
 
-    def _contraction(self, nd, gs, v, ptr, tile, cols, fp32, tdt, produced,
-                     guard: bool):
-        """Lines of one ``ab,b->a`` / ``ab,bc->ac`` product for a block,
-        for each lane of ``gs`` (None: the single request) with one K loop:
-        the left operand's tile is loaded once for all of them; ``guard``
-        skips the lanes past ``L``."""
+    def _lane_body(self, g: Optional[int], v, ptr, ew, tdt) -> List[str]:
+        """The main kernel's body for the single request (``g`` None) or
+        for lane ``l<g>`` of a lane form of one lane a program: operands
+        without lanes first, then the pass's ops in order."""
+        br = self.block_r
+        produced = self._produced
+        shared: List[str] = []
+        body: List[str] = []
+        loaded: Set[str] = set()
+        col_ranges: Set[str] = set()
+
+        def width(name: str) -> Optional[int]:
+            shape = self.shapes[name]
+            return shape[1] if len(shape) == 2 else None
+
+        def lane_var(name: str) -> str:
+            return v(name, g if name in self.lanes else None)
+
+        def cols(w: int) -> List[str]:
+            """The column ranges of a width-``w`` tile: one, or one a chunk
+            of ``MAX_TILE_WIDTH`` columns (the last one ragged)."""
+            names = []
+            chunks = _chunks(w)
+            for j, (c0, pw) in enumerate(chunks):
+                name = f"c{w}" if len(chunks) == 1 else f"c{w}_{j}"
+                names.append(name)
+                if name in col_ranges:
+                    continue
+                col_ranges.add(name)
+                shared.append(f"{name} = tl.arange(0, {pw})" if c0 == 0 else
+                              f"{name} = {c0} + tl.arange(0, {pw})")
+                shared.append(f"{name}m = {name} < {w}")
+            return names
+
+        def tile(name: str) -> List[str]:
+            """The value of a streamed input or product in this block: one
+            variable, or one a column chunk of a wide tile."""
+            w = width(name)
+            n = 1 if w is None else len(_chunks(w))
+            chunks = [lane_var(name) if n == 1 else f"{lane_var(name)}_c{j}"
+                      for j in range(n)]
+            if name in produced or name in loaded:
+                return chunks
+            loaded.add(name)
+            out = body if name in self.lanes else shared
+            p = ptr("p", name, g)
+            if w is None:
+                out.append(f"{chunks[0]} = tl.load({p} + r, mask=rm, "
+                           "other=0.0)")
+                return chunks
+            for var_, c in zip(chunks, cols(w)):
+                out.append(f"{var_} = tl.load({p} + r[:, None] "
+                           f"* {w} + {c}[None, :], mask=rm[:, None] & "
+                           f"{c}m[None, :], other=0.0)")
+            return chunks
+
+        def scalar(name: str) -> str:
+            if name not in produced and name not in loaded:
+                loaded.add(name)
+                (body if name in self.lanes else shared).append(
+                    f"{lane_var(name)} = tl.load({ptr('p', name, g)})")
+            return lane_var(name)
+
+        def operand(name: str):
+            """A scalar's variable, or a tile's (one a column chunk)."""
+            return scalar(name) if self.shapes[name] == () else tile(name)
+
+        def chunk_shape(name: str, j: int) -> str:
+            w = width(name)
+            return f"({br},)" if w is None else f"({br}, {_chunks(w)[j][1]})"
+
+        for nd in self.nodes:
+            cls = self.classes[nd.name]
+            if cls == "eager":
+                body.append(f"{v(nd.name, g)} = " + ew(
+                    nd, [scalar(t) for t in nd.inputs],
+                    [True] * len(nd.inputs), "()"))
+            elif cls == "epilogue":
+                continue
+            elif cls == "reduce":
+                if width(nd.inputs[0]) is not None:
+                    raise NotImplementedError(
+                        f"{nd.name}: a {nd.op} over a (rows, C) tile "
+                        "in a stream pass")
+                (a,) = tile(nd.inputs[0])
+                (b,) = [a] if nd.op == "norm" else tile(nd.inputs[1])
+                j = self.red_out.index(nd.name)
+                slot = (f"{j} * {self.n_prog}" if g is None else
+                        f"({j} * L + l{g}) * {self.n_prog}")
+                prod = f"tl.where(rm, {a} * {b}, 0.0)"
+                if not self.streams_matrix:
+                    body.append(f"tl.store(part + {slot} + pid, "
+                                f"tl.sum({prod}, axis=0))")
+                    continue
+                # a matrix pass: the fold of a lane group's form, whose
+                # layout differs, fixed by the text
+                t = f"{v(nd.name, g)}_t"
+                body.append(f"{t} = {prod}")
+                body.extend(_fold(t, (), br, t))
+                body.append(f"tl.store(part + {slot} + pid, {t})")
+            elif nd.op in ("matmul", "einsum"):
+                body.extend(self._contraction(nd, g, v, ptr, tile, cols,
+                                              tdt))
+            else:
+                ins = [operand(t) for t in nd.inputs]
+                scal = [self.shapes[t] == () for t in nd.inputs]
+                for j, out in enumerate(tile(nd.name)):
+                    body.append(f"{out} = " + ew(
+                        nd, [x if sc else x[j] for x, sc in zip(ins, scal)],
+                        scal, chunk_shape(nd.name, j)))
+            if nd.name in self.stream_out:
+                w = width(nd.name)
+                o = ptr("o", nd.name, g)
+                if w is None:
+                    body.append(f"tl.store({o} + r, {v(nd.name, g)}, "
+                                "mask=rm)")
+                    continue
+                for out, c in zip(tile(nd.name), cols(w)):
+                    body.append(f"tl.store({o} + r[:, None] * {w} + "
+                                f"{c}[None, :], {out}, mask=rm[:, None] & "
+                                f"{c}m[None, :])")
+        return shared + body
+
+    def _group_body(self, v, ew, tdt, bk: int) -> List[str]:
+        """The main kernel's body for ``LANE_GROUP`` lanes a program: the
+        pass's ops on ``(rows, lanes)`` tiles (a lane's scalars as a
+        ``(lanes,)`` vector), operands without lanes loaded once and
+        broadcast.  Every element is the single request's op on that
+        lane's values; the streamed matvec is :meth:`_matvec` over the
+        group; each reduction's partials fold over the rows through the
+        single request's tree (:func:`_fold`), all lanes at once."""
+        br, grp = self.block_r, self.group
+        lines = [f"lg = tl.program_id(1) * {grp} + tl.arange(0, {grp})",
+                 "lgm = lg < L"]
+        shape = {"RG": f"({br}, {grp})", "R": f"({br},)",
+                 "G": f"({grp},)", "S": "()"}
+        kind: Dict[str, str] = {}
+
+        def value(name: str) -> str:
+            if name not in kind:
+                lane, p = name in self.lanes, f"p_{v(name)}"
+                if self.shapes[name] == ():
+                    kind[name] = "G" if lane else "S"
+                    src = (f"tl.load({p} + lg, mask=lgm, other=0.0)" if lane
+                           else f"tl.load({p})")
+                else:
+                    kind[name] = "RG" if lane else "R"
+                    src = (f"tl.load({p} + lg[None, :] * {self.rows} + "
+                           "r[:, None], mask=rm[:, None] & lgm[None, :], "
+                           "other=0.0)" if lane else
+                           f"tl.load({p} + r, mask=rm, other=0.0)")
+                lines.append(f"{v(name)} = {src}")
+            return v(name)
+
+        def joint(ks: List[str]) -> str:
+            if "RG" in ks or {"R", "G"} <= set(ks):
+                return "RG"
+            return "R" if "R" in ks else "G" if "G" in ks else "S"
+
+        def to(x: str, k: str, rk: str) -> str:
+            if rk == "RG" and k in ("R", "G"):
+                return f"{x}[:, None]" if k == "R" else f"{x}[None, :]"
+            return x
+
+        for nd in self.nodes:
+            cls = self.classes[nd.name]
+            if cls == "epilogue":
+                continue
+            if nd.op in ("matmul", "einsum"):
+                rhs = STREAM_EINSUMS[nd.param("spec")]
+                lines.extend(self._matvec(
+                    nd, v(nd.name), tdt, f"p_{v(nd.inputs[1 - rhs])}",
+                    f"p_{v(nd.inputs[rhs])}", grp, bk))
+                kind[nd.name] = "RG"
+            else:
+                ins = nd.inputs if nd.op != "norm" else nd.inputs * 2
+                vals = [value(t) for t in ins]
+                ks = [kind[t] for t in ins]
+                rk = joint(ks)
+                args = [to(x, k, rk) for x, k in zip(vals, ks)]
+                if cls == "reduce":
+                    assert rk == "RG", (nd.name, ks)
+                    t = f"{v(nd.name)}_t"
+                    j = self.red_out.index(nd.name)
+                    lines.append(f"{t} = tl.permute(tl.where(rm[:, None], "
+                                 f"{args[0]} * {args[1]}, 0.0), (1, 0))")
+                    lines.extend(_fold(t, (grp,), br, t))
+                    lines.append(f"tl.store(part + ({j} * L + lg) * "
+                                 f"{self.n_prog} + pid, {t}, mask=lgm)")
+                    continue
+                lines.append(f"{v(nd.name)} = " + ew(
+                    nd, args, [k != rk for k in ks], shape[rk]))
+                kind[nd.name] = rk
+            if nd.name in self.stream_out:
+                assert kind[nd.name] == "RG", (nd.name, kind[nd.name])
+                lines.append(f"tl.store(o_{v(nd.name)} + lg[None, :] * "
+                             f"{self.rows} + r[:, None], {v(nd.name)}, "
+                             "mask=rm[:, None] & lgm[None, :])")
+        return lines
+
+    def _matvec(self, nd, out: str, tdt: str, pl: str, pr: str,
+                group: Optional[int] = None,
+                bk: Optional[int] = None) -> List[str]:
+        """Lines of one ``ab,b->a`` product into ``out`` whose left operand
+        (at ``pl``) streams from memory, in ``MATVEC_SLICES`` slices of K
+        (see the constant): a ``(rows, slices)`` accumulator, or for a lane
+        group (right-hand sides lane-major at ``pr``) a ``(rows, lanes,
+        slices)`` one that reads each tile of the operand once for the
+        group.  Every add is elementwise, no step reduces across threads,
+        and each K step's tiles are loaded one step ahead of their adds.
+        Each lane adds the single request's products in its order and
+        folds its slices through the same tree, so it is bitwise the
+        single-request product on it alone."""
+        k = self.shapes[nd.inputs[STREAM_EINSUMS[nd.param("spec")]]][0]
+        s, br = MATVEC_SLICES, self.block_r
+        bk = bk or MATRIX_BLOCK_K
+        assert bk % s == 0, (bk, s)
+        steps = range(bk // s)
+        lead = (br, group) if group else (br,)
+        acc = f"{out}_s"
+        lines = [f"{acc} = tl.zeros(({', '.join(map(str, lead))}, {s}), "
+                 f"dtype={tdt})"]
+
+        def loads(k0: str, nxt: str) -> List[str]:
+            out_ = []
+            for u in steps:
+                first = (f"{k0} + " if k0 != "0" else "") + (
+                    f"{u * s} + " if u else "")
+                out_ += [f"kk{u} = {first}tl.arange(0, {s})",
+                         f"km{u} = kk{u} < {k}",
+                         f"a{u}{nxt} = tl.load({pl} + r[:, None] * {k} + "
+                         f"kk{u}[None, :], mask=rm[:, None] & "
+                         f"km{u}[None, :], other=0.0)",
+                         f"b{u}{nxt} = tl.load({pr} + lg[:, None] * {k} + "
+                         f"kk{u}[None, :], mask=lgm[:, None] & "
+                         f"km{u}[None, :], other=0.0)" if group else
+                         f"b{u}{nxt} = tl.load({pr} + kk{u}, mask=km{u}, "
+                         "other=0.0)"]
+            return out_
+
+        lines += loads("0", "")
+        lines.append(f"for k0 in range(0, {k}, {bk}):")
+        lines += [f"    {ln}" for ln in loads(f"k0 + {bk}", "n")]
+        prod = ("a{u}[:, None, :] * b{u}[None, :, :]" if group
+                else "a{u} * b{u}[None, :]")
+        lines += [f"    {acc} = {acc} + " + prod.format(u=u) for u in steps]
+        lines += [f"    {x}{u} = {x}{u}n" for x in "ab" for u in steps]
+        return lines + _fold(acc, lead, s, out)
+
+    def _contraction(self, nd, g, v, ptr, tile, cols, tdt) -> List[str]:
+        """Lines of one ``ab,b->a`` / ``ab,bc->ac`` product for a block of
+        the single request or of lane ``g``."""
         spec = nd.param("spec")
         rhs = STREAM_EINSUMS[spec]
         lhs_n, rhs_n = nd.inputs[1 - rhs], nd.inputs[rhs]
         k = self.shapes[rhs_n][0]
-        lines: List[str] = []
         matvec = spec == "ab,b->a"
+        lhs_tile = lhs_n in self._produced
+        if matvec and not lhs_tile:
+            return self._matvec(nd, v(nd.name, g), tdt, ptr("p", lhs_n, g),
+                                ptr("p", rhs_n, g))
+        lines: List[str] = []
         # fp32 products in full IEEE fp32 (no TF32); fp64 on the fp64 MMA
-        dot_kw = ('input_precision="ieee"' if fp32
+        dot_kw = ('input_precision="ieee"' if tdt == "tl.float32"
                   else "out_dtype=tl.float64")
         if not matvec:
             c = self.shapes[rhs_n][1]
             ccs = cols(c)
-        if lhs_n in produced:
+        pr = ptr("p", rhs_n, g)
+        outs = [v(nd.name, g)] if matvec else tile(nd.name)
+        if lhs_tile:
             # the left operand is a tile of this block: one product over
             # each column chunk of it (all of K when K <= MAX_TILE_WIDTH),
             # its padded columns zeroed, the chunks' products added in
             # ascending K (the plain version's order)
-            (g,) = gs
-            outs = [v(nd.name, g)] if matvec else tile(nd.name, g)
-            pr = ptr("p", rhs_n, g)
             kcs = cols(k)
-            lhs = tile(lhs_n, g)
+            lhs = tile(lhs_n)
             for oi, out in enumerate(outs):
                 for kc, lt in zip(kcs, lhs):
                     a = f"tl.where({kc}m[None, :], {lt}, 0.0)"
@@ -696,37 +853,21 @@ class StreamKernel:
                     lines.append(f"{out} = {term}" if kc == kcs[0] else
                                  f"{out} = {out} + {term}")
             return lines
-        # the left operand streams from memory: loop over K blocks
-        bk = MATRIX_BLOCK_K if matvec else 16
-        pl = ptr("p", lhs_n, gs[0])
-        # the accumulators of each lane: one, or one a column chunk
-        accs = {g: [v(nd.name, g)] if matvec else tile(nd.name, g)
-                for g in gs}
-        shapes = ([f"({self.block_r},)"] if matvec else
-                  [f"({self.block_r}, {pw})" for _c0, pw in _chunks(c)])
-        lines += [f"{acc} = tl.zeros({shape}, dtype={tdt})"
-                  for g in gs for acc, shape in zip(accs[g], shapes)]
-        lines += [f"for k0 in range(0, {k}, {bk}):",
-                  f"    kk = k0 + tl.arange(0, {bk})",
+        # the left operand streams from memory: loop over K blocks of 16,
+        # one accumulator a column chunk
+        lines += [f"{out} = tl.zeros(({self.block_r}, {pw}), dtype={tdt})"
+                  for out, (_c0, pw) in zip(outs, _chunks(c))]
+        lines += [f"for k0 in range(0, {k}, 16):",
+                  "    kk = k0 + tl.arange(0, 16)",
                   f"    km = kk < {k}",
-                  f"    a = tl.load({pl} + r[:, None] * {k} + kk[None, :], "
-                  "mask=rm[:, None] & km[None, :], other=0.0)"]
-        for g in gs:
-            pr = ptr("p", rhs_n, g)
-            ind = "    "
-            if guard:
-                lines.append(f"    if l{g} < L:")
-                ind = "        "
-            if matvec:
-                (out,) = accs[g]
-                lines += [f"{ind}b = tl.load({pr} + kk, mask=km, other=0.0)",
-                          f"{ind}{out} += tl.sum(a * b[None, :], axis=1)"]
-                continue
-            for out, cc in zip(accs[g], ccs):
-                lines.append(f"{ind}b = tl.load({pr} + kk[:, None] * {c} + "
-                             f"{cc}[None, :], mask=km[:, None] & "
-                             f"{cc}m[None, :], other=0.0)")
-                lines.append(f"{ind}{out} += tl.dot(a, b, {dot_kw})")
+                  f"    a = tl.load({ptr('p', lhs_n, g)} + r[:, None] * {k} "
+                  "+ kk[None, :], mask=rm[:, None] & km[None, :], "
+                  "other=0.0)"]
+        for out, cc in zip(outs, ccs):
+            lines.append(f"    b = tl.load({pr} + kk[:, None] * {c} + "
+                         f"{cc}[None, :], mask=km[:, None] & "
+                         f"{cc}m[None, :], other=0.0)")
+            lines.append(f"    {out} += tl.dot(a, b, {dot_kw})")
         return lines
 
 
@@ -738,12 +879,30 @@ class LaneStreamKernel(StreamKernel):
     single-request shape behind a leading lane axis (``(L, rows)``,
     ``(L,)`` for a scalar).  Operands without lanes (the shared operator:
     cg's ``A``, jacobi_sparse's ``A.dinv``) are the single-request
-    tensors.  A pass that streams such an operand runs ``LANE_GROUP``
-    lanes a program, so each of its tiles is read once for the group (a
-    matvec ``A·x`` becomes ``A·[x_0 … x_15]``); any other pass runs one
-    lane a program on a second grid axis.  Either way every lane runs the
-    single-request body on its own operands (see :meth:`source`), and
-    its finalize kernel runs one program a lane.
+    tensors.
+
+    A pass that streams such an operand, and whose ops are vector ops, a
+    streamed matvec of that operand and (in a matrix pass) reductions,
+    runs ``LANE_GROUP`` lanes a program as ``(rows, lanes)`` tiles
+    (:meth:`_group_body`): each tile of the shared operand is read once for
+    the group, and a matvec ``A·x`` becomes ``A·[x_0 … x_15]`` as a rows ×
+    16 lanes × 32 slices register tile (``LANE_STEP`` columns a K step).
+    Every element is rounded as the single request rounds it, and the
+    matvec's slices and the reductions' rows fold through the single
+    request's trees, so each lane is bitwise the single-request pass on it
+    alone.  Any other pass runs one lane a program on a second grid axis,
+    the single-request body on the lane's operands.  The finalize kernel
+    runs one program a lane.
+
+    Bound on the H100: bytes, ``A`` once for 16 lanes.  The earlier form
+    ran the single-request body 16 times in a program, one cross-thread
+    ``tl.sum`` per lane and 128-column block: 0.2453 ms fp32 for cg's
+    matvec pass at 16 lanes, 0.7309 ms fp64.  As one tile: 0.0446 ms fp32
+    (45% of the bound, against 0.0557 for ``A @ X`` and its column dots in
+    torch) and 0.0767 ms fp64 (H100 80GB HBM3, 700 W; ``chip_smoke.py``,
+    ``PERF.md`` §6).  What stands in its way: Triton loads ``A``'s and the
+    lanes' K steps coalesced and moves both through shared memory into the
+    product's layout, with barriers, every K step.
 
     The plain version computes elementwise ops over the lane axis at
     once and each reduction and contraction lane by lane with the
@@ -764,7 +923,29 @@ class LaneStreamKernel(StreamKernel):
                                  "lane-independent node runs once, in the "
                                  "single-request pass")
         shared_streams = [t for t in self.stream_in if t not in self.lanes]
-        self.group = LANE_GROUP if shared_streams else 1
+        self.group = (LANE_GROUP if shared_streams and self._groups()
+                      else 1)
+
+    def _groups(self) -> bool:
+        """Whether the pass runs as ``(rows, lanes)`` tiles: its tiles are
+        vectors, its one kind of contraction an ``ab,b->a`` matvec of the
+        operand without lanes, and its reductions (if any) fold over the
+        rows by the text (a matrix pass; a vector pass's ``tl.sum`` tree
+        follows its layout, which a lane group would not share)."""
+        for nd in self.nodes:
+            cls = self.classes[nd.name]
+            if cls == "reduce" and not self.streams_matrix:
+                return False
+            if cls != "tiled":
+                continue
+            if nd.op in ("matmul", "einsum"):
+                lhs = nd.inputs[1 - STREAM_EINSUMS[nd.param("spec")]]
+                if (nd.param("spec") != "ab,b->a" or lhs in self._produced
+                        or lhs in self.lanes):
+                    return False
+            elif any(len(self.shapes[t]) > 1 for t in (nd.name, *nd.inputs)):
+                return False
+        return True
 
     def n_lanes(self, env) -> int:
         counts = {int(env[n].shape[0]) for n in self.in_names
@@ -813,7 +994,7 @@ class LaneStreamKernel(StreamKernel):
         count(self.names[0])
         _launch(self.names[0], main, (self.n_prog, -(-n_lanes // self.group)),
                 *ins, *[outs[n] for n in self.stream_out], part, n_lanes,
-                num_warps=self._warps, enable_fp_fusion=False)
+                num_warps=self._warps(dtype), enable_fp_fusion=False)
         if self.scalar_out:
             fin_ins = [env[n] for n in self._fin_scalar_in]
             count(self.names[1])

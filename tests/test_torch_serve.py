@@ -27,6 +27,7 @@ The server's mechanics are ``tests/test_serve.py``'s classes on the port
 package's disk-cache tests wait for ``api/cache.py``.
 """
 import ast
+import re
 import threading
 import time
 
@@ -42,16 +43,20 @@ from repro_torch import kernels
 from repro_torch.api import CodesignConfig, ServeConfig, Session
 from repro_torch.exec import Executor
 from repro_torch.exec.cuda import CudaLaneProgram, lane_names
+import repro_torch.frontends as pt_fe
 from repro_torch.frontends import (build_workload, evaluate, feeds_from_numpy,
                                   make_feeds)
+from repro_torch.kernels import stream
 from repro_torch.kernels.spmv import spmv_lanes, spmv_lanes_plain, spmv_plain
 from repro_torch.kernels.stencil import stencil2d_lanes, stencil2d_plain
-from repro_torch.kernels.stream import (LANE_GROUP, LaneStreamKernel,
+from repro_torch.kernels.stream import (LANE_GROUP, MATRIX_BLOCK_R,
+                                        MATVEC_SLICES, LaneStreamKernel,
                                         StreamKernel)
 from repro_torch.serve import (BatchedPlan, Overloaded, PlanRouter, Server,
                                ServerClosed, SolveRequest, density_bucket,
                                request)
 from repro_torch.testing import faults
+from test_torch_stream_wide import generated_on_cpu  # noqa: F401 (fixture)
 
 TOL = {np.float32: dict(rtol=2e-4, atol=1e-5),
        np.float64: dict(rtol=1e-9, atol=1e-12)}
@@ -293,6 +298,98 @@ def test_b1_lanes_plain_is_a_loop_of_the_single_plain(workload, params,
     assert seen
 
 
+@pytest.mark.parametrize("n_lanes", [1, 5, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=DT_IDS)
+@pytest.mark.parametrize("workload,params", B1_SET,
+                         ids=[w for w, _ in B1_SET])
+def test_b1_generated_lane_pass_is_the_single_pass_per_lane(
+        workload, params, dtype, n_lanes, generated_on_cpu):
+    """Every lane pass's generated kernels, run through the numpy
+    stand-in for Triton (``tests/test_torch_stream_wide.py``), give each
+    lane bitwise what the single-request generated pass gives on that lane
+    alone: at 1 lane, 5, and 17 (a second, ragged group of a
+    ``LANE_GROUP`` pass).  The dense workloads run at n = 200, so that a
+    matvec slice adds several products over several K steps (at n = 64
+    its two terms would add alike in either order)."""
+    rng = np.random.default_rng(8)
+    seen = 0
+    if workload in ("cg", "power_iteration", "gmres"):
+        params = {**params, "n": 200}
+    for k1, kl, lanes in _passes(workload, params):
+        env = {}
+        for n in kl.in_names:
+            shape = (n_lanes, *k1.shapes[n]) if n in lanes \
+                else tuple(k1.shapes[n])
+            env[n] = torch.from_numpy(rng.standard_normal(shape) + 2.0
+                                      ).to(dtype)
+        out = kl(env)
+        for i in range(n_lanes):
+            one = k1({n: env[n][i] if n in lanes else env[n]
+                      for n in k1.in_names})
+            assert sorted(one) == sorted(out)
+            for n in one:
+                assert torch.equal(out[n][i], one[n]), (workload, n, i)
+        seen += 1
+    assert seen
+
+
+@pytest.mark.parametrize("n_lanes", [1, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=DT_IDS)
+def test_b1_lane_group_broadcasts_like_the_single_pass(dtype, n_lanes,
+                                                       generated_on_cpu):
+    """A lane group's (rows, lanes) tiles mix a lane scalar dividing a
+    tile, a shared vector and a lane vector, a norm and an eager scalar
+    op (none of ``B1_SET``'s passes does): through the numpy stand-in for
+    Triton every lane is bitwise the single-request pass on it alone."""
+    p = pt_fe.Program("mix")
+    A = p.operator("A", (48, 48))
+    d = p.operator("d", (48,))
+    x, s = p.input("x", (48,)), p.input("s", ())
+    y = p.div(p.matmul(A, x, name="y"), s, name="ys")
+    z = p.add(p.mul(y, d, name="yd"), p.div(d, s, name="ds"), name="z")
+    p.output(z, p.norm(z, name="nz"), p.neg(s, name="ns"))
+    nodes = [p.nodes[n] for n in ("y", "ys", "yd", "ds", "z", "nz", "ns")]
+    shapes = {n: p.nodes[n].shape for nd in nodes
+              for n in (*nd.inputs, nd.name)}
+    needed = {nd.name for nd in nodes}
+    k1 = StreamKernel(nodes, shapes, needed, 48)
+    kl = LaneStreamKernel(nodes, shapes, needed, 48, {"x", "s"})
+    assert kl.group == LANE_GROUP
+    rng = np.random.default_rng(9)
+    env = {"A": rng.standard_normal((48, 48)), "d": rng.standard_normal(48),
+           "x": rng.standard_normal((n_lanes, 48)),
+           "s": rng.uniform(0.5, 1.5, n_lanes)}
+    env = {n: torch.from_numpy(v).to(dtype) for n, v in env.items()}
+    with np.errstate(divide="ignore", invalid="ignore"):   # filler lanes
+        out = kl(env)
+    for i in range(n_lanes):
+        one = k1({n: env[n][i] if n in ("x", "s") else env[n]
+                  for n in k1.in_names})
+        assert sorted(one) == sorted(out)
+        for n in one:
+            assert torch.equal(out[n][i], one[n]), (n, i)
+
+
+#: small sizes of every registered workload, for planning on the CPU
+SMALL = {"mttkrp": dict(i=32, j=32, k=32, rank=16)}
+
+
+@pytest.mark.parametrize("workload", pt_fe.list_workloads())
+def test_b1_lane_pass_reads_a_shared_stream_once_a_group(workload):
+    """Every lane pass that a registered workload's plan holds and that
+    streams an operand without lanes (cg's ``A``, jacobi_sparse's
+    ``A.dinv``) runs ``LANE_GROUP`` lanes a program, so each tile of that
+    operand is read once for the group; every other lane pass runs one
+    lane a program."""
+    for _k1, kl, _lanes in _passes(workload, SMALL.get(workload,
+                                                        dict(n=256))):
+        shared = [t for t in kl.stream_in if t not in kl.lanes]
+        assert kl.group == (LANE_GROUP if shared else 1), (
+            workload, kl.out_names, shared, kl.group)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=DT_IDS)
 @pytest.mark.parametrize("pattern,kw", [
@@ -345,11 +442,19 @@ def test_lane_source_is_the_single_body_per_lane(dtype):
     argument (one compile for every count), carry ``LANE_GROUP`` lanes a
     program where the pass streams an operand without lanes (each of its
     tiles then loaded once), one lane a program otherwise, and leave the
-    single-request source as it was."""
+    single-request source as it was.  A group's kernel has no branch
+    (lanes past ``L`` are masked): its streamed matvec accumulates a rows
+    x lanes x ``MATVEC_SLICES`` tile where the single pass has rows x
+    ``MATVEC_SLICES``, both folding the slices with the same text, and
+    each of its reductions folds the rows with the single pass's tree,
+    all lanes at once."""
     seen = {1: 0, LANE_GROUP: 0}
+    tdt = "tl.float32" if dtype == torch.float32 else "tl.float64"
+    r, sl = MATRIX_BLOCK_R, MATVEC_SLICES
     for wl, params in B1_SET:
         for k1, kl, lanes in _passes(wl, params):
             src = kl.source(dtype)
+            single = k1.source(dtype)
             tree = ast.parse(src)
             main, fin = [f for f in tree.body
                          if isinstance(f, ast.FunctionDef)]
@@ -359,13 +464,36 @@ def test_lane_source_is_the_single_body_per_lane(dtype):
             shared_stream = [t for t in kl.stream_in if t not in kl.lanes]
             assert kl.group == (LANE_GROUP if shared_stream else 1)
             seen[kl.group] += 1
+            group = (kl.group,) if kl.group > 1 else ()
+            lines = {ln.strip() for ln in src.splitlines()}
+            single_lines = {ln.strip() for ln in single.splitlines()}
             if kl.group > 1:
-                assert src.count("if l15 < L:") >= 1
+                assert not [f for f in ast.walk(main)
+                            if isinstance(f, ast.If)]
                 for t in shared_stream:       # one load of it a program
                     assert src.count(f"p_v{kl.in_names.index(t)} + ") == 1 \
                         or "for k0" in src
+                reds = re.findall(r"(v\d+)_t = tl.where", single)
+                assert len(reds) == len(kl.red_out)
+                for v in reds:                # the single pass's row tree
+                    assert set(stream._fold(f"{v}_t", (), r, f"{v}_t")) <= \
+                        single_lines
+                    assert set(stream._fold(f"{v}_t", group, r,
+                                            f"{v}_t")) <= lines
+            loops = [f for f in ast.walk(main) if isinstance(f, ast.For)]
+            if loops:                         # a streamed matvec
+                (loop,) = loops
+                assert not [f for f in ast.walk(loop)
+                            if isinstance(f, ast.If)]
+                acc = re.search(r"(v\d+)_s = tl.zeros", single).group(1)
+                zeros = ", ".join(map(str, (r, *group, sl)))
+                assert f"{acc}_s = tl.zeros(({zeros}), dtype={tdt})" in src
+                assert set(stream._fold(f"{acc}_s", (r, *group), sl,
+                                        acc)) <= lines
+                assert set(stream._fold(f"{acc}_s", (r,), sl, acc)) <= \
+                    single_lines
             assert kl.source(dtype) == src
-            assert "L" not in [a.arg for a in ast.parse(k1.source(dtype))
+            assert "L" not in [a.arg for a in ast.parse(single)
                                .body[2].args.args]
     assert seen[1] and seen[LANE_GROUP]
 

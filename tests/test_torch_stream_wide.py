@@ -93,6 +93,13 @@ def _dot(a, b, input_precision=None, out_dtype=None):
     return a @ b
 
 
+def _split(x):
+    """Triton's ``tl.split``: the last axis, of length 2, into two."""
+    x = np.asarray(x)
+    assert x.shape[-1] == 2, x.shape
+    return x[..., 0], x[..., 1]
+
+
 def _arange(lo, hi):
     _pow2(hi - lo)
     return np.arange(lo, hi)
@@ -133,6 +140,9 @@ def _triton_stand_in():
     tl.where = lambda c, a, b: np.where(c, a, b).astype(
         np.result_type(a, b))
     tl.broadcast_to = np.broadcast_to
+    tl.reshape = lambda x, shape: np.reshape(x, shape)
+    tl.split = _split
+    tl.permute = lambda x, dims: np.transpose(x, dims)
     tl.div_rn = lambda a, b: a / b
     tl.sqrt_rn = tl.sqrt = np.sqrt
     triton = types.ModuleType("triton")
