@@ -2973,14 +2973,15 @@ def drive_solver_serving(results, paths):
     return counts, routers
 
 
-def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
+def check_lanes(routers, results, dtypes, ob_csr, ob_prefix, b3_pats):
     """B1, B2, B3 and B4 in their lane forms at ``LANES`` lanes on phase
     3's operands (the served buckets' own; B3's the overbooked path's
     banded operand, ``ob_csr``, with its plan's resident prefix), each
     against its plain version, each lane bitwise against the
     single-request kernel on it alone, timed beside its bytes bound and a
-    library yardstick.  B1 and B2 are also held so at every count of
-    ``LANE_COUNTS`` (17: a ragged second group)."""
+    library yardstick.  B1, B2 and B3 are also held so at every count of
+    ``LANE_COUNTS`` (17: a ragged second group), B3 also on ``b3_pats``
+    (``b3_patterns``).  Returns B3's records a pattern."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3114,7 +3115,8 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
                     if f"kernelI{'f' if dt == 'float32' else 'd'}E" in e),
                    None))
 
-    check_spmv_sliced_lanes(ob_csr, ob_prefix, results, dtypes, rng)
+    b3_lane_shapes = check_spmv_sliced_lanes(ob_csr, ob_prefix, b3_pats,
+                                             results, dtypes, rng)
 
     # B4: 16 grids of 4096^2 with their f
     n = 4096
@@ -3147,31 +3149,69 @@ def check_lanes(routers, results, dtypes, ob_csr, ob_prefix):
                lanes=LANES, lanes_vs_single="bitwise")
         del U, Fs, got
         torch.cuda.empty_cache()
+    return b3_lane_shapes
 
 
-def check_spmv_sliced_lanes(csr, prefix_rows, results, dtypes, rng):
-    """B3's lane form at ``LANES`` lanes on the overbooked path's operand
-    with its plan's resident prefix: bitwise against its plain version and,
-    lane by lane, against single-request B3; timed beside its bound (as
-    B3's: the bytes a call must read with the prefix in L2, here with x and
-    y of every lane), ``torch.sparse.mm`` on the 16 right-hand sides,
-    itself with no hint (prefix 0), 16 single-request B3 calls and B2's
-    lane form on the same operand (the overbook-0 plan's kernel).  The
-    plain version's loop length is read on the host, so it is timed
-    eagerly."""
+def _hold_b3_lanes(indptr, indices, data, X, n, pre, what):
+    """B3's lane form on the first k lanes of ``X`` for every k of
+    ``LANE_COUNTS`` (``X`` holds the most): bitwise against its plain
+    version and, lane by lane, against single-request B3 with the same
+    prefix.  The plain version adds every lane on its own, so its result
+    for k lanes is its result's first k."""
+    import torch
+    from repro_torch.kernels.spmv import (spmv, spmv_sliced_lanes,
+                                          spmv_sliced_lanes_plain)
+    want = spmv_sliced_lanes_plain(indptr, indices, data, X, n, pre)
+    singles = [spmv(indptr, indices, data, X[i], n, pre)
+               for i in range(X.shape[0])]
+    for k in LANE_COUNTS:
+        got = spmv_sliced_lanes(indptr, indices, data, X[:k], n, pre)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[:k]), ("spmv_sliced_lanes vs plain",
+                                            *what, k, max_err(got, want[:k]))
+        for i in range(k):
+            assert torch.equal(got[i], singles[i]), (
+                "B3 lane vs B3", *what, k, i, max_err(got[i], singles[i]))
+
+
+def check_spmv_sliced_lanes(csr, prefix_rows, patterns, results, dtypes,
+                            rng):
+    """B3's lane form on the overbooked path's operand with its plan's
+    resident prefix, and on each of ``b3_patterns``' operands (rows longer
+    than a staged window among them) with a prefix of no rows, about half
+    the rows (whole tiles) and all rows, at every count of
+    ``LANE_COUNTS``: bitwise against its plain version and, lane by lane,
+    against single-request B3 (``_hold_b3_lanes``).  Timed at ``LANES``
+    lanes on the overbooked operand beside its bound (as B3's: the bytes a
+    call must read with the prefix in L2, here with x and y of every
+    lane), ``torch.sparse.mm`` on the 16 right-hand sides, itself with no
+    hint (prefix 0), 16 single-request B3 calls and B2's lane form on the
+    same operand (the overbook-0 plan's kernel).  The record carries the
+    kernel's registers and spill bytes (``-Xptxas -v``) and its launch
+    shape (shared bytes a block, blocks an SM).  The plain version's
+    loop length is read on the host, so it is timed eagerly.  Returns one
+    record a pattern, dtype and prefix."""
     import numpy as np
     import torch
-    from repro_torch.kernels.spmv import (spmv, spmv_lanes,
+    from repro_torch.kernels.build import build_log
+    from repro_torch.kernels.spmv import (B3_LANE_WINDOW, B3_TILE_ROWS,
+                                          spmv, spmv_lanes,
                                           spmv_sliced_lanes,
-                                          spmv_sliced_lanes_plain)
+                                          spmv_sliced_lanes_plain,
+                                          sliced_lanes_shape)
     indptr_np, indices_np, data_np = csr
     n, nnz = indptr_np.shape[0] - 1, indices_np.shape[0]
     indptr = torch.from_numpy(indptr_np).cuda()
     indices = torch.from_numpy(indices_np).cuda()
+    usage = ptxas_usage(build_log(), ("spmv_tiled_lanes_kernel",))
     for dt in dtypes:
         tdt = getattr(torch, dt)
         data = torch.from_numpy(data_np).to("cuda", tdt)
-        X = torch.from_numpy(rng.standard_normal((LANES, n))).to("cuda", tdt)
+        X17 = torch.from_numpy(rng.standard_normal((max(LANE_COUNTS), n))
+                               ).to("cuda", tdt)
+        _hold_b3_lanes(indptr, indices, data, X17, n, prefix_rows,
+                       ("banded", dt))
+        X = X17[:LANES]
 
         def kernel(rows=prefix_rows):
             return spmv_sliced_lanes(indptr, indices, data, X, n, rows)
@@ -3183,13 +3223,6 @@ def check_spmv_sliced_lanes(csr, prefix_rows, results, dtypes, rng):
         def singles():
             return [spmv(indptr, indices, data, X[i], n, prefix_rows)
                     for i in range(LANES)]
-        got = kernel()
-        torch.cuda.synchronize()
-        assert torch.equal(got, plain()), ("spmv_sliced_lanes vs plain", dt,
-                                           max_err(got, plain()))
-        for i, one in enumerate(singles()):
-            assert torch.equal(got[i], one), ("B3 lane vs B3", dt, i,
-                                              max_err(got[i], one))
         with warnings.catch_warnings():      # beta-state notices
             warnings.simplefilter("ignore")
             A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
@@ -3204,21 +3237,58 @@ def check_spmv_sliced_lanes(csr, prefix_rows, results, dtypes, rng):
                      single_b3_x16_ms=graph_ms(singles, inner=2),
                      spmv_b2_lanes_ms=graph_ms(lambda: spmv_lanes(
                          indptr, indices, data, X, n)))
+        extra.update(again_ms=graph_ms(kernel),
+                     unhinted_again_ms=graph_ms(lambda: kernel(0)))
+        shape = sliced_lanes_shape(tdt)
+        res = next((u for e, u in usage.items()
+                    if f"kernelI{'f' if dt == 'float32' else 'd'}E" in e),
+                   None)
         record(results, "B3 lanes       ", kernel="spmv_sliced_lanes",
                case=f"banded n={n} bandwidth={OB_BANDWIDTH} nnz={nnz} "
                f"prefix {prefix_rows} rows, {LANES} lanes", dtype=dt,
                err=0.0, rel_err=0.0, tol=0.0, nbytes=all_bytes - resident,
                flops=2 * nnz * LANES, times=times, lanes=LANES,
-               lanes_vs_single="bitwise", all_operand_bytes=all_bytes,
+               lanes_vs_single="bitwise",
+               bitwise_lane_counts=list(LANE_COUNTS),
+               all_operand_bytes=all_bytes,
                bound_ms_all_operand=all_bytes / PEAK_BYTES_S * 1e3,
                resident_bytes=resident, prefix_rows=prefix_rows,
-               plain_timing="eager", **extra)
+               plain_timing="eager", resources=res, launch_shape=shape,
+               **extra)
         log(f"  B3 lanes {dt}: bitwise equal to its plain version and, "
-            f"lane by lane, to B3; {LANES} lanes {times['ms']:.4f} ms, "
-            f"unhinted (prefix 0) {extra['unhinted_ms']:.4f} ms, {LANES} "
-            f"single-request B3 calls {extra['single_b3_x16_ms']:.4f} ms, "
-            f"B2 lanes {extra['spmv_b2_lanes_ms']:.4f} ms, torch.sparse.mm "
-            f"{times['library_ms']:.4f} ms")
+            f"lane by lane, to B3 at {list(LANE_COUNTS)} lanes; {LANES} "
+            f"lanes {times['ms']:.4f} / {extra['again_ms']:.4f} ms, "
+            f"unhinted (prefix 0) {extra['unhinted_ms']:.4f} / "
+            f"{extra['unhinted_again_ms']:.4f} ms, {LANES} single-request "
+            f"B3 calls {extra['single_b3_x16_ms']:.4f} ms, B2 lanes "
+            f"{extra['spmv_b2_lanes_ms']:.4f} ms, torch.sparse.mm "
+            f"{times['library_ms']:.4f} ms; {res}, {shape}")
+        del X17, X, XT, A
+    out = []
+    for name, (indptr_np, indices_np) in patterns.items():
+        n, nnz = indptr_np.shape[0] - 1, indices_np.shape[0]
+        longest = int(np.diff(indptr_np).max())
+        indptr = torch.from_numpy(indptr_np).cuda()
+        indices = torch.from_numpy(indices_np).cuda()
+        for dt in dtypes:
+            tdt = getattr(torch, dt)
+            data = torch.from_numpy(rng.standard_normal(nnz)).to("cuda", tdt)
+            X17 = torch.from_numpy(rng.standard_normal(
+                (max(LANE_COUNTS), n))).to("cuda", tdt)
+            for where, pre in (("none", 0), ("part", n // 2 // B3_TILE_ROWS
+                                              * B3_TILE_ROWS), ("all", n)):
+                _hold_b3_lanes(indptr, indices, data, X17, n, pre,
+                               (name, dt, where))
+                out.append(dict(pattern=name, n=n, nnz=nnz, dtype=dt,
+                                prefix_rows=pre, longest_row=longest,
+                                window=B3_LANE_WINDOW,
+                                lane_counts=list(LANE_COUNTS), bitwise=True,
+                                card=CARD))
+        log(f"  B3 lanes {name} n={n} nnz={nnz} (longest row {longest}, "
+            f"window {B3_LANE_WINDOW}): bitwise equal to its plain version "
+            f"and, lane by lane, to B3 at {list(LANE_COUNTS)} lanes in "
+            f"{', '.join(dtypes)} with prefixes of none, part and all rows")
+    return out
 
 
 def check_bound_operator(routers):
@@ -3358,7 +3428,8 @@ def main(argv=None) -> int:
                    for c in ("indptr", "indices", "data"))
     ob_prefix = prefix_rows(ob_plans["cg_sparse", 0.25, "float64"])
     check_spmv_sliced(ob_csr, ob_prefix, results, dtypes)
-    b3_shapes = check_spmv_sliced_shapes(b3_patterns(csr), dtypes)
+    b3_pats = b3_patterns(csr)
+    b3_shapes = check_spmv_sliced_shapes(b3_pats, dtypes)
     b4_shapes = check_stencil(results, dtypes)
     t0 = time.perf_counter()
     check_off_path(dtypes)
@@ -3433,7 +3504,8 @@ def main(argv=None) -> int:
     for k in ("stream_lanes", "stream_lanes_finalize", "spmv_lanes",
               "stencil2d_lanes"):
         assert counts[k] > 0, f"lane kernel {k} never ran while serving"
-    check_lanes(routers, results, dtypes, ob_csr, ob_prefix)
+    b3_lane_shapes = check_lanes(routers, results, dtypes, ob_csr,
+                                 ob_prefix, b3_pats)
     check_bound_operator(routers)
     del routers
     torch.cuda.empty_cache()
@@ -3531,7 +3603,9 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"nvidia_smi": smi, "kernels": table, "paths": paths,
-                       "b3_shapes": b3_shapes, "b4_shapes": b4_shapes,
+                       "b3_shapes": b3_shapes,
+                       "b3_lane_shapes": b3_lane_shapes,
+                       "b4_shapes": b4_shapes,
                        "two_threads": two_threads,
                        "build_seconds": build.build_seconds}, fh, indent=1)
     log(smi_line())

@@ -97,23 +97,52 @@
 // at 0.089 ms fp32 (60% of the bound) and 0.148 ms fp64 (68%), and on the
 // overbooked path's banded operand at 0.060 / 0.081 ms.  One lane a thread
 // (the row's entries re-read 16 times through L1), 8 lanes a thread and
-// B3's staged lane form at prefix 0 (16 lanes a thread) were each slower.
+// the earlier form of B3's lane form at prefix 0 (16 lanes a thread) were
+// each slower.
 //
 // B3's lane form (`spmv_tiled_lanes_kernel`) is the counterpart of the TPU
 // kernel :616 under jax.vmap (CompiledPlan.batched() on an overbooked plan):
 // L SpMVs, lane-major x (L, n) and y (L, rows), against one operand whose
-// row prefix is pinned.  It keeps B3's design (128-row tiles, windows of the
-// tile's indices and data staged in shared memory by cp.async, double
-// buffered, the prefix tiles' copies evict_last and the tail's evict_first)
-// and adds B2's lane group: each thread carries kLaneGroup accumulators, so
-// each staged window serves the 16 lanes of a group and the operand is read
-// from memory once per group.  A second grid axis walks the groups (lanes
-// past L skip by a uniform branch; no lane writes outside y).  Each lane
-// adds its row's products in ascending entry order from zero with B2's
-// rounded products and adds, so every lane is bitwise equal to single-
-// request B3 (and so to B2) on that lane alone.
+// row prefix is pinned.  Each lane adds its row's products in ascending
+// entry order from zero with B2's rounded products and adds, so every lane
+// is bitwise equal to single-request B3 (and so to B2) on that lane alone.
+// It is B3's staging under B2 lanes' thread layout:
+// * A block is kLaneTileRows (32) rows by the kLaneRuns (4) runs of
+//   kLaneRun (4) lanes of one 16-lane group, 128 threads: threadIdx.x the
+//   row, threadIdx.y the run.  A second grid axis walks the groups, and one
+//   wave of blocks covers them all (two groups at 17 lanes).  A block walks
+//   tiles as B3 does and stages each tile's indices and data in windows of
+//   kLaneWindow (1152) entries with B3's coalesced cp.async copies, in one
+//   buffer (9.3 KB fp32, 13.9 KB fp64): while a block waits for its copy,
+//   the SM's other blocks (10 in fp32, 8 in fp64) add.  A 32-row tile of
+//   33-entry banded rows fits one window.
+// * A thread reads each staged entry once for its 4 lanes, with four
+//   entries' gathers in flight before their adds.  A warp whose lanes all
+//   lie past L stages and syncs but adds nothing; a partial run skips by a
+//   branch.
+// * What bounds it on the card is the x gathers: 16 an entry, each warp's
+//   32 rows gathering neighbouring columns of one lane.  They hit L1 when
+//   L1 holds the tiles' x.  The earlier form of this kernel staged two
+//   4608-entry windows a block (~224 KB of shared memory an SM, L1 left
+//   ~28 KB) and carried 16 lanes a thread (8-12 warps an SM).  B2's lane
+//   form keeps L1 for x, but each thread loads its own row's entries, so a
+//   warp's loads touch 32 row segments, and each of a row's four runs loads
+//   them again.  Small staged windows keep both the coalesced copies and
+//   L1 for x (~93 KB fp32 / ~111 KB fp64 of shared memory an SM).
+// * The prefix, as B3's: copies of tiles wholly in the prefix evict_last,
+//   the tail's evict_first, no hint at prefix_rows == 0.
 // Bound: bytes, as B3's: with the prefix in L2, the tail's entries, indptr,
-// then x and y of every lane; x[l][col] is gathered through L1/L2.
+// then x and y of every lane.  At the overbooked path's operand (banded,
+// n = 131072, bandwidth 16, prefix 104596 rows) and 16 lanes: 24.3 MB fp32
+// (0.0073 ms at 3.35 TB/s), 44.6 MB fp64 (0.0133 ms); all operand bytes
+// 51.9 / 86.0 MB (0.0155 / 0.0257 ms).  On that operand at 16 lanes it
+// takes ~0.037 ms fp32 and ~0.056 ms fp64 on an H100 80GB HBM3 (700 W),
+// against 0.086 / 0.164 ms for the earlier form and ~0.060 / ~0.082 ms
+// for B2's lane form (chip_smoke.py, PERF.md §6).  Tried and slower in
+// fp32, fp64 or both: two buffers a block (double the shared memory, L1
+// taken from x), windows of half a tile (the rows past a window idle),
+// 8 lanes a thread (more registers in fp64), 64- and 128-row tiles with
+// one or two buffers, and a shared-memory carveout of 50%.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -232,15 +261,17 @@ constexpr int kTileRows = 128;    // rows a tile = threads a block (B3_TILE_ROWS
 constexpr int kWindow = 4608;     // entries a window stages (B3_WINDOW)
 constexpr int kSlack = 8;         // the aligned superset's extra entries
 
-// One window buffer: entry e of the window [e0, e1) sits at [e - (e0 rounded
-// down to 16 bytes)].  Both arrays start 16-byte aligned.
-template <typename T>
-struct Window {
-  int idx[kWindow + kSlack];
-  T val[kWindow + kSlack];
+// One window buffer of kWin entries: entry e of the window [e0, e1) sits at
+// [e - (e0 rounded down to 16 bytes)].  Both arrays start 16-byte aligned.
+template <typename T, int kWin>
+struct WindowOf {
+  static_assert(kWin % 4 == 0, "16-byte aligned arrays");
+  int idx[kWin + kSlack];
+  T val[kWin + kSlack];
 };
+template <typename T>
+using Window = WindowOf<T, kWindow>;
 static_assert(sizeof(Window<float>) % 16 == 0 && sizeof(Window<double>) % 16 == 0, "");
-static_assert((sizeof(int) * (kWindow + kSlack)) % 16 == 0, "");
 
 enum Hint { kNoHint = 0, kEvictLast = 1, kEvictFirst = 2 };
 
@@ -273,14 +304,15 @@ __device__ __forceinline__ uint64_t make_policy(int hint) {
 }
 
 // the 16-byte chunks covering entries [e0, e1) of src into dst (nnz entries
-// in all: the bytes of a chunk past nnz are zero-filled)
-template <typename E>
+// in all: the bytes of a chunk past nnz are zero-filled), thread tid of the
+// block's kThreads
+template <int kThreads, typename E>
 __device__ __forceinline__ void stage(E* dst, const E* __restrict__ src, int e0, int e1, int nnz,
-                                      int hint, uint64_t pol) {
+                                      int hint, uint64_t pol, int tid) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(E));
   const int c0 = e0 & ~(kPer - 1);
   const int c1 = (e1 + kPer - 1) & ~(kPer - 1);
-  for (int c = c0 + static_cast<int>(threadIdx.x) * kPer; c < c1; c += kTileRows * kPer) {
+  for (int c = c0 + tid * kPer; c < c1; c += kThreads * kPer) {
     const int left = nnz - c;
     cp_async16(dst + (c - c0), src + c, left >= kPer ? 16 : left * static_cast<int>(sizeof(E)),
                hint, pol);
@@ -291,36 +323,39 @@ struct Span {
   int tile, e0, e1, end;    // window [e0, e1) of the tile's entries [.., end)
 };
 
+// tiles of kRows rows, windows of at most kWin entries
+template <int kRows, int kWin>
 __device__ __forceinline__ Span first_window(const int* __restrict__ indptr, int tile, int rows) {
-  const int r0 = tile * kTileRows;
+  const int r0 = tile * kRows;
   const int e0 = indptr[r0];
-  const int end = indptr[min(r0 + kTileRows, rows)];
-  return {tile, e0, end - e0 > kWindow ? e0 + kWindow : end, end};
+  const int end = indptr[min(r0 + kRows, rows)];
+  return {tile, e0, end - e0 > kWin ? e0 + kWin : end, end};
 }
 
+template <int kRows, int kWin>
 __device__ __forceinline__ Span next_window(const int* __restrict__ indptr, const Span& w,
                                             int rows) {
   if (w.e1 < w.end)
-    return {w.tile, w.e1, w.end - w.e1 > kWindow ? w.e1 + kWindow : w.end, w.end};
-  const int tiles = (rows + kTileRows - 1) / kTileRows;
+    return {w.tile, w.e1, w.end - w.e1 > kWin ? w.e1 + kWin : w.end, w.end};
+  const int tiles = (rows + kRows - 1) / kRows;
   const int t = w.tile + static_cast<int>(gridDim.x);
-  return t < tiles ? first_window(indptr, t, rows) : Span{t, 0, 0, 0};
+  return t < tiles ? first_window<kRows, kWin>(indptr, t, rows) : Span{t, 0, 0, 0};
 }
 
 // stage window w of the tile's entries into `to`: a tile wholly inside the
 // prefix with the evict_last policy, the tail's with evict_first, none when
 // there is no prefix; one cp.async group
-template <typename T>
-__device__ __forceinline__ void fetch_window(const Span& w, Window<T>& to,
+template <int kRows, int kThreads, typename T, int kWin>
+__device__ __forceinline__ void fetch_window(const Span& w, WindowOf<T, kWin>& to,
                                              const int* __restrict__ indices,
                                              const T* __restrict__ data, int nnz, int rows,
                                              int prefix_rows, uint64_t pol_last,
-                                             uint64_t pol_first) {
-  const bool in_prefix = min((w.tile + 1) * kTileRows, rows) <= prefix_rows;
+                                             uint64_t pol_first, int tid) {
+  const bool in_prefix = min((w.tile + 1) * kRows, rows) <= prefix_rows;
   const int hint = prefix_rows == 0 ? kNoHint : (in_prefix ? kEvictLast : kEvictFirst);
   const uint64_t pol = in_prefix ? pol_last : pol_first;
-  stage(to.idx, indices, w.e0, w.e1, nnz, hint, pol);
-  stage(to.val, data, w.e0, w.e1, nnz, hint, pol);
+  stage<kThreads>(to.idx, indices, w.e0, w.e1, nnz, hint, pol, tid);
+  stage<kThreads>(to.val, data, w.e0, w.e1, nnz, hint, pol, tid);
   cp_async_commit();
 }
 
@@ -339,10 +374,11 @@ __global__ void __launch_bounds__(kTileRows)
   const uint64_t pol_first = make_policy(prefix_rows > 0 ? kEvictFirst : kNoHint);
 
   auto fetch = [&](const Span& w, Window<T>& to) {
-    fetch_window(w, to, indices, data, nnz, rows, prefix_rows, pol_last, pol_first);
+    fetch_window<kTileRows, kTileRows>(w, to, indices, data, nnz, rows, prefix_rows, pol_last,
+                                       pol_first, static_cast<int>(threadIdx.x));
   };
 
-  Span cur = first_window(indptr, blockIdx.x, rows);
+  Span cur = first_window<kTileRows, kWindow>(indptr, blockIdx.x, rows);
   fetch(cur, buf[0]);
   int b = 0;
   int row = cur.tile * kTileRows + static_cast<int>(threadIdx.x);
@@ -350,7 +386,7 @@ __global__ void __launch_bounds__(kTileRows)
   int re = row < rows ? indptr[row + 1] : 0;
   T acc = T(0);
   for (;;) {
-    const Span nxt = next_window(indptr, cur, rows);
+    const Span nxt = next_window<kTileRows, kWindow>(indptr, cur, rows);
     const bool more = nxt.tile < tiles;
     if (more) {
       fetch(nxt, buf[b ^ 1]);
@@ -387,78 +423,112 @@ __global__ void __launch_bounds__(kTileRows)
   }
 }
 
-// B3's lane form: spmv_tiled_kernel's walk over tiles and windows, with
-// kLaneGroup accumulators a thread (lanes blockIdx.y * kLaneGroup + g)
+// ---------------------------------------------------------------------------
+// B3's lane form
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneTileRows = 32;                // rows a tile (B3_LANE_ROWS in kernels/spmv.py)
+constexpr int kLaneWindow = 1152;                // entries a window (B3_LANE_WINDOW)
+constexpr int kLaneRun = 4;                      // lanes a thread
+constexpr int kLaneRuns = kLaneGroup / kLaneRun;  // threads a row
+constexpr int kLaneBlock = kLaneTileRows * kLaneRuns;
+static_assert(kLaneGroup % kLaneRun == 0 && kLaneTileRows % 32 == 0, "");
+
 template <typename T>
-__global__ void __launch_bounds__(kTileRows)
+using LaneWindow = WindowOf<T, kLaneWindow>;
+
+// B3's lane form: a block is kLaneTileRows rows by the kLaneRuns runs of
+// kLaneRun lanes of one lane group (threadIdx.x the row, threadIdx.y the
+// run); it walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... staging each
+// tile's windows as B3 does, and every thread adds its row's entries of a
+// window for its run of lanes, four entries' gathers in flight
+template <typename T>
+__global__ void __launch_bounds__(kLaneBlock)
     spmv_tiled_lanes_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                             const T* __restrict__ data, const T* __restrict__ x,
                             T* __restrict__ y, int rows, int cols, int lanes, int prefix_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Window<T>* buf = reinterpret_cast<Window<T>*>(smem);
+  LaneWindow<T>* buf = reinterpret_cast<LaneWindow<T>*>(smem);
   constexpr int kPerT = 16 / static_cast<int>(sizeof(T));
-  const int tiles = (rows + kTileRows - 1) / kTileRows;
+  const int tiles = (rows + kLaneTileRows - 1) / kLaneTileRows;
   if (static_cast<int>(blockIdx.x) >= tiles) return;
-  const int l0 = static_cast<int>(blockIdx.y) * kLaneGroup;
-  const int nl = min(kLaneGroup, lanes - l0);
-  const T* __restrict__ xl = x + static_cast<size_t>(l0) * cols;
-  T* __restrict__ yl = y + static_cast<size_t>(l0) * rows;
+  const int tid = static_cast<int>(threadIdx.y) * kLaneTileRows + static_cast<int>(threadIdx.x);
+  const int l0 = static_cast<int>(blockIdx.y) * kLaneGroup +
+                 static_cast<int>(threadIdx.y) * kLaneRun;
+  // this warp's lanes: none past L (the warp still stages and syncs), a
+  // partial run skips the rest by a branch
+  const int nl = min(kLaneRun, lanes - l0);
+  const T* __restrict__ xl = x + static_cast<size_t>(nl > 0 ? l0 : 0) * cols;
   const int nnz = indptr[rows];
   const uint64_t pol_last = make_policy(prefix_rows > 0 ? kEvictLast : kNoHint);
   const uint64_t pol_first = make_policy(prefix_rows > 0 ? kEvictFirst : kNoHint);
 
-  auto fetch = [&](const Span& w, Window<T>& to) {
-    fetch_window(w, to, indices, data, nnz, rows, prefix_rows, pol_last, pol_first);
+  auto fetch = [&](const Span& w, LaneWindow<T>& to) {
+    fetch_window<kLaneTileRows, kLaneBlock>(w, to, indices, data, nnz, rows, prefix_rows,
+                                            pol_last, pol_first, tid);
   };
 
-  Span cur = first_window(indptr, blockIdx.x, rows);
-  fetch(cur, buf[0]);
-  int b = 0;
-  int row = cur.tile * kTileRows + static_cast<int>(threadIdx.x);
+  Span cur = first_window<kLaneTileRows, kLaneWindow>(indptr, blockIdx.x, rows);
+  fetch(cur, *buf);
+  int row = cur.tile * kLaneTileRows + static_cast<int>(threadIdx.x);
   int rs = row < rows ? indptr[row] : 0;
   int re = row < rows ? indptr[row + 1] : 0;
-  T acc[kLaneGroup];
+  T acc[kLaneRun];
 #pragma unroll
-  for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+  for (int g = 0; g < kLaneRun; ++g) acc[g] = T(0);
   for (;;) {
-    const Span nxt = next_window(indptr, cur, rows);
+    const Span nxt = next_window<kLaneTileRows, kLaneWindow>(indptr, cur, rows);
     const bool more = nxt.tile < tiles;
-    if (more) {
-      fetch(nxt, buf[b ^ 1]);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();                      // the current window has landed
-    const int lo = max(rs, cur.e0), hi = min(re, cur.e1);
-    const int* sidx = buf[b].idx + (lo - (cur.e0 & ~3));
-    const T* sval = buf[b].val + (lo - (cur.e0 & ~(kPerT - 1)));
-    const int n = max(hi - lo, 0);
-    for (int k = 0; k < n; ++k) {         // each entry once for the group
-      const int c = sidx[k];
-      const T v = sval[k];
+    if (nl > 0) {
+      const int lo = max(rs, cur.e0), hi = min(re, cur.e1);
+      const int* sidx = buf->idx + (lo - (cur.e0 & ~3));
+      const T* sval = buf->val + (lo - (cur.e0 & ~(kPerT - 1)));
+      const int n = max(hi - lo, 0);
+      int k = 0;
+      for (; k + 4 <= n; k += 4) {        // four entries' gathers in flight
+        int c[4];
+        T v[4], xs[4][kLaneRun];
 #pragma unroll
-      for (int g = 0; g < kLaneGroup; ++g) {
-        if (g < nl) acc[g] = add_rn(acc[g], mul_rn(v, xl[static_cast<size_t>(g) * cols + c]));
+        for (int q = 0; q < 4; ++q) {
+          c[q] = sidx[k + q];
+          v[q] = sval[k + q];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int g = 0; g < kLaneRun; ++g)
+            xs[q][g] = g < nl ? xl[static_cast<size_t>(g) * cols + c[q]] : T(0);
+#pragma unroll
+        for (int g = 0; g < kLaneRun; ++g)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[g] = add_rn(acc[g], mul_rn(v[q], xs[q][g]));
       }
-    }
-    if (cur.e1 == cur.end && row < rows) {
+      for (; k < n; ++k) {
+        const int c = sidx[k];
+        const T v = sval[k];
 #pragma unroll
-      for (int g = 0; g < kLaneGroup; ++g) {
-        if (g < nl) yl[static_cast<size_t>(g) * rows + row] = acc[g];
+        for (int g = 0; g < kLaneRun; ++g)
+          if (g < nl) acc[g] = add_rn(acc[g], mul_rn(v, xl[static_cast<size_t>(g) * cols + c]));
+      }
+      if (cur.e1 == cur.end && row < rows) {
+#pragma unroll
+        for (int g = 0; g < kLaneRun; ++g)
+          if (g < nl) y[static_cast<size_t>(l0 + g) * rows + row] = acc[g];
       }
     }
     __syncthreads();                      // the buffer is read: it may be refilled
     if (!more) break;
+    fetch(nxt, *buf);
     if (nxt.tile != cur.tile) {
-      row = nxt.tile * kTileRows + static_cast<int>(threadIdx.x);
+      row = nxt.tile * kLaneTileRows + static_cast<int>(threadIdx.x);
       rs = row < rows ? indptr[row] : 0;
       re = row < rows ? indptr[row + 1] : 0;
 #pragma unroll
-      for (int g = 0; g < kLaneGroup; ++g) acc[g] = T(0);
+      for (int g = 0; g < kLaneRun; ++g) acc[g] = T(0);
     }
     cur = nxt;
-    b ^= 1;
   }
 }
 
@@ -468,17 +538,17 @@ struct TiledLaunch {
 };
 
 // the shared-memory attribute and the blocks that fit on the card, for one
-// of the tiled kernels (B3 or its lane form)
-template <typename T, typename Kernel>
-TiledLaunch tiled_setup(Kernel kernel) {
+// of the tiled kernels (B3 or its lane form): `threads` a block, `smem`
+// bytes of dynamic shared memory
+template <typename Kernel>
+TiledLaunch tiled_setup(Kernel kernel, int threads, int smem) {
   TiledLaunch s{cudaSuccess, 0, 0};
-  const int smem = static_cast<int>(2 * sizeof(Window<T>));
   int dev = 0;
   s.err = cudaGetDevice(&dev);
   if (s.err == cudaSuccess)
     s.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (s.err == cudaSuccess)
-    s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm, kernel, kTileRows,
+    s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm, kernel, threads,
                                                           smem);
   if (s.err == cudaSuccess)
     s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
@@ -489,16 +559,16 @@ TiledLaunch tiled_setup(Kernel kernel) {
 template <typename T>
 int launch_b3(const void* indptr, const void* indices, const void* data, const void* x, void* y,
               int rows, int prefix_rows, void* stream) {
+  constexpr int kSmem = 2 * sizeof(Window<T>);
   // once per instantiation, at the first call: not during a CUDA-graph capture
-  static const TiledLaunch setup = tiled_setup<T>(spmv_tiled_kernel<T>);
+  static const TiledLaunch setup = tiled_setup(spmv_tiled_kernel<T>, kTileRows, kSmem);
   if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
   if ((reinterpret_cast<uintptr_t>(indices) | reinterpret_cast<uintptr_t>(data)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (rows > 0) {
     const int tiles = (rows + kTileRows - 1) / kTileRows;
     const int blocks = min(tiles, setup.blocks_per_sm * setup.sms);
-    spmv_tiled_kernel<T><<<blocks, kTileRows, 2 * sizeof(Window<T>),
-                           static_cast<cudaStream_t>(stream)>>>(
+    spmv_tiled_kernel<T><<<blocks, kTileRows, kSmem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows,
         prefix_rows);
@@ -507,18 +577,42 @@ int launch_b3(const void* indptr, const void* indices, const void* data, const v
 }
 
 template <typename T>
+constexpr int lane_smem() {
+  return static_cast<int>(sizeof(LaneWindow<T>));
+}
+
+// once per instantiation, at the first call: not during a CUDA-graph capture
+template <typename T>
+const TiledLaunch& lane_setup() {
+  static const TiledLaunch setup =
+      tiled_setup(spmv_tiled_lanes_kernel<T>, kLaneBlock, lane_smem<T>());
+  return setup;
+}
+
+// the lane form's launch shape: rows a tile, threads a block, dynamic shared
+// bytes a block, blocks an SM, SMs, entries a window, lanes a thread
+template <typename T>
+int b3_lanes_shape(int* out) {
+  const TiledLaunch& setup = lane_setup<T>();
+  const int shape[7] = {kLaneTileRows, kLaneBlock, lane_smem<T>(), setup.blocks_per_sm,
+                        setup.sms, kLaneWindow, kLaneRun};
+  for (int i = 0; i < 7; ++i) out[i] = shape[i];
+  return static_cast<int>(setup.err);
+}
+
+template <typename T>
 int launch_b3_lanes(const void* indptr, const void* indices, const void* data, const void* x,
                     void* y, int rows, int cols, int lanes, int prefix_rows, void* stream) {
-  // once per instantiation, at the first call: not during a CUDA-graph capture
-  static const TiledLaunch setup = tiled_setup<T>(spmv_tiled_lanes_kernel<T>);
+  const TiledLaunch& setup = lane_setup<T>();
   if (setup.err != cudaSuccess) return static_cast<int>(setup.err);
   if ((reinterpret_cast<uintptr_t>(indices) | reinterpret_cast<uintptr_t>(data)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (rows > 0 && lanes > 0) {
-    const int tiles = (rows + kTileRows - 1) / kTileRows;
-    const dim3 grid(min(tiles, setup.blocks_per_sm * setup.sms),
-                    (lanes + kLaneGroup - 1) / kLaneGroup);
-    spmv_tiled_lanes_kernel<T><<<grid, kTileRows, 2 * sizeof(Window<T>),
+    // one wave of blocks over all the lane groups (17 lanes: two groups)
+    const int tiles = (rows + kLaneTileRows - 1) / kLaneTileRows;
+    const int groups = (lanes + kLaneGroup - 1) / kLaneGroup;
+    const dim3 grid(min(tiles, max(1, setup.blocks_per_sm * setup.sms / groups)), groups);
+    spmv_tiled_lanes_kernel<T><<<grid, dim3(kLaneTileRows, kLaneRuns), lane_smem<T>(),
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows, cols,
@@ -576,3 +670,7 @@ extern "C" int cello_spmv_sliced_lanes_f64(const void* indptr, const void* indic
   return launch_b3_lanes<double>(indptr, indices, data, x, y, rows, cols, lanes, prefix_rows,
                                  stream);
 }
+
+extern "C" int cello_spmv_sliced_lanes_shape_f32(int* out) { return b3_lanes_shape<float>(out); }
+
+extern "C" int cello_spmv_sliced_lanes_shape_f64(int* out) { return b3_lanes_shape<double>(out); }

@@ -13,8 +13,10 @@ each entry of its row once for 4 lanes (the row's 4 such threads share it
 through L1), and each lane equals B2 on it alone.
 B3's lane form (:func:`spmv_sliced_lanes`, ``csrc/spmv.cu::
 spmv_tiled_lanes_kernel``) does the same for an operand with an
-overbooked pin: each staged window of B3 serves 16 lanes, and each lane
-equals B3 (and B2) on it alone, bitwise.
+overbooked pin: a block stages tiles of ``B3_LANE_ROWS`` rows in windows
+of ``B3_LANE_WINDOW`` entries, as B3 does, and its threads read each
+staged entry for 4 lanes each, B2's lane layout; each lane equals B3 (and
+B2) on it alone, bitwise.
 
 B3 replaces ``:616`` ``_spmv_sliced_tile`` together with its arrangement,
 ``:300`` ``_StreamCall._arrange``.  An overbooked pin keeps an
@@ -43,6 +45,9 @@ from . import count, on_cuda
 #: in ``csrc/spmv.cu``); a row longer than a window spans several
 B3_TILE_ROWS = 128
 B3_WINDOW = 4608
+#: the same of B3's lane form (``kLaneTileRows``, ``kLaneWindow``)
+B3_LANE_ROWS = 32
+B3_LANE_WINDOW = 1152
 
 
 def csr_row_ids(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -192,10 +197,15 @@ def spmv_sliced_lanes(indptr: torch.Tensor, indices: torch.Tensor,
     """B3's lane form: ``y[l] = A @ x[l]`` for L right-hand sides at once,
     ``x`` lane-major ``(L, n)``, ``y`` ``(L, rows)``, against an operand
     whose rows ``[0, prefix_rows)`` are the resident prefix of an
-    overbooked pin (from :func:`arrange`).  Each staged window of the
-    operand serves a group of 16 lanes, and each lane equals
-    :func:`spmv` with that ``prefix_rows`` on that lane alone, bitwise
-    (see ``csrc/spmv.cu``)."""
+    overbooked pin (from :func:`arrange`).  Each window of
+    ``B3_LANE_WINDOW`` entries staged in shared memory serves a group of
+    16 lanes, four lanes a thread, and each lane equals :func:`spmv` with
+    that ``prefix_rows`` on that lane alone, bitwise.  The prefix is
+    hinted in L2 as B3 hints it.
+    Bound: bytes, the tail's entries, ``indptr`` and every lane's x and y
+    with the prefix held in L2.  ``csrc/spmv.cu`` gives the design, its
+    time on the card beside the earlier form's and B2 lanes', and the
+    shapes tried and found slower."""
     if x.dim() != 2:
         raise ValueError(f"spmv_sliced_lanes takes a lane-major (L, n) x, "
                          f"got {tuple(x.shape)}")
@@ -216,6 +226,20 @@ def spmv_sliced_lanes(indptr: torch.Tensor, indices: torch.Tensor,
              x.data_ptr(), y.data_ptr(), rows, cols, lanes, prefix_rows,
              stream), "spmv_sliced_lanes")
     return y
+
+
+def sliced_lanes_shape(dtype: torch.dtype) -> dict:
+    """B3's lane form's launch shape on this card, as the library built
+    it: rows a tile, threads and dynamic shared bytes a block, blocks an
+    SM, SMs, entries a window, lanes a thread."""
+    import ctypes
+    from .build import check, cuda_library
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    out = (ctypes.c_int * 7)()
+    check(getattr(cuda_library(), f"cello_spmv_sliced_lanes_shape_{suffix}")(
+        out), "spmv_sliced_lanes_shape")
+    return dict(zip(("tile_rows", "threads", "shared_bytes", "blocks_per_sm",
+                     "sms", "window", "lanes_per_thread"), out))
 
 
 def arrange(sl, leaf, rows: int, tile_rows: int, nnz: int) -> Optional[int]:

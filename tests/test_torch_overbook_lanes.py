@@ -20,13 +20,22 @@ mode.
   ``tests/test_torch_exec.py``'s ``TOL`` (fp32 rtol 2e-4 / atol 1e-5,
   fp64 rtol 1e-9 / atol 1e-12);
 * each port lane bitwise equal to the port's unbatched ``run()`` of its
-  request, padded batches (3 requests on 4 lanes) included.
+  request, padded batches (3 requests on 4 lanes) included;
+* rows longer than three of the lane form's staged windows
+  (``B3_LANE_WINDOW``): the port's lane form at 5 lanes against the JAX
+  package's sliced Pallas kernel, vmapped, in interpret mode (within
+  ``TOL``) and per lane bitwise B3's and B2's plain versions; (``gpu``)
+  the kernel on such rows;
+* the constants ``kernels/spmv.py`` mirrors against ``csrc/spmv.cu``.
 
 The JAX package's sliced kernel reads its resident blocks with ``pl.load``,
 which the installed JAX no longer has; this file's ``pallas_load`` fixture
 gives it back as the plain ref read (``ref[idx]``) for the duration of a
 test, as ``tests/test_torch_overbook.py``'s does.
 """
+import pathlib
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -39,7 +48,9 @@ import repro_torch.api as pt_api
 from repro_torch import kernels
 from repro_torch.exec.cuda import CudaLaneProgram, spmv_prefixes
 from repro_torch.frontends import feeds_from_numpy
-from repro_torch.kernels.spmv import (B3_TILE_ROWS, spmv, spmv_lanes_plain,
+from repro_torch.kernels import spmv as spmv_mod
+from repro_torch.kernels.spmv import (B3_LANE_WINDOW, B3_TILE_ROWS,
+                                      spmv, spmv_lanes_plain,
                                       spmv_sliced_lanes,
                                       spmv_sliced_lanes_plain,
                                       spmv_sliced_plain)
@@ -127,9 +138,12 @@ def _jax_batched(case, dtype):
 # the lane form's plain version
 # ---------------------------------------------------------------------------
 
-def _csr(rng, rows):
+def _csr(rng, rows, long_rows=()):
+    """Rows of 0-11 entries (every ninth empty), and ``long_rows`` of
+    three lane windows and more."""
     counts = rng.integers(0, 12, rows)
     counts[::9] = 0
+    counts[list(long_rows)] = 3 * B3_LANE_WINDOW + 5
     indptr = np.concatenate(([0], np.cumsum(counts))).astype(np.int32)
     indices = np.concatenate([np.sort(rng.choice(rows, c, replace=False))
                               for c in counts]).astype(np.int32)
@@ -157,6 +171,100 @@ def test_lane_plain_is_bitwise_b3_plain_per_lane(dtype, lanes, where):
         assert torch.equal(got[lane], spmv(*t, X[lane], rows, prefix))
     # B2's lane form adds in the same entry order
     assert torch.equal(got, spmv_lanes_plain(*t, X, rows))
+
+
+def _jax_sliced_lanes(indptr, indices, data, x, prefix_rows, tile_rows):
+    """``y[l] = A @ x[l]`` by the JAX package's sliced Pallas kernel
+    (``_spmv_sliced_tile``) in interpret mode, vmapped over the lanes of
+    ``x``: the per-tile padded layout of ``_StreamCall._arrange``, the
+    whole tiles of the row prefix resident, the rest streamed one tile a
+    grid step (numpy in, numpy out)."""
+    import jax.numpy as jnp
+    from repro.exec.pallas import _spmv_sliced_tile
+    rows, nnz = indptr.shape[0] - 1, indices.shape[0]
+    tr = tile_rows
+    n_tiles = rows // tr
+    bounds = indptr[::tr]
+    budget = -(-int(np.diff(bounds).max()) // 8) * 8
+    pos = bounds[:-1, None] + np.arange(budget)[None, :]
+    valid = np.arange(budget)[None, :] < np.diff(bounds)[:, None]
+    gat = np.minimum(pos, nnz - 1)
+    row = np.searchsorted(indptr, gat, side="right") - 1
+    lay = dict(d=np.where(valid, data[gat], 0).astype(data.dtype),
+               c=np.where(valid, indices[gat], 0).astype(np.int32),
+               r=np.where(valid, row - (np.arange(n_tiles) * tr)[:, None],
+                          0).astype(np.int32))
+    p = min(prefix_rows // tr, n_tiles - 1)
+    am = {"p": p, "tail": ("td", "tc", "tr"),
+          "pre": ("pd", "pc", "pr") if p else ()}
+    tail = [jnp.asarray(lay[k][p:]) for k in "dcr"]
+    pre = [jnp.asarray(lay[k][:p]) for k in "dcr"] if p else []
+
+    def kernel(*refs):
+        i = pl.program_id(0)
+        tref = dict(zip(am["tail"], refs[:3]))
+        rref = dict(zip(am["pre"], refs[3:3 + len(pre)]))
+        xr, out = refs[-2], refs[-1]
+        out[...] = _spmv_sliced_tile(am, tref, rref, xr[...], i, tr,
+                                     out.dtype)
+
+    tail_spec = pl.BlockSpec((1, budget),
+                             lambda i: (jnp.maximum(i - p, 0), 0))
+    pre_spec = pl.BlockSpec((p, budget), lambda i: (0, 0))
+    call = pl.pallas_call(
+        kernel, grid=(n_tiles,),
+        in_specs=[tail_spec] * 3 + [pre_spec] * len(pre)
+        + [pl.BlockSpec((rows,), lambda i: (0,))],
+        out_specs=pl.BlockSpec((tr,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((rows,), data.dtype), interpret=True)
+    return np.asarray(jax.vmap(lambda xl: call(*tail, *pre, xl))(
+        jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("where", ["none", "partial", "all"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_lane_form_sums_rows_longer_than_a_window_as_jax(dtype, where,
+                                                         pallas_load):
+    """Rows of more than three of the lane form's staged windows (which
+    the kernel carries across windows in registers): the port's lane
+    form at 5 lanes (here its plain version) against the JAX package's
+    vmapped sliced kernel within ``TOL``, and per lane bitwise B3's and
+    B2's plain versions."""
+    rng = np.random.default_rng(24)
+    rows = 30 * B3_TILE_ROWS
+    indptr, indices = _csr(rng, rows, long_rows=(3, rows - 2))
+    assert np.diff(indptr).max() > 3 * B3_LANE_WINDOW
+    data = rng.standard_normal(indices.shape[0]).astype(dtype)
+    x = rng.standard_normal((5, rows)).astype(dtype)
+    prefix = {"none": 0, "partial": 12 * B3_TILE_ROWS, "all": rows}[where]
+    t = [torch.from_numpy(v) for v in (indptr, indices, data)]
+    X = torch.from_numpy(x)
+    got = spmv_sliced_lanes(*t, X, rows, prefix)
+    with jax.enable_x64(dtype == np.float64):
+        want = _jax_sliced_lanes(indptr, indices, data, x, prefix,
+                                 B3_TILE_ROWS)
+    assert want.dtype == dtype
+    np.testing.assert_allclose(_np(got), want, **TOL[dtype])
+    assert torch.equal(got, spmv_lanes_plain(*t, X, rows))
+    for lane in range(5):
+        assert torch.equal(got[lane], spmv_sliced_plain(*t, X[lane], rows,
+                                                        prefix))
+
+
+#: the kernel constants ``kernels/spmv.py`` mirrors, with the name of each
+#: ``constexpr int`` in ``csrc/spmv.cu``
+SOURCE_CONSTANTS = {"B3_TILE_ROWS": "kTileRows", "B3_WINDOW": "kWindow",
+                    "B3_LANE_ROWS": "kLaneTileRows",
+                    "B3_LANE_WINDOW": "kLaneWindow"}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_CONSTANTS))
+def test_python_constants_match_the_cuda_source(name):
+    src = (pathlib.Path(spmv_mod.__file__).resolve().parent.parent / "csrc"
+           / "spmv.cu").read_text()
+    c_name = SOURCE_CONSTANTS[name]
+    found = re.findall(rf"^constexpr int {c_name} = (\d+);", src, re.M)
+    assert found == [str(getattr(spmv_mod, name))], (name, c_name, found)
 
 
 def test_lane_wrapper_refuses_bad_arguments():
@@ -280,10 +388,12 @@ def cuda_device():
                          ids=DT_IDS)
 def test_b3_lanes_on_the_card(cuda_device, dtype, lanes, where):
     """B3's lane form bitwise against its plain version and, lane by lane,
-    against single-request B3; lanes past L are never written."""
+    against single-request B3, on an operand with rows longer than a
+    staged window; lanes past L are never written."""
     rng = np.random.default_rng(22)
     rows = 5000
-    indptr, indices = _csr(rng, rows)
+    # rows 7 and 2600 span several staged windows
+    indptr, indices = _csr(rng, rows, long_rows=(7, 2600))
     t = [torch.from_numpy(v).to(cuda_device) for v in (indptr, indices)]
     data = torch.from_numpy(rng.standard_normal(indices.shape[0])).to(
         cuda_device, dtype)
