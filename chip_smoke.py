@@ -42,7 +42,14 @@ Phases, each of which raises (exit code 1) on failure:
    recurrentgemma-2b's prefill (S 4096, 10 heads over 1 kv head of 256,
    causal, window 2048) and B6 at the recurrent paths' prefill shapes
    (gated tanh-gelu M 4096, D 2560, F 7680; relu² M 1024, D 4096, F
-   14336); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D 2560) and B9
+   14336); B5, B6 and B7 at phase 9's shapes (B5: hubert-xlarge's
+   bidirectional 16 heads of E 80, also on NaN-padded operands into a
+   sentinel-padded output; llama-3.2-vision-11b's cross-attention of 1024
+   queries over 6404 image keys and its causal self-attention; the MoE
+   archs' causal GQA; B6: hubert's ungated gelu, D 1280, F 5120, and the
+   vlm's gated silu, D 4096, F 14336, at 1024 and 4 rows; B7 at d 1024,
+   1280 and 2048); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D
+   2560) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
    layout), in bf16 and fp32, each with and without an initial state (B8
    also with long memory, Λ over [-12, -7], and at sequences that are no
@@ -99,9 +106,10 @@ Phases, each of which raises (exit code 1) on failure:
    before the next loads): recurrentgemma-2b (26 layers of
    ``[rglru, rglru, attn]``, d 2560, ~3.4 B parameters), planned on
    ``trace("prefill", batch=1, seq=4096, layer_kind="attn")``, a 1x4096
-   prefill (B5 8, B6 26, B7 53, B8 18 launches); rwkv6-7b (32 rwkv
-   layers, d 4096, ~7.0 B parameters), planned on ``trace("prefill",
-   batch=1, seq=1024)``, a 1x1024 prefill (B6 32, B7 65, B9 32); decode
+   prefill (B5 8, B6 26, B7 53, B8 18 launches); rwkv6-7b (its depth
+   cut to ``SSM_LAYERS`` = 16 of its 32 rwkv layers, d 4096, ~3.7 B
+   parameters), planned on ``trace("prefill", batch=1, seq=1024)``, a
+   1x1024 prefill (B6 16, B7 33, B9 16); decode
    steps launch B6 and B7 as the prefill does, and B5, B8, B9 never.
    rwkv6-7b, held to the wider ``RWKV_TOL``, also brings a second witness
    (``serve_witness``): at a second prompt seed, its kernel run against
@@ -144,7 +152,27 @@ Phases, each of which raises (exit code 1) on failure:
    port's ``ShardedReference`` on the card and against numpy, one graph
    replay a run (``check_dispatch``), timed beside its eager walk and the
    unsharded plan's run(); cg at K=1 bitwise equal to the unsharded
-   run().
+   run();
+9. the MoE, audio and vlm families' serving paths (``FAMILY_PATHS``), as
+   phase 5 drives granite-3-8b, one model at a time: granite-moe-1b-a400m
+   (24 layers, 32 experts, top-8, ~1.4 B parameters), moonshot-v1-16b-a3b
+   at full width (64 experts, top-6, d 2048) with its depth cut to
+   ``MOE_WIDE_LAYERS`` of 48 layers (its 27 B fp32 parameters would not
+   fit the card), hubert-xlarge (48 layers, ~0.94 B; a 1x1024 prefill of
+   stubbed frames of width 1280 to CTC logits over 504, no decode) and
+   llama-3.2-vision-11b (40 layers, ~9.8 B; a stubbed 1x6404x4096 image
+   that its 8 cross-attention layers attend to).  Each prefill and
+   ``generate`` against the plain versions within ``LLM_TOL`` /
+   ``DECODE_TOL`` with their shifted controls (an MoE prefill with the
+   plain run's routes replayed, ``moe_witness``: its own routes part from
+   the plain run's at near ties), launches per prefill and decode step as
+   ``FAMILY_PATHS`` lists them (an MoE layer runs no B6); the MoE paths
+   print the share of (token, k) pairs their prefill dropped at capacity;
+10. the codesign disk cache: a cold and then a fresh ``Session(device=
+   "cuda", cache_dir=d)`` codesign cg(n=4096, iters=64); the second
+   replays the first's search (``from_cache``), its plan equals the
+   first's field for field and its run() is bitwise the first's; both
+   ``codesign()`` times are printed.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -157,6 +185,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -232,6 +261,11 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 16, 32
 #: longer than its 2048-token attention window
 HYBRID_ARCH, HYBRID_SEQ = "recurrentgemma-2b", 4096
 SSM_ARCH, SSM_SEQ = "rwkv6-7b", 1024
+#: rwkv6-7b's depth on its serving path: 16 of its 32 layers, every width
+#: as published.  Phase 9's four archs took the whole run on one H100
+#: from 341.7 s to 433.0 s, past the 90 s that they may add; the cut takes
+#: ~8 s back
+SSM_LAYERS = 16
 #: serving path against its all-plain run on the card, max |Δ| <= TOL x
 #: max |plain logits|: the kernels sum in other orders than cuBLAS and
 #: torch's reductions, so single bf16 roundings flip in the residual stream
@@ -250,8 +284,9 @@ DECODE_TOL = 5e-2
 #: rwkv6-7b's limit for both comparisons above.  Its random-weight
 #: time-mix branch (y = r·S, with no norm after it, trilinear in the
 #: layer's input and ~9x the MLP branch's output) carries one bf16
-#: rounding flip further than attention does: on one H100 two plain-torch
-#: evaluations of the same function, its decode steps and its prefill,
+#: rounding flip further than attention does: on one H100, at all 32
+#: layers, two plain-torch evaluations of the same function, its decode
+#: steps and its prefill,
 #: disagreed by 6.09e-2 of the largest logit, above ``LLM_TOL``, and the
 #: kernel run by 6.19e-2 (prefill vs plain) and 6.46e-2 (decode vs
 #: prefill).  Its shifted-position controls read ~1.3, 13x over this limit
@@ -267,7 +302,8 @@ RWKV_TOL = 1e-1
 #: fail it.  Beside it, the bf16 readings at a second prompt seed
 FP32_WITNESS_TOL = 1e-4
 #: the serving paths, in order: (arch, prefill length, the trace's
-#: ``layer_kind``, launches per prefill, (LLM limit, decode limit)).  A
+#: ``layer_kind``, launches per prefill, (LLM limit, decode limit),
+#: layers (None: all)).  A
 #: decode step launches B6 and B7 as often as a prefill and B5, B8 and B9
 #: never.  recurrentgemma is planned on an attention layer's trace: its
 #: default trace is an rglru layer, which has no scores/pv group, and
@@ -275,14 +311,57 @@ FP32_WITNESS_TOL = 1e-4
 SERVE_PATHS = (
     (LLM_ARCH, PREFILL_SEQ, None, {"flash_attention": 40, "fused_mlp": 40,
                                    "rmsnorm": 81, "rglru": 0, "wkv6": 0},
-     (LLM_TOL, DECODE_TOL)),
+     (LLM_TOL, DECODE_TOL), None),
     (HYBRID_ARCH, HYBRID_SEQ, "attn", {"flash_attention": 8,
                                        "fused_mlp": 26, "rmsnorm": 53,
                                        "rglru": 18, "wkv6": 0},
+     (LLM_TOL, DECODE_TOL), None),
+    (SSM_ARCH, SSM_SEQ, None, {"flash_attention": 0,
+                               "fused_mlp": SSM_LAYERS,
+                               "rmsnorm": 2 * SSM_LAYERS + 1, "rglru": 0,
+                               "wkv6": SSM_LAYERS},
+     (RWKV_TOL, RWKV_TOL), SSM_LAYERS),
+)
+#: the MoE, audio and vlm families' serving paths (phase 9), full width
+MOE_ARCH, MOE_WIDE_ARCH, AUDIO_ARCH, VLM_ARCH = (
+    "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "hubert-xlarge",
+    "llama-3.2-vision-11b")
+#: moonshot-v1-16b-a3b's depth cut: at its 48 layers its 27 B parameters
+#: are ~110 GB in the port's fp32 ``PARAM_DTYPE``, more than the card
+#: holds; 4 layers are ~3 B (~12 GB)
+MOE_WIDE_LAYERS = 4
+#: (arch, layers (None: all), stubbed input, decode check, launches per
+#: prefill, (LLM limit, decode limit)).  An MoE layer runs no B6.  The
+#: decode check holds a decode step's logits at the last prompt position
+#: against the prefill's there ("prefill", as phases 5 and 6 do) or
+#: against the same step on the plain versions ("plain"): the vlm's
+#: decode attends no image (an ``xattn`` layer decodes on a ring cache of
+#: its own, as in the JAX package), and an MoE prefill of the 4 x 16
+#: prompt drops (token, k) pairs at capacity that a 4-token decode step
+#: keeps, so neither decode computes its prefill's function.
+#: hubert-xlarge is encoder-only: no decode.  An MoE path's prefill logits
+#: are held to the LLM limit through ``moe_witness``: its kernel run with
+#: the plain run's routes replayed.  Its own routes are data: one bf16
+#: rounding flip at a near tie of the router's top-k moves a (token, k)
+#: pair to another expert, and at capacity the slots and kept pairs of
+#: every later token of both experts, so outputs change outright, not by
+#: a rounding (granite-moe-1b-a400m's prefill drops 29% of its pairs on
+#: random weights; on an H100 its free kernel run read 7.9e-2 of the
+#: largest logit from the plain run, moonshot-v1-16b-a3b's 0.23)
+FAMILY_PATHS = (
+    (MOE_ARCH, None, None, "plain",
+     {"flash_attention": 24, "fused_mlp": 0, "rmsnorm": 49, "rglru": 0,
+      "wkv6": 0}, (LLM_TOL, DECODE_TOL)),
+    (MOE_WIDE_ARCH, MOE_WIDE_LAYERS, None, "plain",
+     {"flash_attention": MOE_WIDE_LAYERS, "fused_mlp": 0,
+      "rmsnorm": 2 * MOE_WIDE_LAYERS + 1, "rglru": 0, "wkv6": 0},
      (LLM_TOL, DECODE_TOL)),
-    (SSM_ARCH, SSM_SEQ, None, {"flash_attention": 0, "fused_mlp": 32,
-                               "rmsnorm": 65, "rglru": 0, "wkv6": 32},
-     (RWKV_TOL, RWKV_TOL)),
+    (AUDIO_ARCH, None, "frames", None,
+     {"flash_attention": 48, "fused_mlp": 48, "rmsnorm": 97, "rglru": 0,
+      "wkv6": 0}, (LLM_TOL, DECODE_TOL)),
+    (VLM_ARCH, None, "img", "plain",
+     {"flash_attention": 40, "fused_mlp": 40, "rmsnorm": 81, "rglru": 0,
+      "wkv6": 0}, (LLM_TOL, DECODE_TOL)),
 )
 
 
@@ -1093,7 +1172,9 @@ def _hold(label, got, want, dt):
 
 
 def check_rmsnorm(results, d=4096, eps=1e-6):
-    """B7 at the prefill's 1024 rows and a decode step's 4 rows."""
+    """B7 at the prefill's 1024 rows and a decode step's 4 rows, at width
+    ``d`` (4096: granite-3-8b; 1024, 1280 and 2048: granite-moe-1b-a400m,
+    hubert-xlarge and moonshot-v1-16b-a3b)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1372,6 +1453,184 @@ def check_mlp_recurrent(results):
                            + 2 * x.numel() * x.element_size()),
                    flops=flops, times=times,
                    **b6_math(m, D, F_, gated, dt))
+
+
+def _flash_into(q, k, v, out, *, causal):
+    """B5 through its C entry point into a caller's ``out`` (any strides
+    over (B, H, S), unit stride over E), as the wrapper launches it; not
+    counted: a comparison launch."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.build import check, cuda_library
+    B, H, S, E = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(
+        *[st for t in (q, k, v, out) for st in t.stride()[:3]])
+    fn = (cuda_library().cello_flash_attention_bf16
+          if q.dtype == torch.bfloat16
+          else cuda_library().cello_flash_attention_f32)
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             ctypes.addressof(strides), B, H, KVH, S, T, E, float(E ** -0.5),
+             int(causal), 0, torch.cuda.current_stream().cuda_stream),
+          "flash_attention")
+
+
+def check_flash_edges(rng, H, KVH, S, T, E, causal, dt):
+    """B5 at a head dim below its instantiation (E 80 runs in the E 128
+    one) on operands whose columns E..127 hold NaN (views of wider rows),
+    into an output whose columns E..127 hold a sentinel: the staged
+    columns past E must read as zero (a NaN read would reach every
+    score) and nothing may be written past E."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    tdt = getattr(torch, dt)
+    pad = 128
+
+    def padded(heads, rows):
+        big = torch.full((1, heads, rows, pad), float("nan"), device="cuda",
+                         dtype=tdt)
+        big[..., :E] = _rand(rng, (1, heads, rows, E), tdt)
+        return big[..., :E]
+    q, k, v = padded(H, S), padded(KVH, T), padded(KVH, T)
+    out_big = torch.full((1, H, S, pad), 7.0, device="cuda", dtype=tdt)
+    out = out_big[..., :E]
+    _flash_into(q, k, v, out, causal=causal)
+    torch.cuda.synchronize()
+    assert bool((out_big[..., E:] == 7.0).all()), "B5 wrote past E"
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal)
+    return _hold(f"flash E={E} NaN-padded", out.contiguous(), want, dt)
+
+
+def check_flash_families(results):
+    """B5 at the MoE, audio and vlm paths' prefill shapes (1 x 1024
+    queries): hubert-xlarge's bidirectional attention (16 heads over 16,
+    E = 80, run in the E 128 instantiation; also on NaN-padded operands
+    into a sentinel-padded output, ``check_flash_edges``),
+    llama-3.2-vision-11b's cross-attention (32 heads over 8, E 128, 1024
+    queries against its 6404 image keys: 6404 % 64 = 4 keys in the last kv
+    tile, and q_offset = T - S = 5380 must stay out of a mask that is
+    neither causal nor windowed) and causal self-attention (granite-3-8b's
+    shape), and the MoE archs' causal GQA (granite-moe-1b-a400m 16 over 8
+    heads of 64, moonshot-v1-16b-a3b 16 over 16 of 128).  SDPA gets the
+    kv heads expanded."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    rng = np.random.default_rng(28)
+    B, S = 1, PREFILL_SEQ
+    for arch, causal, cross in ((AUDIO_ARCH, False, False),
+                                (VLM_ARCH, False, True),
+                                (VLM_ARCH, True, False),
+                                (MOE_ARCH, True, False),
+                                (MOE_WIDE_ARCH, True, False)):
+        cfg = get_config(arch)
+        H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        T = cfg.vision_seq if cross else S
+        what = (f"{arch} {'cross-attention ' if cross else ''}B={B} H={H} "
+                f"KVH={KVH} S={S} T={T} E={E} "
+                f"{'causal' if causal else 'non-causal'}")
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            q = _rand(rng, (B, H, S, E), tdt)
+            k = _rand(rng, (B, KVH, T, E), tdt)
+            v = _rand(rng, (B, KVH, T, E), tdt)
+
+            def kernel():
+                return flash_attention(q, k, v, causal=causal)
+
+            def plain():
+                return flash_attention_plain(q, k, v, causal=causal)
+            kx = k.repeat_interleave(H // KVH, dim=1)
+            vx = v.repeat_interleave(H // KVH, dim=1)
+            got = kernel()
+            torch.cuda.synchronize()
+            err, rel = _hold(f"flash {what}", got, plain(), dt)
+            extra = {}
+            if E % 64:
+                e_err, e_rel = check_flash_edges(rng, H, KVH, S, T, E,
+                                                 causal, dt)
+                extra = dict(nan_padded_max_abs_err=e_err,
+                             nan_padded_rel_err=e_rel)
+                log(f"  B5 E={E} on NaN-padded operands into a "
+                    f"sentinel-padded output {dt}: max|err| {e_err:.3e}, "
+                    f"nothing written past E")
+            if dt != "bfloat16":          # timed at the paths' dtype
+                log(f"  B5 {what} {dt}: max|err| {err:.3e} (rel "
+                    f"{rel:.3e})")
+                continue
+            times = measure(kernel, plain,
+                            lambda: F.scaled_dot_product_attention(
+                                q, kx, vx, is_causal=causal))
+            flops = 4 * B * H * E * _attn_pairs(S, T, causal, None)
+            record(results, "B5 flash  ", kernel="flash_attention",
+                   case=what, dtype=dt, err=err, rel_err=rel,
+                   tol=KERNEL_TOL["float32"] if dt == "float32"
+                   else "1 bf16 rounding",
+                   nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                   flops=flops, times=times, **B5_MATH[dt], **extra)
+
+
+def check_mlp_families(results):
+    """B6 at the audio and vlm paths' shapes, fp32 weights: hubert-xlarge's
+    plain (ungated) tanh-gelu, D 1280, F 5120, at the prefill's 1024 rows,
+    and llama-3.2-vision-11b's gated silu, D 4096, F 14336, at 1024 rows
+    and a decode step's 4 rows (the rows kernel)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    from repro_torch.models.common import is_gated
+    rng = np.random.default_rng(29)
+    for arch, rows_list in ((AUDIO_ARCH, (PREFILL_SEQ,)),
+                            (VLM_ARCH, (PREFILL_SEQ, GEN_BATCH))):
+        cfg = get_config(arch)
+        D, F_ = cfg.d_model, cfg.d_ff
+        gated = is_gated(cfg.activation)
+        act = {"swiglu": "silu", "gelu": "gelu"}[cfg.activation]
+        wg = _rand(rng, (D, F_), torch.float32, D ** -0.5) if gated else None
+        wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
+        wd = _rand(rng, (F_, D), torch.float32, F_ ** -0.5)
+        for m in rows_list:
+            for dt in ("float32", "bfloat16"):
+                x = _rand(rng, (m, D), getattr(torch, dt))
+
+                def kernel():
+                    return fused_mlp(x, wg, wu, wd, activation=act)
+
+                def plain():
+                    return fused_mlp_plain(x, wg, wu, wd, activation=act)
+
+                def library():
+                    xf = x.float()
+                    up = torch.matmul(xf, wu)
+                    if gated:
+                        h = F.silu(torch.matmul(xf, wg)) * up
+                    else:
+                        h = F.gelu(up, approximate="tanh")
+                    return torch.matmul(h, wd)
+                got = kernel()
+                torch.cuda.synchronize()
+                err, rel = _hold(f"fused_mlp {arch}", got, plain(), dt)
+                if dt != "bfloat16":      # timed at the paths' dtype
+                    log(f"  B6 {arch} M={m} {dt}: max|err| {err:.3e} (rel "
+                        f"{rel:.3e})")
+                    continue
+                times = measure(kernel, plain, library)
+                record(results, "B6 mlp    ", kernel="fused_mlp",
+                       case=f"{arch} {'gated ' if gated else ''}{act} "
+                       f"M={m} D={D} F={F_}", dtype=dt, err=err,
+                       rel_err=rel,
+                       tol=KERNEL_TOL["float32"] if dt == "float32"
+                       else "1 bf16 rounding",
+                       nbytes=((3 if gated else 2) * D * F_ * 4
+                               + 2 * x.numel() * x.element_size()),
+                       flops=(6 if gated else 4) * m * D * F_, times=times,
+                       **b6_math(m, D, F_, gated, dt))
 
 
 def _eager_times(kernel, plain):
@@ -2280,9 +2539,9 @@ class compute_dtype:
         self.dtype = dtype
 
     def __enter__(self):
-        from repro_torch.models import common, recurrent, transformer
+        from repro_torch.models import common, moe, recurrent, transformer
         self._saved = [(m, m.COMPUTE_DTYPE)
-                       for m in (common, recurrent, transformer)]
+                       for m in (common, moe, recurrent, transformer)]
         for m, _ in self._saved:
             m.COMPUTE_DTYPE = self.dtype
         return self
@@ -2424,30 +2683,189 @@ def check_decode_graph(cfg, plan, params, gen_prompt, profile=False):
     return out
 
 
+def _stub_inputs(cfg, stub, batch, seq):
+    """The family's stubbed embeddings on the card from a seeded
+    generator: ``frames`` (batch, seq, d_model) or ``img`` (batch,
+    vision_seq, d_model), bf16; none for a token-only arch."""
+    import torch
+    if stub is None:
+        return {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    rows = seq if stub == "frames" else cfg.vision_seq
+    return {stub: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                              device="cuda").to(torch.bfloat16)}
+
+
+class recorded_routes:
+    """Within the block, every MoE layer's routing (``models.moe.route``)
+    is kept, with the router's top-(k+1) probabilities (``probs``);
+    ``dropped_share()`` is the share of (token, k) pairs past their
+    expert's capacity.  Only this script does this."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._mod, self._route = moe, moe.route
+        self.routes, self.probs = [], []
+
+        def route(w_router, x, *, top_k, capacity_factor):
+            r = self._route(w_router, x, top_k=top_k,
+                            capacity_factor=capacity_factor)
+            probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+            self.routes.append(r)
+            self.probs.append(torch.topk(probs, top_k + 1, dim=-1).values)
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+        return False
+
+    def dropped_share(self):
+        kept = sum(int(r.keep.sum()) for r in self.routes)
+        total = sum(r.keep.numel() for r in self.routes)
+        return 1.0 - kept / total, len(self.routes)
+
+
+class replayed_routes:
+    """Within the block, the MoE layers take the experts, slots and keep
+    masks of ``routes`` (a run's, in layer order), and their gates from
+    their own router probabilities at those experts: a run that computes
+    the same function as the recorded one then differs from it by
+    rounding alone.  Only this script does this."""
+
+    def __init__(self, routes):
+        self._routes = list(routes)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._mod, self._route = moe, moe.route
+        queue = iter(self._routes)
+
+        def route(w_router, x, *, top_k, capacity_factor):
+            rec = next(queue)
+            probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+            gates = probs.gather(-1, rec.idx)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+            return moe.Routing(gates, rec.idx, rec.slot, rec.keep,
+                               rec.capacity)
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+        return False
+
+
+def moe_witness(prefill, kernel_routes):
+    """The MoE paths' witness that the kernel run differs from the plain
+    run by routing alone: the plain run's prefill with its routes
+    recorded; the kernel run's prefill with those routes replayed
+    (``replayed_routes``) against it, held to ``LLM_TOL`` with the
+    shifted-position control that must fail it; and where the kernel
+    run's own routes first part from the plain run's, the layer, the
+    tokens and the plain run's probability gap between its k-th and
+    (k+1)-th expert at those tokens (a near tie reorders)."""
+    import torch
+    with plain_kernels(), recorded_routes() as plain:
+        logits_plain = prefill()
+    with replayed_routes(plain.routes):
+        routed = prefill()
+    scale = float(logits_plain.abs().max())
+    rel = max_err(routed, logits_plain) / scale
+    control = max_err(routed[:, 1:], logits_plain[:, :-1]) / scale
+    out = dict(routed_rel_err_vs_plain=rel,
+               routed_shifted_rel_err=control, llm_tol=LLM_TOL)
+    for layer, (a, b) in enumerate(zip(kernel_routes.routes, plain.routes)):
+        # the sets of experts: an order swap within a token's top-k moves
+        # no pair (each expert counts its own earlier pairs)
+        parted = (a.idx.sort(-1).values != b.idx.sort(-1).values).any(-1)
+        if bool(parted.any()):
+            gaps = (plain.probs[layer][:, -2] - plain.probs[layer][:, -1])
+            out.update(first_parting_layer=layer,
+                       parting_tokens=int(parted.sum()),
+                       parting_max_gap=float(gaps[parted].max()),
+                       median_gap=float(gaps.median()))
+            break
+    else:
+        out["first_parting_layer"] = None
+    parting = {k: v for k, v in out.items()
+               if k.startswith(("first_", "parting_", "median_"))}
+    log(f"  MoE witness: the kernel run with the plain run's routes "
+        f"replayed, prefill logits vs the plain run: rel err {rel:.3e} "
+        f"(tol {LLM_TOL:g}; shifted one position {control:.3e}, must "
+        f"exceed it); the kernel run's own routes against the plain "
+        f"run's: {parting}")
+    assert rel <= LLM_TOL, ("MoE prefill with replayed routes", rel)
+    assert control > LLM_TOL, ("the LLM limit passes shifted logits",
+                               control)
+    return out
+
+
+def _decode_vs_plain(bundle, params, cfg, gen_prompt):
+    """Decode logits at the last prompt position, the kernel run's against
+    the plain run's there, and, as a control, against the plain run's one
+    position earlier, each over max |plain logits| there."""
+    from repro_torch.models import init_cache
+
+    def last_two():
+        cache = init_cache(cfg, GEN_BATCH, GEN_PROMPT, device="cuda")
+        out = []
+        for t in range(GEN_PROMPT):
+            dec, cache = bundle.decode_fn(params, cache,
+                                          gen_prompt[:, t:t + 1], t)
+            out = (out + [dec[:, -1]])[-2:]
+        return out
+    prev, last = last_two()
+    with plain_kernels():
+        prev_plain, last_plain = last_two()
+    scale = float(last_plain.abs().max())
+    return (max_err(last, last_plain) / scale,
+            max_err(last, prev_plain) / scale)
+
+
 def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
-                  profile=False):
+                  profile=False, *, n_layers=None, stub=None,
+                  decode_check="prefill"):
     """One serving path at full width through ``Session(arch) ->
     trace("prefill", seq=seq, layer_kind=layer_kind) -> ... -> serve()``:
     a 1 x ``seq`` prefill and ``generate``, the launches of each held to
     ``want_prefill`` and its decode-step twin, against the same run on the
     plain versions within ``tols`` (the LLM and decode limits).  Returns
     the launch counts of the kernel run (prefill + generate); frees the
-    model before it returns."""
+    model before it returns.
+
+    ``n_layers`` cuts the arch's depth (its widths stay); ``stub`` names
+    the family's stubbed input, ``"frames"`` or ``"img"``, made on the
+    card from a seeded generator; ``decode_check`` holds the decode step
+    against the prefill (``"prefill"``) or against the plain versions'
+    step (``"plain"``), and ``None`` (an encoder-only arch) runs no
+    decode.  An MoE path also prints the share of (token, k) pairs that
+    its prefill dropped at capacity."""
     llm_tol, decode_tol = tols
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.api import Session
+    from repro_torch.configs import get_config
     from repro_torch.launch import greedy_generate
     from repro_torch.models import init_cache, init_params
     t0 = time.perf_counter()
-    plan = (Session(arch, device="cuda")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        log(f"  {arch}: depth cut to {n_layers} of {cfg.n_layers} layers, "
+            "every width as published")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    plan = (Session(cfg, device="cuda")
             .trace("prefill", batch=1, seq=seq, layer_kind=layer_kind)
             .analyze().codesign().lower())
     p = plan.plan
-    assert p.use_fused_mlp and p.use_fused_rmsnorm, p
+    assert p.use_fused_rmsnorm and (cfg.is_moe or p.use_fused_mlp), p
     assert p.use_flash_attention == (want_prefill["flash_attention"] > 0), p
-    cfg = plan.cfg
     log(f"  plan: {plan!r} ({p.notes}), made in "
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -2462,141 +2880,260 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).cuda()
     gen_prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
+    stubbed = _stub_inputs(cfg, stub, 1, seq)
+    decodes = decode_check is not None
     steps = GEN_PROMPT + GEN_NEW - 1
-    step = bundle.jit_decode(GEN_BATCH, GEN_PROMPT + GEN_NEW)
 
-    def gen():                # one CUDA-graph replay a decode step
-        return bundle.generate(params, gen_prompt, GEN_NEW)
-
-    def eager_gen():          # the same steps launched from the host
-        return greedy_generate(params, cfg, p, gen_prompt, GEN_NEW)
+    def prefill():
+        return bundle.prefill_fn(params, prompt, **stubbed)
 
     # the kernel run, counted
     kernels.reset_launches()
-    logits, first_prefill_s = _sync_s(lambda: bundle.prefill_fn(params,
-                                                                prompt))
+    logits, first_prefill_s = _sync_s(prefill)
     per_prefill = kernels.launches()
-    kernels.reset_launches()
-    toks, first_gen_s = _sync_s(gen)
-    per_gen = kernels.launches()
-    counts = {k: per_prefill[k] + per_gen[k] for k in per_prefill}
-    want_step = {k: (n if k in ("fused_mlp", "rmsnorm") else 0)
-                 for k, n in want_prefill.items()}
-    got_step = {k: per_gen[k] / steps for k in want_step}
     assert {k: per_prefill[k] for k in want_prefill} == want_prefill, \
         per_prefill
-    assert got_step == want_step, per_gen
-    assert step.stats == {"traces": 1, "dispatches": steps}, step.stats
-    toks_eager = eager_gen()
-    assert torch.equal(toks, toks_eager), ("graphed generate vs eager",
-                                           toks, toks_eager)
-    graph_check = check_decode_graph(cfg, p, params, gen_prompt, profile)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     assert logits.shape == (1, seq, cfg.padded_vocab)
-    assert toks.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
-    assert bool((toks[:, GEN_PROMPT:] < cfg.padded_vocab).all())
-    log(f"  launches per prefill {want_prefill}, per decode step "
-        f"{want_step} (as expected; {steps} decode steps per generate)")
+    counts = dict(per_prefill)
+    out = dict(path=f"serve {cfg.name} prefill 1x{seq}"
+               + (f" ({stub} stubbed)" if stub else ""),
+               layers=cfg.n_layers, n_params=n_params,
+               plan=dataclasses.asdict(p),
+               launches_per_prefill={k: per_prefill[k]
+                                     for k in want_prefill},
+               first_prefill_ms=first_prefill_s * 1e3)
+    if cfg.is_moe:
+        with recorded_routes() as routes:
+            prefill()
+        share, layers = routes.dropped_share()
+        out["prefill_dropped_share"] = share
+        log(f"  MoE prefill 1x{seq}: {share:.4%} of the (token, k) pairs "
+            f"dropped at capacity over its {layers} MoE layers (capacity "
+            f"factor {p.moe_capacity_factor}, {cfg.n_experts} experts, "
+            f"top-{cfg.top_k})")
+    if decodes:
+        step = bundle.jit_decode(GEN_BATCH, GEN_PROMPT + GEN_NEW)
+
+        def gen():            # one CUDA-graph replay a decode step
+            return bundle.generate(params, gen_prompt, GEN_NEW)
+
+        def eager_gen():      # the same steps launched from the host
+            return greedy_generate(params, cfg, p, gen_prompt, GEN_NEW)
+        kernels.reset_launches()
+        toks, first_gen_s = _sync_s(gen)
+        per_gen = kernels.launches()
+        counts = {k: per_prefill[k] + per_gen[k] for k in per_prefill}
+        want_step = {k: (n if k in ("fused_mlp", "rmsnorm") else 0)
+                     for k, n in want_prefill.items()}
+        got_step = {k: per_gen[k] / steps for k in want_step}
+        assert got_step == want_step, per_gen
+        assert step.stats == {"traces": 1, "dispatches": steps}, step.stats
+        toks_eager = eager_gen()
+        assert torch.equal(toks, toks_eager), ("graphed generate vs eager",
+                                               toks, toks_eager)
+        graph_check = check_decode_graph(cfg, p, params, gen_prompt, profile)
+        assert toks.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+        assert bool((toks[:, GEN_PROMPT:] < cfg.padded_vocab).all())
+        log(f"  launches per prefill {want_prefill}, per decode step "
+            f"{want_step} (as expected; {steps} decode steps per generate)")
+    else:
+        log(f"  launches per prefill {want_prefill} (as expected; "
+            f"{cfg.name} is encoder-only: no decode)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    def decode_vs_prefill():
-        return _decode_vs_prefill(bundle, params, cfg, gen_prompt)
-    dec_err, dec_control = decode_vs_prefill()
+    def decode_vs():
+        if decode_check == "prefill":
+            return _decode_vs_prefill(bundle, params, cfg, gen_prompt)
+        return _decode_vs_plain(bundle, params, cfg, gen_prompt)
+    if decodes:
+        dec_err, dec_control = decode_vs()
 
     # timing, warm
-    pre_times = [_sync_s(lambda: bundle.prefill_fn(params, prompt))[1]
-                 for _ in range(3)]
-    gen_times = [_sync_s(gen)[1] for _ in range(2)]
-    eager_times = [_sync_s(eager_gen)[1] for _ in range(2)]
-    prefill_s, gen_s = min(pre_times), min(gen_times)
-    step_s, eager_step_s = gen_s / steps, min(eager_times) / steps
-    # a second and third generate captured nothing: one replay a step
-    assert step.stats == {"traces": 1, "dispatches": 3 * steps}, step.stats
+    pre_times = [_sync_s(prefill)[1] for _ in range(3)]
+    prefill_s = min(pre_times)
+    if decodes:
+        gen_times = [_sync_s(gen)[1] for _ in range(2)]
+        eager_times = [_sync_s(eager_gen)[1] for _ in range(2)]
+        gen_s = min(gen_times)
+        step_s, eager_step_s = gen_s / steps, min(eager_times) / steps
+        # a second and third generate captured nothing: one replay a step
+        assert step.stats == {"traces": 1, "dispatches": 3 * steps}, \
+            step.stats
 
     # the same on the plain versions
     with plain_kernels():
         kernels.reset_launches()
-        logits_plain, plain_prefill_s = _sync_s(
-            lambda: bundle.prefill_fn(params, prompt))
-        toks_plain, plain_gen_s = _sync_s(eager_gen)
-        plain_dec_err, _ = decode_vs_prefill()
+        logits_plain, plain_prefill_s = _sync_s(prefill)
+        if decodes:
+            toks_plain, plain_gen_s = _sync_s(eager_gen)
+            if decode_check == "prefill":
+                plain_dec_err, _ = decode_vs()
         plain_launches = {k: kernels.launches()[k] for k in want_prefill}
     scale = float(logits_plain.abs().max())
     rel = max_err(logits, logits_plain) / scale
     rel_control = max_err(logits[:, 1:], logits_plain[:, :-1]) / scale
-
-    def plain_logits_at(col):
-        with plain_kernels():
-            c = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW,
-                           device="cuda")
-            lg = None
-            for t in range(col):
-                lg, c = bundle.decode_fn(params, c, toks_plain[:, t:t + 1],
-                                         t)
-        return lg[:, -1]
-
-    split = _first_split(toks, toks_plain, plain_logits_at)
     agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean()
     smi = smi_line()
-    out = dict(
-        path=f"serve {cfg.name} prefill 1x{seq}, generate "
-        f"{GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW})", nvidia_smi=smi,
-        plan=dataclasses.asdict(p), launches=counts,
-        launches_per_prefill={k: per_prefill[k] for k in want_prefill},
-        launches_per_decode_step=got_step,
-        prefill_ms=prefill_s * 1e3, prefill_ms_all=[t * 1e3 for t in pre_times],
+    out.update(
+        nvidia_smi=smi, launches=counts,
+        prefill_ms=prefill_s * 1e3,
+        prefill_ms_all=[t * 1e3 for t in pre_times],
         prefill_tokens_per_s=seq / prefill_s,
-        decode_ms_per_step=step_s * 1e3,
-        decode_tokens_per_s=GEN_BATCH / step_s,
-        eager_decode_ms_per_step=eager_step_s * 1e3,
-        eager_decode_tokens_per_s=GEN_BATCH / eager_step_s,
-        decode_step_stats=step.stats, decode_graph=graph_check,
-        generate_ms=gen_s * 1e3, first_prefill_ms=first_prefill_s * 1e3,
-        first_generate_ms=first_gen_s * 1e3,
         plain_prefill_ms=plain_prefill_s * 1e3,
-        plain_generate_ms=plain_gen_s * 1e3,
         prefill_rel_err_vs_plain=rel, llm_tol=llm_tol,
         prefill_vs_next_position_rel_err=rel_control,
-        prefill_argmax_agreement=float(agree),
-        decode_vs_prefill_rel_err=dec_err,
-        decode_vs_prefill_rel_err_plain=plain_dec_err,
-        decode_vs_previous_position_rel_err=dec_control,
-        decode_tol=decode_tol, peak_memory_gb=peak_gb, **split)
-    if profile:
-        out["profile_prefill"] = profile_fn(
-            lambda: bundle.prefill_fn(params, prompt), top=6)
-        c0 = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW, device="cuda")
-        out["profile_decode_step"] = profile_fn(
-            lambda: bundle.decode_fn(params, c0, gen_prompt[:, :1], 0), top=6)
-    results_paths.append(out)
+        prefill_argmax_agreement=float(agree), peak_memory_gb=peak_gb)
     log(f"  {cfg.name} on {smi}: prefill 1x{seq} {prefill_s * 1e3:.1f} ms "
         f"({seq / prefill_s:.0f} tokens/s; plain versions "
-        f"{plain_prefill_s * 1e3:.1f} ms); decode {step_s * 1e3:.2f} ms per "
-        f"step at batch {GEN_BATCH} ({GEN_BATCH / step_s:.1f} tokens/s), "
-        f"one CUDA-graph replay a step (stats {step.stats}); the eager "
-        f"step {eager_step_s * 1e3:.2f} ms ({GEN_BATCH / eager_step_s:.1f} "
-        f"tokens/s, tokens equal); plain generate {plain_gen_s * 1e3:.0f} "
-        f"ms against {gen_s * 1e3:.0f} ms)")
-    log(f"  prefill logits vs the plain run: rel err {rel:.3e} (tol "
-        f"{llm_tol:g}; shifted one position: {rel_control:.3e}, must "
-        f"exceed it), argmax agreement {float(agree):.4f}; generated "
-        f"tokens {split}; decode vs prefill logits at the last prompt "
-        f"position: rel err {dec_err:.3e} (plain run {plain_dec_err:.3e}, "
-        f"tol {decode_tol:g}; against the position before: "
-        f"{dec_control:.3e}, must exceed it); peak memory {peak_gb:.1f} GB")
+        f"{plain_prefill_s * 1e3:.1f} ms)")
+    log(f"  prefill logits vs the plain run: rel err {rel:.3e} ("
+        + ("routes free: held through the MoE witness below"
+           if cfg.is_moe else f"tol {llm_tol:g}")
+        + f"; shifted one position: {rel_control:.3e}, must exceed "
+        f"{llm_tol:g}), argmax agreement {float(agree):.4f}; peak memory "
+        f"{peak_gb:.1f} GB")
+    if decodes:
+        def plain_logits_at(col):
+            with plain_kernels():
+                c = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW,
+                               device="cuda")
+                lg = None
+                for t in range(col):
+                    lg, c = bundle.decode_fn(params, c,
+                                             toks_plain[:, t:t + 1], t)
+            return lg[:, -1]
+
+        split = _first_split(toks, toks_plain, plain_logits_at)
+        out["path"] += (f", generate {GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW})")
+        out.update(
+            launches_per_decode_step=got_step,
+            decode_ms_per_step=step_s * 1e3,
+            decode_tokens_per_s=GEN_BATCH / step_s,
+            eager_decode_ms_per_step=eager_step_s * 1e3,
+            eager_decode_tokens_per_s=GEN_BATCH / eager_step_s,
+            decode_step_stats=step.stats, decode_graph=graph_check,
+            generate_ms=gen_s * 1e3, first_generate_ms=first_gen_s * 1e3,
+            plain_generate_ms=plain_gen_s * 1e3, decode_check=decode_check,
+            decode_tol=decode_tol, **split)
+        if decode_check == "prefill":
+            out.update(decode_vs_prefill_rel_err=dec_err,
+                       decode_vs_prefill_rel_err_plain=plain_dec_err,
+                       decode_vs_previous_position_rel_err=dec_control)
+            dec_text = (f"decode vs prefill logits at the last prompt "
+                        f"position: rel err {dec_err:.3e} (plain run "
+                        f"{plain_dec_err:.3e}, tol {decode_tol:g}; against "
+                        f"the position before: {dec_control:.3e}, must "
+                        "exceed it)")
+        else:
+            out.update(decode_vs_plain_rel_err=dec_err,
+                       decode_vs_plain_previous_position_rel_err=dec_control)
+            dec_text = (f"decode logits at the last prompt position vs the "
+                        f"plain run's step: rel err {dec_err:.3e} (tol "
+                        f"{decode_tol:g}; against its position before: "
+                        f"{dec_control:.3e}, must exceed it)")
+        log(f"  decode {step_s * 1e3:.2f} ms per step at batch {GEN_BATCH} "
+            f"({GEN_BATCH / step_s:.1f} tokens/s), one CUDA-graph replay a "
+            f"step (stats {step.stats}); the eager step "
+            f"{eager_step_s * 1e3:.2f} ms ({GEN_BATCH / eager_step_s:.1f} "
+            f"tokens/s, tokens equal); plain generate "
+            f"{plain_gen_s * 1e3:.0f} ms against {gen_s * 1e3:.0f} ms; "
+            f"generated tokens {split}; {dec_text}")
+    if profile:
+        out["profile_prefill"] = profile_fn(prefill, top=6)
+        if decodes:
+            c0 = init_cache(cfg, GEN_BATCH, GEN_PROMPT + GEN_NEW,
+                            device="cuda")
+            out["profile_decode_step"] = profile_fn(
+                lambda: bundle.decode_fn(params, c0, gen_prompt[:, :1], 0),
+                top=6)
+    results_paths.append(out)
     assert not any(plain_launches.values()), plain_launches
-    assert rel <= llm_tol, ("prefill logits vs the plain run", rel)
+    # an MoE path's own routes are data (FAMILY_PATHS): its logits are
+    # held with the plain run's routes replayed, by moe_witness below
+    assert cfg.is_moe or rel <= llm_tol, ("prefill logits vs the plain "
+                                          "run", rel)
     assert rel_control > llm_tol, ("the LLM limit passes shifted logits",
                                    rel_control)
-    assert dec_err <= decode_tol, ("decode vs prefill logits", dec_err)
-    assert dec_control > decode_tol, ("the decode limit passes the wrong "
-                                      "position", dec_control)
+    if decodes:
+        assert dec_err <= decode_tol, ("decode logits", decode_check,
+                                       dec_err)
+        assert dec_control > decode_tol, ("the decode limit passes the "
+                                          "wrong position", dec_control)
     del logits, logits_plain
-    if llm_tol > LLM_TOL or decode_tol > DECODE_TOL:
+    if cfg.is_moe:
+        out["witness"] = moe_witness(prefill, routes)
+    elif llm_tol > LLM_TOL or decode_tol > DECODE_TOL:
         out["witness"] = serve_witness(bundle, params, cfg, seq,
                                        max(llm_tol, decode_tol))
     del params
     torch.cuda.empty_cache()
+    return counts
+
+
+def check_codesign_cache(results_paths):
+    """A cold ``Session(device="cuda", cache_dir=d)`` and then a fresh one
+    on the same directory codesign cg(n=4096, iters=64): the second
+    replays the first's search (``from_cache``), its plan equals the
+    first's field for field, and its ``run()`` on the same feeds is bitwise
+    the first's (the same plan gives the same graph).  Prints both
+    ``codesign()`` times.  Returns the launch counts of the two runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.api.cache import cache_disabled_by_env
+    from repro_torch.frontends import make_feeds
+    from repro_torch.kernels import build
+    assert not cache_disabled_by_env(), "CELLO_NO_CACHE turns the cache off"
+    runs = []
+    with tempfile.TemporaryDirectory(dir=build.build_dir()) as d:
+        for _ in range(2):
+            traced = Session(device="cuda", cache_dir=d).trace(
+                workload="cg", n=4096, iters=64)
+            t0 = time.perf_counter()
+            designed = traced.codesign()
+            codesign_s = time.perf_counter() - t0
+            runs.append((traced, designed, designed.lower(backend="cuda"),
+                         codesign_s))
+        entries = sorted(os.listdir(d))
+        entry_bytes = sum(os.path.getsize(os.path.join(d, e))
+                          for e in entries)
+    (ta, cold, pa, cold_s), (tb, warm, pb, warm_s) = runs
+    assert not cold.from_cache and warm.from_cache, (cold, warm)
+    assert len(entries) == 1 and entries[0].endswith(".json"), entries
+    sa, sb = cold.best.schedule, warm.best.schedule
+    assert sa == sb and cold.best.report == warm.best.report
+    assert cold.best.metrics == warm.best.metrics
+    assert cold.split_sweep == warm.split_sweep
+    assert pa.plan == pb.plan and pa.group_kernels == pb.group_kernels
+    assert pa.exec_plan == pb.exec_plan
+    rep_a, rep_b = pa.report(), pb.report()
+    assert rep_a.pop("from_cache") is False and rep_b.pop("from_cache")
+    assert rep_a == rep_b
+    feeds = make_feeds(ta.program, seed=0, dtype=np.float32)
+    kernels.reset_launches()
+    out_a = pa.run(feeds)
+    out_b = pb.run(feeds)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert out_a.keys() == out_b.keys()
+    for k in out_a:
+        assert torch.equal(out_a[k], out_b[k]), ("warm run() vs cold", k)
+    assert pa.compiled() is not pb.compiled()
+    smi = smi_line()
+    results_paths.append(dict(
+        path="codesign cache cg(n=4096, iters=64) float32", nvidia_smi=smi,
+        cold_codesign_s=cold_s, warm_codesign_s=warm_s,
+        entry_bytes=entry_bytes, warm_from_cache=True,
+        run_bitwise_equal=True, launches=counts))
+    log(f"  on {smi}: codesign() cold {cold_s:.3f} s (searched, "
+        f"{entry_bytes} B published), warm {warm_s:.3f} s (from_cache="
+        f"{warm.from_cache}); the warm plan equals the cold one field for "
+        f"field (schedule, report, split sweep, CelloPlan, group kernels, "
+        f"execution plan) and its run() is bitwise the cold plan's on "
+        f"the same feeds ({sorted(out_a)}), each its own CUDA program")
     return counts
 
 
@@ -3359,6 +3896,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    # the sessions' codesign disk cache, like Triton's, under the build
+    # directory of this checkout unless the caller names one
+    os.environ.setdefault("CELLO_CACHE_DIR",
+                          str(build.build_dir() / "codesign_cache"))
     # ---- phase 1: environment
     triton = build.import_triton()
     card_phase("1: environment")
@@ -3435,10 +3976,14 @@ def main(argv=None) -> int:
     check_off_path(dtypes)
     log(f"  off-path checks took {time.perf_counter() - t0:.1f} s")
     check_rmsnorm(results)
+    for d in (1024, 1280, 2048):
+        check_rmsnorm(results, d=d)
     check_flash(results)
     check_flash_hybrid(results)
+    check_flash_families(results)
     check_mlp(results)
     check_mlp_recurrent(results)
+    check_mlp_families(results)
     check_rglru(results)
     check_wkv6(results)
     log(f"  kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -3480,14 +4025,15 @@ def main(argv=None) -> int:
     log(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phases 5 and 6: the LLM serving paths
-    for arch, seq, layer_kind, want, tols in SERVE_PATHS:
+    for arch, seq, layer_kind, want, tols, layers in SERVE_PATHS:
         phase = ("5: the LLM serving path" if arch == LLM_ARCH else
                  "6: a recurrent family's serving path")
         card_phase(f"{phase}, Session({arch!r}, device='cuda') -> "
                    f"trace('prefill', seq={seq}, layer_kind={layer_kind!r}) "
-                   "-> codesign -> lower -> serve()")
+                   "-> codesign -> lower -> serve()"
+                   + (f", {layers} of its layers" if layers else ""))
         counts = drive_serving(arch, seq, layer_kind, want, tols, paths,
-                               profile=args.profile)
+                               profile=args.profile, n_layers=layers)
         for k, v in counts.items():
             totals[k] += v
         log(f"  {arch} done at {time.perf_counter() - t_start:.1f} s")
@@ -3542,6 +4088,35 @@ def main(argv=None) -> int:
     del mesh
     torch.cuda.empty_cache()
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 9: the MoE, audio and vlm serving paths
+    family_totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    for arch, layers, stub, decode_check, want, tols in FAMILY_PATHS:
+        card_phase(f"9: the {arch} serving path, Session({arch!r}, "
+                   f"device='cuda') -> trace('prefill', seq={PREFILL_SEQ}) "
+                   "-> codesign -> lower -> serve()"
+                   + (f", {layers} of its layers" if layers else ""))
+        t0 = time.perf_counter()
+        counts = drive_serving(arch, PREFILL_SEQ, None, want, tols, paths,
+                               profile=args.profile, n_layers=layers,
+                               stub=stub, decode_check=decode_check)
+        for k, v in counts.items():
+            totals[k] += v
+            family_totals[k] += v
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
+        assert family_totals[k] > 0, f"kernel {k} was never launched"
+
+    # ---- phase 10: the codesign disk cache
+    card_phase("10: the codesign disk cache, a cold and a warm "
+               "Session(device='cuda', cache_dir=...) on cg(n=4096, "
+               "iters=64)")
+    counts = check_codesign_cache(paths)
+    for k, v in counts.items():
+        totals[k] += v
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

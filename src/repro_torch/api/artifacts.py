@@ -107,6 +107,8 @@ class CoDesigned:
     result: CoDesignResult = dataclasses.field(repr=False, compare=False)
     strategy: str = "default"
     capacity_bytes: int = 0
+    #: replayed from the disk cache (``api.cache``) rather than searched
+    from_cache: bool = False
 
     @property
     def session(self) -> "Session":
@@ -141,7 +143,8 @@ class CoDesigned:
         return (f"CoDesigned({self.trace.arch!r}, phase={self.trace.phase!r}, "
                 f"split={s.config.explicit_frac:.3f}, "
                 f"{len(s.groups)} groups, {len(s.pins)} pins, "
-                f"speedup={self.speedup():.2f}x)")
+                f"speedup={self.speedup():.2f}x"
+                f"{', cached' if self.from_cache else ''})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +285,7 @@ class CompiledPlan:
             m = cd.best.metrics
             out.update({
                 "strategy": cd.strategy,
+                "from_cache": cd.from_cache,
                 "capacity_bytes": cd.capacity_bytes,
                 "overbook": getattr(cd.result, "overbook", 0.0),
                 "explicit_frac": cd.best.schedule.config.explicit_frac,
@@ -311,7 +315,8 @@ class CompiledPlan:
             s = cd.best.schedule
             cap = cd.capacity_bytes
             lines += [
-                f"  search strategy   : {cd.strategy}",
+                f"  search strategy   : {cd.strategy}"
+                + (" [cache hit]" if cd.from_cache else ""),
                 f"  buffer split      : {s.config.explicit_frac:.3f} explicit"
                 f" ({s.config.explicit_bytes // 1024 // 1024} MiB of"
                 f" {cap // 1024 // 1024} MiB)",

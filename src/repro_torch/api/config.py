@@ -27,12 +27,14 @@ class CodesignConfig:
     spill for sparse operands; the ``cuda`` backend runs an spmv op whose
     operand takes a prefix pin on kernel B3, which marks the prefix's loads
     evict_last in L2: a hint, kept by the card only within its persisting
-    set-aside)."""
+    set-aside), ``use_cache`` (the disk cache of search results,
+    ``api.cache``; None → the session's ``use_cache``)."""
     strategy: Any = "default"
     capacity_bytes: Optional[int] = None
     max_orders: int = 16
     splits: Sequence[float] = DEFAULT_SPLITS
     overbook: float = 0.0
+    use_cache: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)

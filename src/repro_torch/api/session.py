@@ -21,8 +21,13 @@ A session runs on one torch device.  ``device=None`` means ``"cuda"``, and
 a session without CUDA raises instead of running elsewhere; pass
 ``device="cpu"`` to run on the CPU, where every kernel takes its plain
 torch version.  ``lower()`` of a frontend trace defaults to the ``cuda``
-backend (the JAX package's ``lower()`` defaults to ``reference``).  There
-is no disk cache of codesign results yet.
+backend (the JAX package's ``lower()`` defaults to ``reference``).
+
+``codesign`` results are kept in a disk cache (``api.cache``), keyed by
+(arch or workload, phase, shape, hardware model, capacity, strategy, search
+knobs, graph fingerprint, shard count when > 1): a repeated search is
+replayed from it, bit-identical.  ``Session(use_cache=False)`` or
+``CodesignConfig(use_cache=False)`` turns it off, ``cache_dir`` moves it.
 """
 from __future__ import annotations
 
@@ -48,6 +53,9 @@ from ..core.reuse import analyze as _analyze
 from ..core.schedule import sparse_operand_groups
 from ..core.search import DEFAULT_SPLITS, get_strategy, run_codesign
 from .artifacts import AnalyzedGraph, CoDesigned, CompiledPlan, TracedGraph
+from .cache import (CodesignCache, algo_fingerprint, cache_disabled_by_env,
+                    frontend_fingerprint, graph_fingerprint, hw_fingerprint,
+                    strategy_fingerprint)
 from .config import CodesignConfig, ExecConfig
 
 DEFAULT_BACKEND = "cuda"
@@ -127,11 +135,15 @@ class Session:
 
     def __init__(self, arch: Union[str, ArchConfig, None] = None, *,
                  device=None, hw: HardwareModel = V5E,
-                 capacity_bytes: Optional[int] = None):
+                 capacity_bytes: Optional[int] = None,
+                 use_cache: bool = True, cache_dir=None):
         self.cfg = _resolve_arch(arch)
         self.device = resolve_device(device)
         self.hw = hw
         self.capacity_bytes = capacity_bytes or hw.vmem_bytes
+        # env kill-switch is checked per codesign() call, not frozen here
+        self.use_cache = use_cache
+        self.cache = CodesignCache(cache_dir)
         # trace memoization is thread-safe: the lock spans
         # lookup+build+insert, so one (workload, params) cell is built once
         self._trace_memo = {}
@@ -234,7 +246,8 @@ class Session:
 
     @classmethod
     def from_graph(cls, obj, *, device=None, hw: HardwareModel = V5E,
-                   capacity_bytes: Optional[int] = None) -> TracedGraph:
+                   capacity_bytes: Optional[int] = None,
+                   use_cache: bool = True, cache_dir=None) -> TracedGraph:
         """Wrap a frontend ``Program`` / ``Expr`` or a raw ``OpGraph`` as a
         TracedGraph on a fresh session.  An ``Expr`` is marked as its
         program's output when none is set; a raw ``OpGraph`` lowers to a
@@ -242,7 +255,8 @@ class Session:
         from ..frontends.expr import Expr, Program
         if isinstance(obj, TracedGraph):
             return obj
-        sess = cls(device=device, hw=hw, capacity_bytes=capacity_bytes)
+        sess = cls(device=device, hw=hw, capacity_bytes=capacity_bytes,
+                   use_cache=use_cache, cache_dir=cache_dir)
         if isinstance(obj, Expr):
             if not obj.program.outputs:
                 obj.program.output(obj)
@@ -270,22 +284,74 @@ class Session:
     # -- stage 3: codesign ----------------------------------------------
     def codesign(self, staged: Union[TracedGraph, AnalyzedGraph],
                  config: Optional[CodesignConfig] = None) -> CoDesigned:
-        """The joint schedule × buffer search."""
+        """The joint schedule × buffer search (disk-cached)."""
         cfg = _check_config(config, CodesignConfig, "Session.codesign")
         traced = staged if isinstance(staged, TracedGraph) else staged.trace
-        capacity = cfg.capacity_bytes or self.capacity_bytes
-        strategy = get_strategy(cfg.strategy)
-        with _stage("codesign", arch=traced.arch, phase=traced.phase):
-            result = run_codesign(
-                traced.graph, capacity_bytes=capacity, hw=self.hw,
-                max_orders=cfg.max_orders, strategy=strategy,
-                splits=list(cfg.splits), overbook=cfg.overbook,
+        with _stage("codesign", arch=traced.arch, phase=traced.phase) as sp:
+            return self._codesign(
+                traced, sp,
                 natural_analysis=(staged.analysis
                                   if isinstance(staged, AnalyzedGraph)
-                                  else None))
-            return CoDesigned(trace=traced, result=result,
-                              strategy=strategy.name,
-                              capacity_bytes=capacity)
+                                  else None),
+                strategy=cfg.strategy, capacity_bytes=cfg.capacity_bytes,
+                max_orders=cfg.max_orders, splits=cfg.splits,
+                overbook=cfg.overbook, use_cache=cfg.use_cache)
+
+    def _codesign(self, traced: TracedGraph, sp, *, natural_analysis,
+                  strategy, capacity_bytes, max_orders, splits, overbook,
+                  use_cache, shards: int = 1) -> CoDesigned:
+        splits = list(splits)    # one-shot iterables: key + search see same
+        capacity = capacity_bytes or self.capacity_bytes
+        strategy_obj = get_strategy(strategy)
+        strategy_name = strategy_obj.name
+        sp.annotate(strategy=strategy_name)
+        cached = self.use_cache if use_cache is None else use_cache
+        if cache_disabled_by_env():     # env kill-switch beats per-call opts
+            cached = False
+        if cached:
+            # the key tracks the strategy's own code + instance state, not
+            # just its name; None = no stable identity: don't cache
+            strategy_src = strategy_fingerprint(strategy_obj)
+            if strategy_src is None:
+                cached = False
+        key = None
+        if cached:
+            # shards only enters the key when > 1, so a mesh plan's search
+            # and an unsharded one never alias
+            shard_key = {"shards": shards} if shards > 1 else {}
+            key = self.cache.key(
+                **shard_key,
+                # any edit to the search/sim/cost code invalidates entries
+                algo=algo_fingerprint(),
+                arch=traced.arch, phase=traced.phase, batch=traced.batch,
+                seq=traced.seq, kv_len=traced.kv_len,
+                layer_kind=traced.layer_kind, hw=hw_fingerprint(self.hw),
+                capacity=capacity, strategy=strategy_name,
+                strategy_src=strategy_src, max_orders=max_orders,
+                splits=list(splits), overbook=overbook,
+                graph=graph_fingerprint(traced.graph),
+                # frontend-built graphs fold in the expression DAG + the
+                # frontend lowering code (None for registry traces)
+                frontend=frontend_fingerprint(traced.program))
+            hit = self.cache.get(key)
+            if hit is not None:
+                sp.annotate(cache="hit")
+                return CoDesigned(trace=traced, result=hit,
+                                  strategy=strategy_name,
+                                  capacity_bytes=capacity, from_cache=True)
+        sp.annotate(cache="miss" if cached else "off")
+        # the resolved object, so the strategy the key checks is the one
+        # the search runs
+        result = run_codesign(traced.graph, capacity_bytes=capacity,
+                              hw=self.hw, max_orders=max_orders,
+                              strategy=strategy_obj, splits=splits,
+                              overbook=overbook,
+                              natural_analysis=natural_analysis)
+        if cached:
+            self.cache.put(key, result)
+        return CoDesigned(trace=traced, result=result,
+                          strategy=strategy_name, capacity_bytes=capacity,
+                          from_cache=False)
 
     # -- stage 4: lower --------------------------------------------------
     def lower(self, designed: CoDesigned,
@@ -346,18 +412,15 @@ class Session:
             # buffer capacity K·C: each shard holds a 1/K row block, so a
             # pin that fits K·C globally fits C per shard (TABLE 11's
             # crossover)
-            capacity = designed.capacity_bytes * n_shards
-            strategy = get_strategy(designed.strategy)
             with _stage("codesign", arch=traced.arch, phase=traced.phase,
-                        shards=n_shards):
-                result = run_codesign(
-                    traced.graph, capacity_bytes=capacity, hw=self.hw,
-                    max_orders=16, strategy=strategy,
-                    splits=list(DEFAULT_SPLITS),
-                    overbook=getattr(designed.result, "overbook", 0.0))
-            designed = CoDesigned(trace=traced, result=result,
-                                  strategy=strategy.name,
-                                  capacity_bytes=capacity)
+                        shards=n_shards) as sp:
+                designed = self._codesign(
+                    traced, sp, natural_analysis=None,
+                    strategy=designed.strategy,
+                    capacity_bytes=designed.capacity_bytes * n_shards,
+                    max_orders=16, splits=DEFAULT_SPLITS,
+                    overbook=getattr(designed.result, "overbook", 0.0),
+                    use_cache=None, shards=n_shards)
         sched = designed.result.best.schedule
         partial = dict(getattr(sched.pins, "partial", None) or {})
         kernels = select_group_kernels(traced.graph, sched.groups,
@@ -422,7 +485,9 @@ class Session:
         return self.lower(self.codesign(traced), seq=lower_seq)
 
     def __repr__(self) -> str:
+        on = self.use_cache and not cache_disabled_by_env()
         name = self.cfg.name if self.cfg is not None else "<frontend>"
         return (f"Session({name!r}, device={self.device!r}, "
                 f"hw={self.hw.name!r}, "
-                f"capacity={self.capacity_bytes // 1024 // 1024} MiB)")
+                f"capacity={self.capacity_bytes // 1024 // 1024} MiB, "
+                f"cache={'on' if on else 'off'})")

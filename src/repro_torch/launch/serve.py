@@ -10,6 +10,11 @@ on a CUDA device it captures the donating decode step
 (``models.decode_step(..., donate=True)``) into one CUDA graph and replays
 it once per step.  ``ServeBundle.generate`` decodes through it.
 
+The prefill takes the audio family's ``frames`` and the vlm family's
+``img`` as the JAX package's does.  As there, only ``Session.trace("decode")``
+refuses an encoder-only arch (``ValueError``); its decode step and
+``generate`` run the decode path as the JAX package's do.
+
 Every entry point takes the reference's ``unroll=`` and the bundle keeps
 it (``ServeBundle.unroll``).  In the JAX package it swaps the layer
 period's ``lax.scan`` for a Python loop; the port always walks the layers
@@ -42,8 +47,9 @@ _DISPATCHES = obs.registry().counter(
 def make_prefill_fn(cfg: ArchConfig, plan: CelloPlan, *,
                     unroll: bool = False):
     # ``unroll``: the layers already run in a Python loop (module docstring)
-    def prefill(params, tokens):
-        logits, _ = forward(params, cfg, plan, tokens, mode="prefill")
+    def prefill(params, tokens, frames=None, img=None):
+        logits, _ = forward(params, cfg, plan, tokens, frames=frames,
+                            img=img, mode="prefill")
         return logits
     return prefill
 

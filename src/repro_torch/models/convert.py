@@ -6,8 +6,10 @@ remainder in ``params["rest"]``; the port keeps one dict per layer in
 ``params["layers"]``, in layer order (layer ``p·len(period) + s``, then
 the remainder).  The slots of a period may be of mixed kinds
 (recurrentgemma's ``[rglru, rglru, attn]``, whose remainder is two
-``rglru`` layers); each layer keeps its own sub-dict (``attn``, ``rglru``
-or ``rwkv``, and ``mlp``).  The tree comes in as numpy arrays
+``rglru`` layers; llama-vision's ``[attn]*4 + [xattn]``); each layer keeps
+its own sub-dict (``attn``, ``rglru`` or ``rwkv``, and ``mlp``, or for an
+MoE arch ``moe``: ``w_router`` (D, E) and the ``(E, D, F)`` / ``(E, F,
+D)`` expert weights).  The tree comes in as numpy arrays
 (``np.asarray`` of each JAX leaf), so the port imports nothing of the JAX
 package.
 """

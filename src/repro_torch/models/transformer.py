@@ -1,12 +1,17 @@
-"""Config-driven model assembly: the dense, hybrid and ssm families.
+"""Config-driven model assembly for all ten registered architectures.
 
-The counterpart of ``repro.models.transformer`` for ``family`` "dense"
-(granite-3-8b, gemma-7b, minitron-8b, h2o-danube-1.8b), "hybrid"
-(recurrentgemma-2b: ``[rglru, rglru, attn]`` periods, local attention) and
-"ssm" (rwkv6-7b: ``rwkv`` layers).  Each layer dispatches on its kind,
-``cfg.layer_kinds()[i]``: ``attn``, ``rglru`` or ``rwkv``.  The other
-families (moe, vlm, audio) raise ``NotImplementedError``; they are queued
-in ROADMAP.md.
+The counterpart of ``repro.models.transformer`` for every ``family``:
+"dense" (granite-3-8b, gemma-7b, minitron-8b, h2o-danube-1.8b), "moe"
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b: a top-k MoE FFN,
+``models.moe``, in place of the MLP), "hybrid" (recurrentgemma-2b:
+``[rglru, rglru, attn]`` periods, local attention), "ssm" (rwkv6-7b:
+``rwkv`` layers), "vlm" (llama-3.2-vision-11b: every
+``cross_attn_every``-th layer an ``xattn`` layer whose K/V come from the
+image embeddings ``img``) and "audio" (hubert-xlarge: encoder-only, the
+frame embeddings ``frames`` in place of the token embedding,
+bidirectional attention without rope).  Each layer dispatches on its
+kind, ``cfg.layer_kinds()[i]``: ``attn``, ``xattn``, ``rglru`` or
+``rwkv``.
 
 Parameters are a plain dict, ``{"embed", "final_norm", "lm_head",
 "layers": [per-layer dict]}``: the JAX package's ``lax.scan`` over stacked
@@ -34,15 +39,18 @@ Decode steps stay plain torch ops, as in the JAX package.
 
 Modes:
   forward(..., mode="prefill") — full sequence; also returns each layer's
-    cache entry: (k, v), the RG-LRU's hT or the WKV state sT.
+    cache entry: (k, v), the RG-LRU's hT or the WKV state sT.  An
+    ``xattn`` layer's (k, v) are the image's, of ``vision_seq`` rows.
   decode_step(...) — one token against the cache (ring-buffered when the
-    arch uses a bounded attention window).
+    arch uses a bounded attention window).  As in the JAX package, an
+    ``xattn`` layer decodes as an ``attn`` layer does, on a ring cache of
+    its own (the image is not attended in decode).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,19 +59,19 @@ from ..core.policy import CelloPlan
 from .attention import flash_attention_bshe, naive_attention
 from .common import (COMPUTE_DTYPE, PARAM_DTYPE, activation_fn, apply_rope,
                      bf16, dense_init, is_gated, rms_norm)
+from .moe import apply_moe, init_moe_params
 from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
                         apply_rwkv_step, init_rglru_params, init_rwkv_params)
 
 Params = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (ROADMAP.md); 'dense', 'hybrid' and 'ssm' "
-            "archs run")
+            f"{cfg.name}: no model of the {cfg.family!r} family; the port "
+            f"runs {', '.join(PORTED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -89,8 +97,8 @@ def period_structure(cfg: ArchConfig) -> Tuple[List[str], int, List[str]]:
 
 def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str, *,
                       device, dtype=PARAM_DTYPE) -> Params:
-    """One block of ``kind`` (``attn``, ``rglru`` or ``rwkv``) and its
-    MLP."""
+    """One block of ``kind`` (``attn``, ``xattn``, ``rglru`` or ``rwkv``)
+    and its MLP, or its MoE FFN for an MoE arch."""
     D, H, KVH, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     s = D ** -0.5
@@ -98,7 +106,7 @@ def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str, *,
         "ln1": torch.zeros((D,), dtype=dtype, device=device),
         "ln2": torch.zeros((D,), dtype=dtype, device=device),
     }
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         p["attn"] = {
             "wq": dense_init(gen, (D, H * E), s, device, dtype),
             "wk": dense_init(gen, (D, KVH * E), s, device, dtype),
@@ -112,6 +120,10 @@ def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str, *,
     else:
         raise ValueError(kind)
     F = cfg.d_ff
+    if cfg.is_moe:
+        p["moe"] = init_moe_params(gen, D, F, cfg.n_experts, cfg.activation,
+                                   device=device, dtype=dtype)
+        return p
     p["mlp"] = {"w_up": dense_init(gen, (D, F), s, device, dtype),
                 "w_down": dense_init(gen, (F, D), F ** -0.5, device, dtype)}
     if is_gated(cfg.activation):
@@ -146,20 +158,27 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 # ---------------------------------------------------------------------------
 
 def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
+            img: Optional[torch.Tensor], rope: bool,
             positions: torch.Tensor
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Self-attention, or with ``img`` cross-attention: K/V from the
+    ``vision_seq`` image rows, without rope or window."""
     B, S, D = x.shape
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
     q = (xc @ bf16(p_attn["wq"])).reshape(B, S, H, E)
-    k = (xc @ bf16(p_attn["wk"])).reshape(B, S, KVH, E)
-    v = (xc @ bf16(p_attn["wv"])).reshape(B, S, KVH, E)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    src = xc if img is None else img.to(COMPUTE_DTYPE)
+    T = src.shape[1]
+    k = (src @ bf16(p_attn["wk"])).reshape(B, T, KVH, E)
+    v = (src @ bf16(p_attn["wv"])).reshape(B, T, KVH, E)
+    if rope and img is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.window if img is None else None
     if plan.use_flash_attention:
-        ctx = flash_attention_bshe(q, k, v, causal=causal, window=cfg.window)
+        ctx = flash_attention_bshe(q, k, v, causal=causal, window=window)
     else:
-        ctx = naive_attention(q, k, v, causal=causal, window=cfg.window)
+        ctx = naive_attention(q, k, v, causal=causal, window=window)
     out = (ctx.reshape(B, S, H * E).to(COMPUTE_DTYPE)
            @ bf16(p_attn["wo"]))
     return out.to(x.dtype), (k, v)
@@ -168,6 +187,11 @@ def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
 def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan) -> torch.Tensor:
     B, S, D = x.shape
     flat = x.reshape(B * S, D)
+    if cfg.is_moe:
+        out = apply_moe(p["moe"], flat, top_k=cfg.top_k,
+                        activation=cfg.activation,
+                        capacity_factor=plan.moe_capacity_factor)
+        return out.reshape(B, S, D)
     m = p["mlp"]
     gated = is_gated(cfg.activation)
     act_name = {"swiglu": "silu", "geglu": "gelu", "relu2": "relu2",
@@ -190,14 +214,18 @@ def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan) -> torch.Tensor:
 
 
 def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
-                positions: torch.Tensor):
+                positions: torch.Tensor,
+                img: Optional[torch.Tensor] = None):
     """Full-sequence block of ``kind``.  Returns (x_out, cache entry):
-    (k, v), hT or sT."""
+    (k, v), hT or sT.  An ``xattn`` block attends to ``img``; an
+    encoder-only arch's blocks attend both ways, without rope."""
     fused = plan.use_fused_rmsnorm
     h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         y, entry = _attend(p["attn"], h, cfg=cfg, plan=plan,
-                           causal=not cfg.encoder_only, positions=positions)
+                           causal=(not cfg.encoder_only) and kind == "attn",
+                           img=img if kind == "xattn" else None,
+                           rope=not cfg.encoder_only, positions=positions)
     elif kind == "rglru":
         y, entry = apply_rglru_seq(p["rglru"], h)
     elif kind == "rwkv":
@@ -232,22 +260,29 @@ def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor):
 
 
 def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
-            *, mode: str = "prefill"):
-    """Full-sequence forward.  tokens: (B, S) int.  Returns (logits
-    (B, S, padded_vocab) fp32, [cache entry per layer]): (k, v) for an
-    attention layer, hT (B, D) fp32 for an RG-LRU layer, sT (B, H, E, E)
-    fp32 for an RWKV layer."""
+            *, frames: Optional[torch.Tensor] = None,
+            img: Optional[torch.Tensor] = None, mode: str = "prefill"):
+    """Full-sequence forward.  tokens: (B, S) int (ignored when ``frames``
+    is given); frames: (B, S, D) stubbed frame embeddings (audio), taken
+    in place of the token embedding; img: (B, V, D) stubbed patch
+    embeddings (vlm), which the ``xattn`` layers attend to.  Returns
+    (logits (B, S, padded_vocab) fp32, [cache entry per layer]): (k, v)
+    for an attention layer, hT (B, D) fp32 for an RG-LRU layer, sT (B, H,
+    E, E) fp32 for an RWKV layer."""
     _check_family(cfg)
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r}: forward runs 'prefill' (a "
                          "training step is not ported yet)")
-    x = embed_tokens(params, cfg, tokens)
+    if frames is not None:
+        x = frames.to(COMPUTE_DTYPE)
+    else:
+        x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     caches = []
     for p_layer, kind in zip(params["layers"], cfg.layer_kinds()):
         x, entry = apply_block(p_layer, x, kind, cfg=cfg, plan=plan,
-                               positions=positions)
+                               positions=positions, img=img)
         caches.append(entry)
     return _logits(params, cfg, plan, x), caches
 
@@ -272,14 +307,14 @@ class CacheSpec:
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                device="cuda") -> Dict[str, List[Dict[str, torch.Tensor]]]:
     """Zero cache, one entry per layer by its kind: ``{"k", "v",
-    "pos_idx"}`` (attention), ``{"h"}`` (B, D) fp32 (RG-LRU) or ``{"s"}``
-    (B, H, E, E) fp32 (RWKV)."""
+    "pos_idx"}`` (attention, cross-attention included), ``{"h"}`` (B, D)
+    fp32 (RG-LRU) or ``{"s"}`` (B, H, E, E) fp32 (RWKV)."""
     _check_family(cfg)
     spec = CacheSpec(cfg, seq_len)
     E = cfg.resolved_head_dim
 
     def entry(kind: str):
-        if kind == "attn":
+        if kind in ("attn", "xattn"):
             Z = spec.z_for(kind)
             return {
                 "k": torch.zeros((batch, Z, cfg.n_kv_heads, E),
@@ -363,7 +398,7 @@ def _decode_block(p, cache, x, kind: str, pos: torch.Tensor, *,
                   cfg: ArchConfig, plan: CelloPlan, donate: bool):
     fused = plan.use_fused_rmsnorm
     h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         y, new_cache = _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
                                       plan=plan, donate=donate)
     elif kind == "rglru":

@@ -11,15 +11,16 @@ and their labels are the JAX package's, letter for letter.
 A bounded LRU of :class:`~repro_torch.serve.batched.BatchedPlan`\\ s sits
 on top: a hot bucket costs one dict lookup (zero search, zero trace, zero
 compile); a cold bucket pays trace → codesign → lower → compile once,
-then stays resident until evicted.  There is no codesign disk cache in
-the port yet: the router keeps each (workload, params) codesign, so a
-bucket's fallback variant (another backend) does not search again.  A
-resident bucket holds its shared operator on the session's device,
-uploaded once and bound to its batched plan, whose graphs read it in
-place: every batch hands the plan those tensors (the JAX package handed
-numpy feeds to every dispatch, which on a card would move cg's 64 MiB
-``A`` over PCIe for every batch).  All router state is guarded
-by one lock — worker threads and callers can route concurrently.
+then stays resident until evicted.  The session's codesign disk cache
+(``api.cache``) replays a search that another bucket of the same
+(workload, params) ran, such as a bucket's fallback variant (another
+backend) or its other dtype.  A resident bucket holds its shared
+operator on the session's device, uploaded once and bound to its batched
+plan, whose graphs read it in place: every batch hands the plan those
+tensors (the JAX package handed numpy feeds to every dispatch, which on
+a card would move cg's 64 MiB ``A`` over PCIe for every batch).  All
+router state is guarded by one lock — worker threads and callers can
+route concurrently.
 """
 from __future__ import annotations
 
@@ -202,7 +203,6 @@ class PlanRouter:
         self.session = session
         self.max_plans = max_plans
         self._lru: "OrderedDict[BucketKey, _PlanEntry]" = OrderedDict()
-        self._designed: Dict[Tuple[str, Tuple], Any] = {}
         self._lock = threading.RLock()
         # hit/miss/eviction counters live on the obs registry under this
         # router's unique scope label; stats() reads them back
@@ -245,13 +245,9 @@ class PlanRouter:
             return entry
 
     def _build(self, key: BucketKey) -> _PlanEntry:
-        designed = self._designed.get((key.workload, key.params))
-        if designed is None:
-            traced = self.session.trace(workload=key.workload,
-                                        **dict(key.params))
-            designed = self._designed[(key.workload, key.params)] = \
-                traced.codesign()
-        plan = designed.lower(backend=key.backend)
+        traced = self.session.trace(workload=key.workload,
+                                    **dict(key.params))
+        plan = traced.codesign().lower(backend=key.backend)
         return _PlanEntry(key, plan, np.dtype(key.dtype))
 
     def request_feeds(self, entry: _PlanEntry,

@@ -120,6 +120,52 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
+def test_moe_audio_and_vlm_families_serve_with_jax_absent(tmp_path):
+    """``models.moe``, the encoder-only and cross-attention paths and
+    ``launch.serve``'s ``frames`` / ``img`` run a reduced granite-moe,
+    hubert and llama-vision with jax absent, and ``api.cache`` publishes
+    and replays their plans."""
+    code = f"""
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+from repro_torch.api import Session
+from repro_torch.api.cache import CodesignCache
+from repro_torch.configs import get_config
+from repro_torch.models import init_params, moe
+for name in ("granite-moe-1b-a400m", "hubert-xlarge",
+             "llama-3.2-vision-11b"):
+    cfg = get_config(name).reduced()
+    for hit in (False, True):
+        designed = (Session(cfg, device="cpu", cache_dir={str(tmp_path)!r})
+                    .trace("prefill", batch=1, seq=32).codesign())
+        assert designed.from_cache == hit
+    bundle = designed.lower().serve()
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.zeros((1, 6), dtype=torch.long)
+    kw = {{}}
+    if cfg.family == "audio":
+        kw["frames"] = torch.ones((1, 6, cfg.d_model))
+    if cfg.family == "vlm":
+        kw["img"] = torch.ones((1, cfg.vision_seq, cfg.d_model))
+    logits = bundle.prefill_fn(params, toks, **kw)
+    assert bool(torch.isfinite(logits).all())
+    if not cfg.encoder_only:
+        assert bundle.generate(params, toks[:, :4], 3).shape == (1, 7)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CELLO_NO_CACHE", "CELLO_CACHE_DIR")}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**env, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_obs_and_faults_import_and_report_with_jax_absent():
     """``repro_torch.obs`` and ``repro_torch.testing`` import with jax
     absent, and a run reports through them: spans, counters and a fault
@@ -132,8 +178,8 @@ from repro_torch.testing import faults
 from repro_torch.testing.faults import InjectedFault
 from repro_torch.api import Session
 obs.enable()
-plan = (Session(device="cpu").trace(workload="cg", n=32, iters=2)
-        .analyze().codesign().lower())
+plan = (Session(device="cpu", use_cache=False)
+        .trace(workload="cg", n=32, iters=2).analyze().codesign().lower())
 with faults.inject("exec.dispatch@cuda", times=1):
     try:
         plan.run()

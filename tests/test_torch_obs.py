@@ -462,14 +462,15 @@ def test_a_span_shows_in_a_torch_profiler_trace():
 
 def test_session_and_executor_spans_on_the_cpu(tmp_path):
     """A traced port session: stage spans, the search's spans and the
-    executor's compile and dispatch spans, exported and validated."""
+    executor's compile and dispatch spans, exported and validated.  The
+    session's disk cache is off, so that the search runs."""
     import repro_torch.api as pt_api
     tr = obs.tracer()
     was_enabled = tr.enabled
     tr.clear()
     obs.enable()
     try:
-        plan = (pt_api.Session(device="cpu")
+        plan = (pt_api.Session(device="cpu", use_cache=False)
                 .trace(workload="cg", n=32, iters=2)
                 .analyze().codesign().lower())
         plan.run(seed=0)

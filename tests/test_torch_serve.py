@@ -24,7 +24,8 @@ Parity policy:
 
 The server's mechanics are ``tests/test_serve.py``'s classes on the port
 (``backend="cuda"`` where the JAX tests used ``pallas``); the JAX
-package's disk-cache tests wait for ``api/cache.py``.
+package's disk-cache tests have their twins in
+``tests/test_torch_cache.py``.
 """
 import ast
 import re
@@ -735,16 +736,21 @@ class TestRouter:
         with pytest.raises(ValueError, match="float dtype"):
             request("cg", n=64, dtype="int32")
 
-    def test_shared_operator_uploaded_once_per_bucket(self):
-        r = PlanRouter(session=_session())
+    def test_shared_operator_uploaded_once_per_bucket(self, tmp_path,
+                                                      monkeypatch):
+        monkeypatch.delenv("CELLO_NO_CACHE", raising=False)
+        r = PlanRouter(session=Session(device="cpu", cache_dir=tmp_path))
         key = request("cg", n=32, iters=2, backend="cuda").bucket()
         entry = r.plan_for(key)
         assert all(isinstance(v, torch.Tensor)
                    for v in entry.shared_feeds.values())
         assert r.plan_for(key).shared_feeds["A"] is entry.shared_feeds["A"]
-        # the fallback variant reuses the bucket's codesign
+        # the fallback variant reuses the bucket's codesign, replayed from
+        # the session's disk cache
         fb = r.plan_for(request("cg", n=32, iters=2).bucket())
-        assert fb.bplan.plan.codesigned is entry.bplan.plan.codesigned
+        first = entry.bplan.plan.codesigned
+        assert not first.from_cache and fb.bplan.plan.codesigned.from_cache
+        assert fb.bplan.plan.codesigned.best.schedule == first.best.schedule
 
     def test_bucket_plan_reads_its_bound_operator(self):
         r = PlanRouter(session=_session())

@@ -21,8 +21,8 @@ deterministic fault-injection harness (``repro_torch.testing.faults``),
     futures with ``KernelError``: no retry, no fallback, the breaker
     untouched.
 
-The JAX suite's ``TestCacheCorruption`` waits for the port's
-``api/cache.py``.
+The JAX suite's ``TestCacheCorruption`` has its twin in
+``tests/test_torch_cache.py``.
 """
 import contextlib
 import threading
