@@ -33,7 +33,8 @@ Phases, each of which raises (exit code 1) on failure:
    version;
    then B5 (flash attention), B6 (fused MLP) and B7 (RMSNorm) at the LLM
    path's shapes (granite-3-8b: d 4096, 32 heads over 8 kv heads of 128,
-   d_ff 12800; 1024 prefill rows and 4 decode rows), in fp32 and bf16,
+   d_ff 12800; 1024 prefill rows and 4 decode rows, in fp32 and bf16;
+   phase 11's training step, batch 4 x 1024, 4096 rows, in bf16),
    and a TF32 control that B6's fp32 limit must reject (B5 in bf16 runs
    bf16 ``mma.sync`` with P split in two bf16 halves, B6 from 17 rows up
    3xTF32 ``mma.sync``: each record names its arithmetic, gives its
@@ -172,7 +173,25 @@ Phases, each of which raises (exit code 1) on failure:
    "cuda", cache_dir=d)`` codesign cg(n=4096, iters=64); the second
    replays the first's search (``from_cache``), its plan equals the
    first's field for field and its run() is bitwise the first's; both
-   ``codesign()`` times are printed.
+   ``codesign()`` times are printed;
+11. training, ``Session("granite-3-8b", device="cuda").default_plan(
+   seq=1024).train(...)``: full width with its depth cut to
+   ``TRAIN_LAYERS`` = 8 of 40 (fp32 weights, gradients and two moments
+   are 16 B a parameter: 134 GB at 40 layers), random weights from seed 0,
+   batches of 4 x 1024 from ``SyntheticLMData``, the plan's remat policy
+   (``attn_out``, ``mlp_out``) and AdamW; the forward on B5, B6 and B7
+   through ``models.autograd``, the backward through their plain forms.
+   One step's gradients: every leaf finite and not zero; loss and every
+   leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the same step on the
+   plain forms (``plain_forms``), the spread that of the plain forms
+   against the flags-off plan; with remat bitwise those without (or, if
+   two identical runs differ, within twice their spread); launches per
+   step as the policy predicts (remat: B5 16, B6 16, B7 33; without: 8,
+   8, 17).  Then the median warm step of the kernel and the plain-forms
+   train step (fwd, bwd, donated AdamW), taken in turns, with tokens/s,
+   the peak memory of a step with remat on and off, and three
+   ``CompiledPlan.train`` steps (the counted main path) with finite
+   losses.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -363,6 +382,23 @@ FAMILY_PATHS = (
      {"flash_attention": 40, "fused_mlp": 40, "rmsnorm": 81, "rglru": 0,
       "wkv6": 0}, (LLM_TOL, DECODE_TOL)),
 )
+
+#: phase 11, training: granite-3-8b at full width with its depth cut to
+#: ``TRAIN_LAYERS`` of 40 (training holds 16 B a parameter, fp32 weights,
+#: gradients and two moments: 134 GB at 40 layers, 32 GB at 8, beside the
+#: comparison runs' gradients and the activations), batch 4 x 1024
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+#: ``CompiledPlan.train`` steps on the main path, and timed warm steps of
+#: each of the kernel and the plain-forms train step (taken in turns)
+TRAIN_LOOP_STEPS, TRAIN_TIMED = 3, 3
+#: the least relative tolerance of the training loss and of a gradient
+#: leaf (2-norm), kernel path against the plain forms; the limit is
+#: ``max(TRAIN_MIN_TOL, 2 x the spread)`` where the spread is that of two
+#: plain evaluations of the same function in different rounding orders
+#: (chunked attention against naive), as ``tests/test_torch_train.py``
+#: sets it from the JAX package's two step forms
+TRAIN_MIN_TOL = 1e-3
 
 
 def log(msg: str = "") -> None:
@@ -1174,15 +1210,20 @@ def _hold(label, got, want, dt):
 def check_rmsnorm(results, d=4096, eps=1e-6):
     """B7 at the prefill's 1024 rows and a decode step's 4 rows, at width
     ``d`` (4096: granite-3-8b; 1024, 1280 and 2048: granite-moe-1b-a400m,
-    hubert-xlarge and moonshot-v1-16b-a3b)."""
+    hubert-xlarge and moonshot-v1-16b-a3b); at d 4096 also at the training
+    step's 4096 rows (bf16, phase 11)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     rng = np.random.default_rng(21)
     w = _rand(rng, (d,), torch.float32, 0.1)
-    for rows in (PREFILL_SEQ, GEN_BATCH):
-        for dt in ("float32", "bfloat16"):
+    both = ("float32", "bfloat16")
+    shapes = [(PREFILL_SEQ, both), (GEN_BATCH, both)]
+    if d == 4096:
+        shapes.append((TRAIN_BATCH * TRAIN_SEQ, ("bfloat16",)))
+    for rows, dts in shapes:
+        for dt in dts:
             x = _rand(rng, (rows, d), getattr(torch, dt))
             got = rmsnorm(x, w, eps=eps)
             torch.cuda.synchronize()
@@ -1239,7 +1280,8 @@ def b6_math(rows, d, f, gated, dt):
 
 
 def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
-    """B5 at the prefill's shape (granite-3-8b, causal), timed; then, for
+    """B5 at the prefill's shape (granite-3-8b, causal), timed, and at the
+    training step's batch of ``TRAIN_BATCH`` (bf16, phase 11); then, for
     correctness only, the code paths the other dense archs reach: E=256
     (gemma-7b), E=80 with a window (h2o-danube-1.8b), T > S, ragged S."""
     import numpy as np
@@ -1248,7 +1290,8 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     rng = np.random.default_rng(22)
-    for dt in ("float32", "bfloat16"):
+    for B, dt in ((B, "float32"), (B, "bfloat16"),
+                  (TRAIN_BATCH, "bfloat16")):
         tdt = getattr(torch, dt)
         q = _rand(rng, (B, H, S, E), tdt)
         k = _rand(rng, (B, KVH, S, E), tdt)
@@ -1266,7 +1309,8 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
         pairs = _attn_pairs(S, S, True, None)
         flops = 4 * B * H * E * pairs
         record(results, "B5 flash  ", kernel="flash_attention",
-               case=f"B={B} H={H} KVH={KVH} S=T={S} E={E} causal",
+               case=f"B={B} H={H} KVH={KVH} S=T={S} E={E} causal"
+               + (" (training batch)" if B == TRAIN_BATCH else ""),
                dtype=dt, err=err, rel_err=rel,
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding",
@@ -1339,8 +1383,9 @@ def check_flash_hybrid(results):
 
 def check_mlp(results, D=4096, F_=12800):
     """B6 (gated silu, granite-3-8b) at the prefill's 1024 rows and a decode
-    step's 4 rows, with fp32 weights; a TF32 control that the fp32 limit
-    must reject; relu² without a gate and a ragged M/F for correctness."""
+    step's 4 rows, with fp32 weights, and at the training step's 4096 rows
+    (bf16, phase 11); a TF32 control that the fp32 limit must reject;
+    relu² without a gate and a ragged M/F for correctness."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1350,8 +1395,10 @@ def check_mlp(results, D=4096, F_=12800):
     wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
     wd = _rand(rng, (F_, D), torch.float32, F_ ** -0.5)
     controls = {}
-    for rows in (PREFILL_SEQ, GEN_BATCH):
-        for dt in ("float32", "bfloat16"):
+    both = ("float32", "bfloat16")
+    for rows, dts in ((PREFILL_SEQ, both), (GEN_BATCH, both),
+                      (TRAIN_BATCH * TRAIN_SEQ, ("bfloat16",))):
+        for dt in dts:
             x = _rand(rng, (rows, D), getattr(torch, dt))
             got = fused_mlp(x, wg, wu, wd, activation="silu")
             torch.cuda.synchronize()
@@ -3864,6 +3911,255 @@ def check_bound_operator(routers):
         "every lane bitwise equal to its run() on the written operator")
 
 
+# --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+
+class plain_forms:
+    """Within the block, a training forward runs the three autograd
+    Functions' backward forms as its forward too (chunked attention, the
+    plain bf16 MLP, the plain norm): the model reads the Functions from its
+    module at call time, so swapping the module attributes swaps the path.
+    Only this script does this; the package has no such switch."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        from repro_torch.models.attention import chunked_flash_attention
+        from repro_torch.models.autograd import plain_mlp
+        from repro_torch.models.common import rms_norm
+
+        class Flash:
+            @staticmethod
+            def apply(q, k, v, causal, window, kv_block):
+                return chunked_flash_attention(q, k, v, causal=causal,
+                                               window=window,
+                                               kv_block=kv_block)
+
+        class MLP:
+            apply = staticmethod(plain_mlp)
+
+        class Norm:
+            apply = staticmethod(rms_norm)
+        self._mod = transformer
+        self._saved = {n: getattr(transformer, n) for n in
+                       ("FlashAttentionFn", "FusedMLPFn", "RMSNormFn")}
+        transformer.FlashAttentionFn = Flash
+        transformer.FusedMLPFn = MLP
+        transformer.RMSNormFn = Norm
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._mod, n, fn)
+        return False
+
+
+def _leaf_rel(got, want):
+    """max over leaves of |got - want| / |want| (2-norms, on the card)."""
+    import torch
+    worst = 0.0
+    for a, b in zip(_leaves(got), _leaves(want)):
+        worst = max(worst, float(torch.linalg.vector_norm(a - b)
+                                 / torch.linalg.vector_norm(b)))
+    return worst
+
+
+def drive_training(results_paths, profile=False):
+    """The training path: ``Session(granite-3-8b, device="cuda")
+    .default_plan(seq=1024)``, full width at ``TRAIN_LAYERS`` layers,
+    batches of 4 x 1024 from ``SyntheticLMData``, the plan's remat policy
+    and AdamW.  Checks, each failing the run: (a) every gradient leaf of
+    one step finite and not zero; (b) the kernel path's loss and every
+    leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the plain-forms run
+    (``plain_forms``), the spread that of the plain forms against the
+    flags-off plan (naive attention); (c) gradients with remat bitwise
+    those without, or, where two identical no-remat runs differ, within
+    twice their spread (the record says which held); (d) B5, B6 and B7
+    launched per step as the policy predicts (with remat every layer's
+    forward kernels twice, the final norm once); (e) ``TRAIN_LOOP_STEPS``
+    steps of ``CompiledPlan.train`` with finite losses, from the fresh
+    weights.  Then records the median warm step time and tokens/s of the
+    kernel and plain-forms train steps (taken in turns, continuing from
+    the trained weights) and the peak memory of a step with remat on and
+    off; ``profile`` adds one profiled step of each.  Returns the launch
+    counts of the ``CompiledPlan.train`` run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.train import (TrainConfig, make_loss_fn,
+                                          make_train_step, value_and_grad)
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    full = get_config(LLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    log(f"  {LLM_ARCH}: depth cut to {TRAIN_LAYERS} of {full.n_layers} "
+        "layers, every width as published")
+    compiled = Session(cfg, device="cuda").default_plan(seq=TRAIN_SEQ)
+    plan = compiled.plan
+    assert (plan.use_flash_attention and plan.use_fused_mlp
+            and plan.use_fused_rmsnorm), plan
+    assert plan.remat_save_names == ("attn_out", "mlp_out"), plan
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    x, y = data.batch_at(0)
+    batch = {"tokens": torch.from_numpy(x).cuda(),
+             "labels": torch.from_numpy(y).cuda()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  plan {plan.remat_save_names} kv_block {plan.kv_block}; "
+        f"{n_params / 1e9:.3f} B fp32 parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB); batch "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}")
+
+    def grads(p, remat=True):
+        """(loss, grads, launches, peak bytes above the memory in use)."""
+        fn = value_and_grad(make_loss_fn(cfg, p, TrainConfig(remat=remat)))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        loss, g = fn(params, batch)
+        torch.cuda.synchronize()
+        return (float(loss), g, kernels.launches(),
+                torch.cuda.max_memory_allocated() - base)
+
+    L = TRAIN_LAYERS
+    want = {True: {"flash_attention": 2 * L, "fused_mlp": 2 * L,
+                   "rmsnorm": 4 * L + 1},
+            False: {"flash_attention": L, "fused_mlp": L,
+                    "rmsnorm": 2 * L + 1}}
+    loss_k, g_k, n_k, peak_remat = grads(plan)
+    for leaf in _leaves(g_k):                                      # (a)
+        assert bool(torch.isfinite(leaf).all()), "non-finite gradient"
+        assert bool((leaf != 0).any()), "a gradient leaf is all zero"
+    loss_nr, g_nr, n_nr, peak_off = grads(plan, remat=False)
+    for remat, got in ((True, n_k), (False, n_nr)):                # (d)
+        assert {k: got[k] for k in want[remat]} == want[remat], (remat, got)
+    bitwise = loss_k == loss_nr and all(                           # (c)
+        torch.equal(a, b) for a, b in zip(_leaves(g_k), _leaves(g_nr)))
+    remat_check = dict(bitwise=bitwise)
+    if not bitwise:
+        _, g_nr2, _, _ = grads(plan, remat=False)
+        spread = _leaf_rel(g_nr2, g_nr)
+        err = _leaf_rel(g_k, g_nr)
+        del g_nr2
+        assert spread > 0 and err <= 2 * spread, (
+            "remat gradients vs no remat", err, spread)
+        remat_check.update(spread=spread, err=err)
+    del g_nr
+    with plain_forms():
+        loss_p, g_p, n_p, _ = grads(plan)
+    assert not any(n_p[k] for k in want[True]), n_p
+    loss_off, g_off, _, _ = grads(dataclasses.replace(
+        plan, use_flash_attention=False, use_fused_mlp=False,
+        use_fused_rmsnorm=False))
+    spread = _leaf_rel(g_off, g_p)
+    loss_spread = abs(loss_off - loss_p) / abs(loss_p)
+    del g_off
+    tol = max(TRAIN_MIN_TOL, 2 * spread)
+    loss_tol = max(TRAIN_MIN_TOL, 2 * loss_spread)
+    err = _leaf_rel(g_k, g_p)                                      # (b)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  one step: loss {loss_k:.6f} (plain forms {loss_p:.6f}, rel "
+        f"{loss_err:.2e}, limit {loss_tol:.2e}); gradients: max leaf rel "
+        f"err {err:.3e} against the plain forms (limit {tol:.3e} = 2 x the "
+        f"plain forms' spread against naive attention, {spread:.3e})")
+    assert loss_err <= loss_tol, ("training loss vs plain forms", loss_err)
+    assert err <= tol, ("gradients vs plain forms", err, tol)
+    held = "bitwise equal to" if bitwise else "within 2x the spread of"
+    log(f"  remat gradients {held} the no-remat run's ({remat_check}); "
+        f"launches per step with remat {want[True]}, without "
+        f"{want[False]} (as predicted)")
+    del g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the main path: CompiledPlan.train, counted
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = compiled.train(data_iter=iter(data), n_steps=TRAIN_LOOP_STEPS,
+                         params=params, log_every=1,
+                         train_cfg=TrainConfig(donate=True))
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    history, state = out["history"], out["opt_state"]
+    del out
+    losses = [h["loss"] for h in history]
+    assert len(losses) == TRAIN_LOOP_STEPS and all(
+        np.isfinite(v) for v in losses), losses
+    assert {k: counts[k] for k in want[True]} == {
+        k: TRAIN_LOOP_STEPS * n for k, n in want[True].items()}, counts
+    # timed train steps, in turns: donated (in-place) AdamW, continuing
+    # from the main path's weights and moments
+    opt = AdamWConfig(total_steps=100)
+    step_k = make_train_step(cfg, plan, opt, TrainConfig(donate=True))
+    times = {"kernel": [], "plain": []}
+
+    def timed(name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if name == "plain":
+            with plain_forms():
+                _, _, m = step_k(params, state, batch)
+        else:
+            _, _, m = step_k(params, state, batch)
+        loss = float(m["loss"])
+        times[name].append(time.perf_counter() - t)
+        assert np.isfinite(loss), (name, loss)
+    for name in ("kernel", "plain"):                 # warm-up
+        timed(name)
+        times[name].clear()
+    for _ in range(TRAIN_TIMED):
+        for name in ("kernel", "plain"):
+            timed(name)
+    step_ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    profiles = {}
+    if profile:
+        profiles = {name: profile_fn(lambda: timed(name), top=8)
+                    for name in ("kernel", "plain")}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smi = smi_line()
+    record = dict(
+        path=f"train {cfg.name} {TRAIN_LAYERS} layers "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}", nvidia_smi=smi, layers=TRAIN_LAYERS,
+        n_params=n_params, plan=dataclasses.asdict(plan),
+        loss=loss_k, plain_forms_loss=loss_p, loss_rel_err=loss_err,
+        loss_tol=loss_tol, grad_rel_err=err, grad_tol=tol,
+        plain_spread=spread, remat=remat_check,
+        launches_per_step_remat=want[True],
+        launches_per_step_no_remat=want[False],
+        step_ms=step_ms["kernel"], tokens_per_s=tokens / step_ms["kernel"]
+        * 1e3, plain_step_ms=step_ms["plain"],
+        plain_tokens_per_s=tokens / step_ms["plain"] * 1e3,
+        step_ms_all={k: [t * 1e3 for t in v] for k, v in times.items()},
+        peak_gb_remat=peak_remat / 1e9, peak_gb_no_remat=peak_off / 1e9,
+        train_loop_losses=losses,
+        train_loop_step_ms=[h["time_s"] * 1e3 for h in history],
+        profile=profiles, seconds=time.perf_counter() - t0)
+    results_paths.append(record)
+    log(f"  on {smi}: train step (fwd + bwd + AdamW, donated), median of "
+        f"{TRAIN_TIMED} warm: kernels {step_ms['kernel']:.1f} ms "
+        f"({record['tokens_per_s']:.0f} tokens/s), plain forms "
+        f"{step_ms['plain']:.1f} ms ({record['plain_tokens_per_s']:.0f} "
+        f"tokens/s); peak memory of a step above the resident state: "
+        f"remat {peak_remat / 1e9:.2f} GB, no remat {peak_off / 1e9:.2f} "
+        f"GB; CompiledPlan.train losses {losses}")
+    for name, prof in profiles.items():
+        log(f"  profiled {name} step: {prof}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4117,6 +4413,18 @@ def main(argv=None) -> int:
     counts = check_codesign_cache(paths)
     for k, v in counts.items():
         totals[k] += v
+
+    # ---- phase 11: training
+    card_phase(f"11: the training path, Session({LLM_ARCH!r}, "
+               f"device='cuda').default_plan(seq={TRAIN_SEQ}).train(...), "
+               f"{TRAIN_LAYERS} of its layers")
+    t0 = time.perf_counter()
+    counts = drive_training(paths, profile=args.profile)
+    for k, v in counts.items():
+        totals[k] += v
+    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
+        assert counts[k] > 0, f"kernel {k} was never launched in training"
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -155,7 +155,9 @@ class CompiledPlan:
     and decode entry points and the greedy driver bound to ``(cfg,
     plan)``; the plan's kernel flags pick the hand-written kernels (B5
     flash attention, B6 fused MLP, B7 RMSNorm) for tensors on the card,
-    and a prefill's recurrences run on B8 (RG-LRU) and B9 (WKV6).
+    and a prefill's recurrences run on B8 (RG-LRU) and B9 (WKV6).  A
+    dense arch's plan also trains (:meth:`train`), its forward on B5, B6
+    and B7 under the plan's remat policy.
 
     A frontend (HPC) plan (``cfg=None``) runs: :meth:`run` hands it to a
     registered execution backend (``repro_torch.exec``): ``cuda`` (the
@@ -183,6 +185,9 @@ class CompiledPlan:
     # (`core.lowering.partition_plan`); None for single-device plans
     sharded: Optional[ShardedExecPlan] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the session of a plan made without a trace (``default_plan``)
+    session: Optional["Session"] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def arch(self) -> str:
@@ -190,7 +195,8 @@ class CompiledPlan:
 
     @property
     def device(self) -> str:
-        return self.trace.session.device
+        return (self.trace.session if self.trace is not None
+                else self.session).device
 
     # -- execution ------------------------------------------------------
     def serve(self, *, unroll: bool = False):
@@ -202,6 +208,23 @@ class CompiledPlan:
                              "stack; execute them with plan.run()")
         from ..launch.serve import make_serving
         return make_serving(self.cfg, self.plan, unroll=unroll)
+
+    def train(self, *, data_iter, n_steps: int, opt_cfg=None, **kwargs
+              ) -> Dict[str, Any]:
+        """Run the training loop (``launch.train.train_loop``) under this
+        plan's remat policy, on the session's device (given ``params``,
+        on theirs).  ``opt_cfg`` defaults to ``AdamWConfig(total_steps=
+        n_steps)``."""
+        if self.cfg is None:
+            raise ValueError("frontend (HPC) plans have no LLM training "
+                             "stack; execute them with plan.run()")
+        from ..launch.train import train_loop
+        from ..optim import AdamWConfig
+        if opt_cfg is None:
+            opt_cfg = AdamWConfig(total_steps=n_steps)
+        kwargs.setdefault("device", self.device)
+        return train_loop(self.cfg, self.plan, opt_cfg,
+                          data_iter=data_iter, n_steps=n_steps, **kwargs)
 
     def run(self, feeds=None, *, seed: int = 0,
             backend: Optional[str] = None,

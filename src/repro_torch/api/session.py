@@ -469,7 +469,7 @@ class Session:
             raise ValueError("default_plan needs an arch config; frontend "
                              "workloads always go through codesign()")
         plan = _default_plan(self.cfg, seq=seq, hw=self.hw)
-        return CompiledPlan(plan=plan, cfg=self.cfg)
+        return CompiledPlan(plan=plan, cfg=self.cfg, session=self)
 
     # -- one-shot convenience --------------------------------------------
     def compile(self, phase: str = "train", *,

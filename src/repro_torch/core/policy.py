@@ -9,10 +9,12 @@ The counterpart of ``repro.core.policy``, copied: the co-design result
   explicit-region budget of the hardware model (``V5E`` by default, so
   that plans equal the JAX package's); the port's kernels choose their own
   tiles for the card and read only the flags;
-* **remat save-names** — tensors the co-designer kept on-chip, as the
-  names a training step would save.  The port has no training step yet,
-  so ``checkpoint_policy`` is not copied; the names stay in the plan so
-  that it equals the JAX package's field for field.
+* **remat policy** — tensors the co-designer kept on-chip become the
+  names a training step saves (``remat_save_names``); everything else is
+  recomputed in the backward pass.  ``checkpoint_policy()`` builds the
+  policy object that ``launch.train`` checkpoints each layer with
+  (``models.common.RematPolicy``: selective activation checkpointing on
+  the models' ``tag`` names).
 """
 from __future__ import annotations
 
@@ -46,6 +48,12 @@ class CelloPlan:
     # MoE expert-capacity factor
     moe_capacity_factor: float = 1.25
     notes: str = ""
+
+    def checkpoint_policy(self):
+        """A fresh :class:`~repro_torch.models.common.RematPolicy` that
+        saves exactly ``remat_save_names`` (none: nothing saveable)."""
+        from ..models.common import RematPolicy
+        return RematPolicy(self.remat_save_names)
 
 
 def _pick_attention_blocks(head_dim: int, explicit_bytes: int,

@@ -41,6 +41,17 @@ Modes:
   forward(..., mode="prefill") — full sequence; also returns each layer's
     cache entry: (k, v), the RG-LRU's hT or the WKV state sT.  An
     ``xattn`` layer's (k, v) are the image's, of ``vision_seq`` rows.
+  forward(..., mode="train", remat_policy=None) — the same, for a loss to
+    backpropagate through; the dense families only (``TRAINED_FAMILIES``).
+    Where the plan turns a kernel on, the forward goes through its
+    ``models.autograd`` Function (the kernel forward, a differentiable
+    plain form backward); otherwise through the plain forms prefill
+    takes (naive attention, the plain MLP, the plain norm).  With a
+    ``remat_policy`` (``CelloPlan.checkpoint_policy()``) every layer is
+    one checkpointed region; the JAX package's region is one period,
+    which for the dense families is one layer.  The tensors are tagged
+    where the JAX model tags them: ``q_out``, ``attn_out``,
+    ``mlp_hidden`` (plain MLP only), ``mlp_out``, ``x_mid``.
   decode_step(...) — one token against the cache (ring-buffered when the
     arch uses a bounded attention window).  As in the JAX package, an
     ``xattn`` layer decodes as an ``attn`` layer does, on a ring cache of
@@ -49,6 +60,7 @@ Modes:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -57,14 +69,20 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.policy import CelloPlan
 from .attention import flash_attention_bshe, naive_attention
-from .common import (COMPUTE_DTYPE, PARAM_DTYPE, activation_fn, apply_rope,
-                     bf16, dense_init, is_gated, rms_norm)
+from .autograd import (ACT_NAMES, FlashAttentionFn, FusedMLPFn, RMSNormFn,
+                       plain_mlp)
+from .common import (COMPUTE_DTYPE, PARAM_DTYPE, apply_rope, bf16,
+                     dense_init, is_gated, rms_norm, tag)
 from .moe import apply_moe, init_moe_params
 from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
                         apply_rwkv_step, init_rglru_params, init_rwkv_params)
 
 Params = Dict[str, Any]
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+#: the families ``forward(mode="train")`` runs; the others' training
+#: (B8/B9 Functions, MoE dispatch under autograd, the stubbed inputs) is
+#: ROADMAP.md §1 item 2
+TRAINED_FAMILIES = ("dense",)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -159,10 +177,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
             img: Optional[torch.Tensor], rope: bool,
-            positions: torch.Tensor
+            positions: torch.Tensor, train: bool = False
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention, or with ``img`` cross-attention: K/V from the
-    ``vision_seq`` image rows, without rope or window."""
+    ``vision_seq`` image rows, without rope or window.  ``train`` takes
+    B5 through its autograd Function."""
     B, S, D = x.shape
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
@@ -174,67 +193,75 @@ def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
     if rope and img is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = tag(q, "q_out")
     window = cfg.window if img is None else None
-    if plan.use_flash_attention:
+    if plan.use_flash_attention and train:
+        ctx = FlashAttentionFn.apply(q, k, v, causal, window, plan.kv_block)
+    elif plan.use_flash_attention:
         ctx = flash_attention_bshe(q, k, v, causal=causal, window=window)
     else:
         ctx = naive_attention(q, k, v, causal=causal, window=window)
     out = (ctx.reshape(B, S, H * E).to(COMPUTE_DTYPE)
            @ bf16(p_attn["wo"]))
-    return out.to(x.dtype), (k, v)
+    return tag(out, "attn_out").to(x.dtype), (k, v)
 
 
-def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan) -> torch.Tensor:
+def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan,
+         train: bool = False) -> torch.Tensor:
     B, S, D = x.shape
     flat = x.reshape(B * S, D)
     if cfg.is_moe:
         out = apply_moe(p["moe"], flat, top_k=cfg.top_k,
                         activation=cfg.activation,
                         capacity_factor=plan.moe_capacity_factor)
-        return out.reshape(B, S, D)
+        return tag(out.reshape(B, S, D), "mlp_out")
     m = p["mlp"]
-    gated = is_gated(cfg.activation)
-    act_name = {"swiglu": "silu", "geglu": "gelu", "relu2": "relu2",
-                "gelu": "gelu"}[cfg.activation]
-    if plan.use_fused_mlp:
+    weights = (m["w_gate"] if is_gated(cfg.activation) else None,
+               m["w_up"], m["w_down"])
+    xc = flat.to(COMPUTE_DTYPE)
+    if plan.use_fused_mlp and train:
+        out = FusedMLPFn.apply(xc.contiguous(), *weights, cfg.activation)
+    elif plan.use_fused_mlp:
         from ..kernels.fused_mlp import fused_mlp
-        out = fused_mlp(flat.to(COMPUTE_DTYPE).contiguous(), m.get("w_gate"),
-                        m["w_up"], m["w_down"], activation=act_name)
+        out = fused_mlp(xc.contiguous(), *weights,
+                        activation=ACT_NAMES[cfg.activation])
     else:
-        xc = flat.to(COMPUTE_DTYPE)
-        act = activation_fn(cfg.activation)
-        up = xc @ bf16(m["w_up"])
-        if gated:
-            g = xc @ bf16(m["w_gate"])
-            h = act(g.to(torch.float32)).to(COMPUTE_DTYPE) * up
-        else:
-            h = act(up.to(torch.float32)).to(COMPUTE_DTYPE)
-        out = h @ bf16(m["w_down"])
-    return out.reshape(B, S, D).to(x.dtype)
+        out = plain_mlp(xc, *weights, cfg.activation,
+                        hidden=lambda h: tag(h, "mlp_hidden"))
+    return tag(out.reshape(B, S, D).to(x.dtype), "mlp_out")
+
+
+def _norm(x, w, cfg: ArchConfig, plan: CelloPlan, train: bool):
+    """RMSNorm: B7 through its autograd Function in a training forward
+    whose plan fuses it, otherwise ``rms_norm`` (B7's wrapper when fused)."""
+    if plan.use_fused_rmsnorm and train:
+        return RMSNormFn.apply(x, w, cfg.norm_eps)
+    return rms_norm(x, w, cfg.norm_eps, fused=plan.use_fused_rmsnorm)
 
 
 def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
                 positions: torch.Tensor,
-                img: Optional[torch.Tensor] = None):
+                img: Optional[torch.Tensor] = None, train: bool = False):
     """Full-sequence block of ``kind``.  Returns (x_out, cache entry):
     (k, v), hT or sT.  An ``xattn`` block attends to ``img``; an
-    encoder-only arch's blocks attend both ways, without rope."""
-    fused = plan.use_fused_rmsnorm
-    h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
+    encoder-only arch's blocks attend both ways, without rope.  ``train``
+    takes the kernels through their autograd Functions."""
+    h = _norm(x, p["ln1"], cfg, plan, train)
     if kind in ("attn", "xattn"):
         y, entry = _attend(p["attn"], h, cfg=cfg, plan=plan,
                            causal=(not cfg.encoder_only) and kind == "attn",
                            img=img if kind == "xattn" else None,
-                           rope=not cfg.encoder_only, positions=positions)
+                           rope=not cfg.encoder_only, positions=positions,
+                           train=train)
     elif kind == "rglru":
         y, entry = apply_rglru_seq(p["rglru"], h)
     elif kind == "rwkv":
         y, entry = apply_rwkv_seq(p["rwkv"], h, cfg.n_heads)
     else:
         raise ValueError(kind)
-    x = x + y
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps, fused=fused)
-    x = x + _mlp(p, h2, cfg, plan)
+    x = tag(x + y, "x_mid")
+    h2 = _norm(x, p["ln2"], cfg, plan, train)
+    x = x + _mlp(p, h2, cfg, plan, train)
     return x, entry
 
 
@@ -252,27 +279,39 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor
     return emb * torch.tensor(math.sqrt(cfg.d_model), dtype=COMPUTE_DTYPE)
 
 
-def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                 fused=plan.use_fused_rmsnorm)
+def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor,
+            train: bool = False):
+    x = _norm(x, params["final_norm"], cfg, plan, train)
     return (x.to(COMPUTE_DTYPE) @ bf16(params["lm_head"])
             ).to(torch.float32)
 
 
 def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
             *, frames: Optional[torch.Tensor] = None,
-            img: Optional[torch.Tensor] = None, mode: str = "prefill"):
+            img: Optional[torch.Tensor] = None, mode: str = "prefill",
+            remat_policy=None):
     """Full-sequence forward.  tokens: (B, S) int (ignored when ``frames``
     is given); frames: (B, S, D) stubbed frame embeddings (audio), taken
     in place of the token embedding; img: (B, V, D) stubbed patch
     embeddings (vlm), which the ``xattn`` layers attend to.  Returns
     (logits (B, S, padded_vocab) fp32, [cache entry per layer]): (k, v)
     for an attention layer, hT (B, D) fp32 for an RG-LRU layer, sT (B, H,
-    E, E) fp32 for an RWKV layer."""
+    E, E) fp32 for an RWKV layer.
+
+    ``mode="train"`` (dense families) is the forward a loss backpropagates
+    through; ``remat_policy`` (train only) checkpoints every layer under
+    it (module docstring)."""
     _check_family(cfg)
     if mode not in ("prefill", "train"):
-        raise ValueError(f"mode {mode!r}: forward runs 'prefill' (a "
-                         "training step is not ported yet)")
+        raise ValueError(f"mode {mode!r}: forward runs 'prefill' or 'train'")
+    train = mode == "train"
+    if train and cfg.family not in TRAINED_FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: training of the {cfg.family!r} family is not "
+            f"ported yet (ROADMAP.md §1 item 2); forward(mode='train') runs "
+            f"{', '.join(TRAINED_FAMILIES)}")
+    if remat_policy is not None and not train:
+        raise ValueError("remat_policy applies to mode='train' only")
     if frames is not None:
         x = frames.to(COMPUTE_DTYPE)
     else:
@@ -281,10 +320,14 @@ def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)
     caches = []
     for p_layer, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, entry = apply_block(p_layer, x, kind, cfg=cfg, plan=plan,
-                               positions=positions, img=img)
+        block = functools.partial(apply_block, p_layer, cfg=cfg, plan=plan,
+                                  positions=positions, img=img, train=train)
+        if remat_policy is not None:
+            x, entry = remat_policy.checkpoint(block, x, kind)
+        else:
+            x, entry = block(x, kind)
         caches.append(entry)
-    return _logits(params, cfg, plan, x), caches
+    return _logits(params, cfg, plan, x, train), caches
 
 
 # ---------------------------------------------------------------------------

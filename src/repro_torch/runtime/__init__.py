@@ -1,8 +1,8 @@
-"""`repro_torch.runtime` — the restart skeleton that serving shares.
+"""`repro_torch.runtime` — fault tolerance and elasticity: the policy
+classes of the JAX package's ``runtime`` and the restart skeleton that
+serving shares."""
+from .fault_tolerance import (ElasticPlan, ElasticScaler, HeartbeatMonitor,
+                              StragglerDetector, run_with_restarts)
 
-Only :func:`run_with_restarts` is ported so far; the elastic pieces of the
-JAX package's ``runtime`` (heartbeats, stragglers, elastic meshes) come
-with training (ROADMAP.md)."""
-from .fault_tolerance import run_with_restarts
-
-__all__ = ["run_with_restarts"]
+__all__ = ["ElasticPlan", "ElasticScaler", "HeartbeatMonitor",
+           "StragglerDetector", "run_with_restarts"]

@@ -319,3 +319,41 @@ print("ok")
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_training_stack_imports_and_trains_with_jax_absent(tmp_path):
+    """``data``, ``optim``, ``checkpoint``, ``launch.train``,
+    ``models.autograd`` and the runtime's policies import with jax absent,
+    and ``CompiledPlan.train`` runs a reduced dense model two steps with
+    an async checkpoint."""
+    code = f"""
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+from repro_torch import checkpoint, data, optim
+from repro_torch.api import Session
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+from repro_torch.models import autograd
+from repro_torch.runtime import (ElasticScaler, HeartbeatMonitor,
+                                 StragglerDetector)
+cfg = get_config("minitron-8b").reduced()
+ds = iter(data.SyntheticLMData(data.DataConfig(vocab=cfg.vocab, seq_len=8,
+                                               global_batch=2)))
+ck = checkpoint.AsyncCheckpointer({str(tmp_path)!r})
+out = Session(cfg, device="cpu").default_plan(seq=8).train(
+    data_iter=ds, n_steps=2, log_every=0, checkpointer=ck,
+    checkpoint_every=2, straggler=StragglerDetector())
+assert checkpoint.latest_step({str(tmp_path)!r}) == 2
+assert all(h["loss"] == h["loss"] for h in out["history"])
+assert ElasticScaler().plan(512, 2).n_devices == 512
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
