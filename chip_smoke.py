@@ -3977,22 +3977,27 @@ def drive_training(results_paths, profile=False):
     twice their spread (the record says which held); (d) B5, B6 and B7
     launched per step as the policy predicts (with remat every layer's
     forward kernels twice, the final norm once); (e) ``TRAIN_LOOP_STEPS``
-    steps of ``CompiledPlan.train`` with finite losses, from the fresh
-    weights.  Then records the median warm step time and tokens/s of the
-    kernel and plain-forms train steps (taken in turns, continuing from
-    the trained weights) and the peak memory of a step with remat on and
-    off; ``profile`` adds one profiled step of each.  Returns the launch
-    counts of the ``CompiledPlan.train`` run."""
+    steps of ``CompiledPlan.train`` (donated) from the fresh weights, with
+    finite losses, step 0's loss within the loss limit of the one-step
+    check's, and the weights after step 0 those of a non-donated
+    ``make_train_step`` (bitwise where (c) held bitwise).  Then records
+    the median warm step time and tokens/s of the kernel step, the
+    plain-forms step and the kernel step without remat (taken in turns,
+    continuing from the trained weights), and the memory of a step with
+    remat on and off (``grads``); ``profile`` adds one profiled step of
+    each.  Returns the launch counts of the ``CompiledPlan.train``
+    run."""
     import numpy as np
     import torch
+    import torch.utils._pytree as pytree
     from repro_torch import kernels
     from repro_torch.api import Session
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.launch.train import (TrainConfig, make_loss_fn,
-                                          make_train_step, value_and_grad)
+                                          make_train_step)
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import AdamWConfig, adamw_init
     t0 = time.perf_counter()
     full = get_config(LLM_ARCH)
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
@@ -4016,28 +4021,46 @@ def drive_training(results_paths, profile=False):
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB); batch "
         f"{TRAIN_BATCH}x{TRAIN_SEQ}")
 
+    grad_bytes = 4 * n_params            # fp32 gradients, one per weight
+
     def grads(p, remat=True):
-        """(loss, grads, launches, peak bytes above the memory in use)."""
-        fn = value_and_grad(make_loss_fn(cfg, p, TrainConfig(remat=remat)))
+        """(loss, grads, launches, memory): ``value_and_grad`` with the
+        forward and the backward taken apart, so that the bytes in use
+        above the resident state can be read between them.  ``memory``:
+        ``held``, what the forward leaves for the backward (the saved
+        activations and the logits); ``fwd_peak``, the forward's peak
+        (B6's split-F workspace of n_chunks x rows x D fp32 included);
+        ``peak``, the whole step's; ``peak_less_grads``, that peak less
+        the gradients' ``grad_bytes``, which every form of the step must
+        hold at its end."""
+        loss_fn = make_loss_fn(cfg, p, TrainConfig(remat=remat))
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        loss, g = fn(params, batch)
+        leaves, spec = pytree.tree_flatten(params)
+        alias = [t.detach().requires_grad_(True) for t in leaves]
+        loss = loss_fn(pytree.tree_unflatten(alias, spec), batch)
         torch.cuda.synchronize()
-        return (float(loss), g, kernels.launches(),
-                torch.cuda.max_memory_allocated() - base)
+        mem = dict(held=torch.cuda.memory_allocated() - base,
+                   fwd_peak=torch.cuda.max_memory_allocated() - base)
+        g = pytree.tree_unflatten(list(torch.autograd.grad(loss, alias)),
+                                  spec)
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated() - base
+        mem["peak_less_grads"] = mem["peak"] - grad_bytes
+        return float(loss.detach()), g, kernels.launches(), mem
 
     L = TRAIN_LAYERS
     want = {True: {"flash_attention": 2 * L, "fused_mlp": 2 * L,
                    "rmsnorm": 4 * L + 1},
             False: {"flash_attention": L, "fused_mlp": L,
                     "rmsnorm": 2 * L + 1}}
-    loss_k, g_k, n_k, peak_remat = grads(plan)
+    loss_k, g_k, n_k, mem_remat = grads(plan)
     for leaf in _leaves(g_k):                                      # (a)
         assert bool(torch.isfinite(leaf).all()), "non-finite gradient"
         assert bool((leaf != 0).any()), "a gradient leaf is all zero"
-    loss_nr, g_nr, n_nr, peak_off = grads(plan, remat=False)
+    loss_nr, g_nr, n_nr, mem_off = grads(plan, remat=False)
     for remat, got in ((True, n_k), (False, n_nr)):                # (d)
         assert {k: got[k] for k in want[remat]} == want[remat], (remat, got)
     bitwise = loss_k == loss_nr and all(                           # (c)
@@ -4079,43 +4102,88 @@ def drive_training(results_paths, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (e) the main path: CompiledPlan.train, counted
+    # (e) the main path: CompiledPlan.train, counted, in two calls (one
+    # step, then a resume from start_step=1 with its weights and moments).
+    # Its first step is held against a non-donated make_train_step from
+    # the same weights, fresh moments and batch 0: the loss against the
+    # one-step loss above, the weights after the step bitwise (or, where
+    # (c) found the card's GEMMs not deterministic, within 2x its spread).
+    opt_e = AdamWConfig(total_steps=TRAIN_LOOP_STEPS)
+    ref_step = make_train_step(cfg, plan, opt_e, TrainConfig(donate=False))
+    p_ref, _, m_ref = ref_step(params, adamw_init(params), batch)
+    loss_ref = float(m_ref["loss"])
+    del m_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream = iter(data)
+    loop_kw = dict(opt_cfg=opt_e, log_every=1,
+                   train_cfg=TrainConfig(donate=True))
     torch.cuda.synchronize()
     kernels.reset_launches()
-    out = compiled.train(data_iter=iter(data), n_steps=TRAIN_LOOP_STEPS,
-                         params=params, log_every=1,
-                         train_cfg=TrainConfig(donate=True))
+    first = compiled.train(data_iter=stream, n_steps=1, params=params,
+                           **loop_kw)
+    torch.cuda.synchronize()
+    if bitwise:
+        donated_err = 0.0 if all(torch.equal(a, b) for a, b in zip(
+            _leaves(first["params"]), _leaves(p_ref))) else float("inf")
+        donated_tol = 0.0
+    else:
+        donated_err = _leaf_rel(first["params"], p_ref)
+        donated_tol = 2 * remat_check["spread"]
+    del p_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = compiled.train(data_iter=stream, n_steps=TRAIN_LOOP_STEPS,
+                          start_step=1, params=first["params"],
+                          opt_state=first["opt_state"], **loop_kw)
     torch.cuda.synchronize()
     counts = kernels.launches()
-    history, state = out["history"], out["opt_state"]
-    del out
+    history = first["history"] + rest["history"]
+    state = rest["opt_state"]
+    del first, rest
     losses = [h["loss"] for h in history]
+    first_err = abs(losses[0] - loss_k) / abs(loss_k)
+    log(f"  CompiledPlan.train losses {losses}; step 0 against the one-step "
+        f"check's loss: rel {first_err:.2e} (limit {loss_tol:.2e}); the "
+        f"non-donated make_train_step's loss {loss_ref:.6f}, its weights "
+        f"after the step against the donated step's: rel err "
+        f"{donated_err:.3e} (limit {donated_tol:.3e})")
     assert len(losses) == TRAIN_LOOP_STEPS and all(
         np.isfinite(v) for v in losses), losses
+    assert first_err <= loss_tol, ("train_loop step 0 vs one step",
+                                   losses[0], loss_k)
+    assert abs(loss_ref - losses[0]) / abs(loss_k) <= loss_tol, (
+        "donated vs non-donated step loss", losses[0], loss_ref)
+    assert donated_err <= donated_tol, ("donated vs non-donated weights",
+                                        donated_err, donated_tol)
+    assert int(state["count"]) == TRAIN_LOOP_STEPS, state["count"]
     assert {k: counts[k] for k in want[True]} == {
         k: TRAIN_LOOP_STEPS * n for k, n in want[True].items()}, counts
     # timed train steps, in turns: donated (in-place) AdamW, continuing
     # from the main path's weights and moments
+    # (the kernel step also without remat, to price the recompute)
     opt = AdamWConfig(total_steps=100)
-    step_k = make_train_step(cfg, plan, opt, TrainConfig(donate=True))
-    times = {"kernel": [], "plain": []}
+    steps = {remat: make_train_step(cfg, plan, opt, TrainConfig(
+        remat=remat, donate=True)) for remat in (True, False)}
+    times = {"kernel": [], "plain": [], "kernel_no_remat": []}
 
     def timed(name):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        step = steps[name != "kernel_no_remat"]
         if name == "plain":
             with plain_forms():
-                _, _, m = step_k(params, state, batch)
+                _, _, m = step(params, state, batch)
         else:
-            _, _, m = step_k(params, state, batch)
+            _, _, m = step(params, state, batch)
         loss = float(m["loss"])
         times[name].append(time.perf_counter() - t)
         assert np.isfinite(loss), (name, loss)
-    for name in ("kernel", "plain"):                 # warm-up
+    for name in times:                               # warm-up
         timed(name)
         times[name].clear()
     for _ in range(TRAIN_TIMED):
-        for name in ("kernel", "plain"):
+        for name in times:
             timed(name)
     step_ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
     profiles = {}
@@ -4139,9 +4207,13 @@ def drive_training(results_paths, profile=False):
         step_ms=step_ms["kernel"], tokens_per_s=tokens / step_ms["kernel"]
         * 1e3, plain_step_ms=step_ms["plain"],
         plain_tokens_per_s=tokens / step_ms["plain"] * 1e3,
+        no_remat_step_ms=step_ms["kernel_no_remat"],
         step_ms_all={k: [t * 1e3 for t in v] for k, v in times.items()},
-        peak_gb_remat=peak_remat / 1e9, peak_gb_no_remat=peak_off / 1e9,
-        train_loop_losses=losses,
+        memory_gb={"remat": {k: v / 1e9 for k, v in mem_remat.items()},
+                   "no_remat": {k: v / 1e9 for k, v in mem_off.items()}},
+        grad_gb=grad_bytes / 1e9, one_step_loss_rel_err=first_err,
+        donated_weights_rel_err=donated_err, donated_tol=donated_tol,
+        undonated_loss=loss_ref, train_loop_losses=losses,
         train_loop_step_ms=[h["time_s"] * 1e3 for h in history],
         profile=profiles, seconds=time.perf_counter() - t0)
     results_paths.append(record)
@@ -4149,9 +4221,11 @@ def drive_training(results_paths, profile=False):
         f"{TRAIN_TIMED} warm: kernels {step_ms['kernel']:.1f} ms "
         f"({record['tokens_per_s']:.0f} tokens/s), plain forms "
         f"{step_ms['plain']:.1f} ms ({record['plain_tokens_per_s']:.0f} "
-        f"tokens/s); peak memory of a step above the resident state: "
-        f"remat {peak_remat / 1e9:.2f} GB, no remat {peak_off / 1e9:.2f} "
-        f"GB; CompiledPlan.train losses {losses}")
+        f"tokens/s), kernels without remat "
+        f"{step_ms['kernel_no_remat']:.1f} ms; GB above the resident state "
+        f"(gradients {grad_bytes / 1e9:.2f}): remat "
+        f"{record['memory_gb']['remat']}, no remat "
+        f"{record['memory_gb']['no_remat']}")
     for name, prof in profiles.items():
         log(f"  profiled {name} step: {prof}")
     del params

@@ -1,5 +1,7 @@
-"""B5, B6 and B7 under autograd: three ``torch.autograd.Function``s that a
-training step's forward runs through.
+"""B5, B6 and B7 under autograd: three ``torch.autograd.Function``s that
+the model calls wherever the plan turns the kernel on.  Outside grad
+mode, or where no input needs a gradient (prefill and decode), ``apply``
+only runs the forward, so serving and training share this one path.
 
 The kernel wrappers write through ``ctypes`` into tensors that autograd
 knows nothing of, so a loss computed through them would backpropagate

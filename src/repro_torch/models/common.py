@@ -81,16 +81,10 @@ def is_gated(kind: str) -> bool:
     return kind in ("swiglu", "geglu")
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
-             fused: bool = False) -> torch.Tensor:
-    """``x · rsqrt(mean x² + eps) · (1 + w)`` in fp32, in x's dtype.
-
-    ``fused`` (the plan's ``use_fused_rmsnorm``) goes through the B7 kernel
-    wrapper, which launches the kernel for tensors on the card and runs its
-    plain version on the CPU; both compute this same function."""
-    if fused:
-        from ..kernels.rmsnorm import rmsnorm
-        return rmsnorm(x, w, eps=eps)
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x · rsqrt(mean x² + eps) · (1 + w)`` in fp32, in x's dtype (B7,
+    ``models.autograd.RMSNormFn``, computes the same function)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.to(torch.float32))

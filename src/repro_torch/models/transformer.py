@@ -19,9 +19,12 @@ periods becomes a Python loop over layers (``models.convert`` unstacks a
 JAX parameter tree into this form).
 
 Kernel selection follows the plan, as in the JAX package, but by device:
-where the plan turns a kernel on, the model calls its wrapper
-(``repro_torch.kernels``), which launches the hand-written kernel for
-tensors on the card and runs its plain version for tensors on the CPU.
+where the plan turns B5, B6 or B7 on, the model calls its
+``models.autograd`` Function, whose forward is the kernel's wrapper
+(``repro_torch.kernels``): the hand-written kernel for tensors on the
+card, its plain version for tensors on the CPU.  Outside grad mode, or
+where no input needs a gradient, the Function only runs that forward, so
+prefill, decode and training take one path per plan flag.
 (The JAX package calls its Pallas kernels only where the backend is a TPU,
 and otherwise takes jnp paths of its own.)  B6 gets the fp32 weights
 uncast, as the JAX package passes them to its kernel.
@@ -43,10 +46,9 @@ Modes:
     ``xattn`` layer's (k, v) are the image's, of ``vision_seq`` rows.
   forward(..., mode="train", remat_policy=None) — the same, for a loss to
     backpropagate through; the dense families only (``TRAINED_FAMILIES``).
-    Where the plan turns a kernel on, the forward goes through its
-    ``models.autograd`` Function (the kernel forward, a differentiable
-    plain form backward); otherwise through the plain forms prefill
-    takes (naive attention, the plain MLP, the plain norm).  With a
+    A Function's backward is a differentiable plain form; where the plan
+    turns a kernel off, the plain forms of prefill (naive attention, the
+    plain MLP, the plain norm) are differentiated directly.  With a
     ``remat_policy`` (``CelloPlan.checkpoint_policy()``) every layer is
     one checkpointed region; the JAX package's region is one period,
     which for the dense families is one layer.  The tensors are tagged
@@ -68,9 +70,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.policy import CelloPlan
-from .attention import flash_attention_bshe, naive_attention
-from .autograd import (ACT_NAMES, FlashAttentionFn, FusedMLPFn, RMSNormFn,
-                       plain_mlp)
+from .attention import naive_attention
+from .autograd import FlashAttentionFn, FusedMLPFn, RMSNormFn, plain_mlp
 from .common import (COMPUTE_DTYPE, PARAM_DTYPE, apply_rope, bf16,
                      dense_init, is_gated, rms_norm, tag)
 from .moe import apply_moe, init_moe_params
@@ -177,11 +178,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
             img: Optional[torch.Tensor], rope: bool,
-            positions: torch.Tensor, train: bool = False
+            positions: torch.Tensor
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention, or with ``img`` cross-attention: K/V from the
-    ``vision_seq`` image rows, without rope or window.  ``train`` takes
-    B5 through its autograd Function."""
+    ``vision_seq`` image rows, without rope or window."""
     B, S, D = x.shape
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
@@ -195,10 +195,8 @@ def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
         k = apply_rope(k, positions, cfg.rope_theta)
     q = tag(q, "q_out")
     window = cfg.window if img is None else None
-    if plan.use_flash_attention and train:
+    if plan.use_flash_attention:
         ctx = FlashAttentionFn.apply(q, k, v, causal, window, plan.kv_block)
-    elif plan.use_flash_attention:
-        ctx = flash_attention_bshe(q, k, v, causal=causal, window=window)
     else:
         ctx = naive_attention(q, k, v, causal=causal, window=window)
     out = (ctx.reshape(B, S, H * E).to(COMPUTE_DTYPE)
@@ -206,8 +204,7 @@ def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
     return tag(out, "attn_out").to(x.dtype), (k, v)
 
 
-def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan,
-         train: bool = False) -> torch.Tensor:
+def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan) -> torch.Tensor:
     B, S, D = x.shape
     flat = x.reshape(B * S, D)
     if cfg.is_moe:
@@ -219,40 +216,34 @@ def _mlp(p, x, cfg: ArchConfig, plan: CelloPlan,
     weights = (m["w_gate"] if is_gated(cfg.activation) else None,
                m["w_up"], m["w_down"])
     xc = flat.to(COMPUTE_DTYPE)
-    if plan.use_fused_mlp and train:
+    if plan.use_fused_mlp:
         out = FusedMLPFn.apply(xc.contiguous(), *weights, cfg.activation)
-    elif plan.use_fused_mlp:
-        from ..kernels.fused_mlp import fused_mlp
-        out = fused_mlp(xc.contiguous(), *weights,
-                        activation=ACT_NAMES[cfg.activation])
     else:
         out = plain_mlp(xc, *weights, cfg.activation,
                         hidden=lambda h: tag(h, "mlp_hidden"))
     return tag(out.reshape(B, S, D).to(x.dtype), "mlp_out")
 
 
-def _norm(x, w, cfg: ArchConfig, plan: CelloPlan, train: bool):
-    """RMSNorm: B7 through its autograd Function in a training forward
-    whose plan fuses it, otherwise ``rms_norm`` (B7's wrapper when fused)."""
-    if plan.use_fused_rmsnorm and train:
+def _norm(x, w, cfg: ArchConfig, plan: CelloPlan):
+    """RMSNorm: B7 through its autograd Function where the plan fuses it,
+    otherwise the plain ``rms_norm``."""
+    if plan.use_fused_rmsnorm:
         return RMSNormFn.apply(x, w, cfg.norm_eps)
-    return rms_norm(x, w, cfg.norm_eps, fused=plan.use_fused_rmsnorm)
+    return rms_norm(x, w, cfg.norm_eps)
 
 
 def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
                 positions: torch.Tensor,
-                img: Optional[torch.Tensor] = None, train: bool = False):
+                img: Optional[torch.Tensor] = None):
     """Full-sequence block of ``kind``.  Returns (x_out, cache entry):
     (k, v), hT or sT.  An ``xattn`` block attends to ``img``; an
-    encoder-only arch's blocks attend both ways, without rope.  ``train``
-    takes the kernels through their autograd Functions."""
-    h = _norm(x, p["ln1"], cfg, plan, train)
+    encoder-only arch's blocks attend both ways, without rope."""
+    h = _norm(x, p["ln1"], cfg, plan)
     if kind in ("attn", "xattn"):
         y, entry = _attend(p["attn"], h, cfg=cfg, plan=plan,
                            causal=(not cfg.encoder_only) and kind == "attn",
                            img=img if kind == "xattn" else None,
-                           rope=not cfg.encoder_only, positions=positions,
-                           train=train)
+                           rope=not cfg.encoder_only, positions=positions)
     elif kind == "rglru":
         y, entry = apply_rglru_seq(p["rglru"], h)
     elif kind == "rwkv":
@@ -260,8 +251,8 @@ def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
     else:
         raise ValueError(kind)
     x = tag(x + y, "x_mid")
-    h2 = _norm(x, p["ln2"], cfg, plan, train)
-    x = x + _mlp(p, h2, cfg, plan, train)
+    h2 = _norm(x, p["ln2"], cfg, plan)
+    x = x + _mlp(p, h2, cfg, plan)
     return x, entry
 
 
@@ -279,9 +270,8 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor
     return emb * torch.tensor(math.sqrt(cfg.d_model), dtype=COMPUTE_DTYPE)
 
 
-def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor,
-            train: bool = False):
-    x = _norm(x, params["final_norm"], cfg, plan, train)
+def _logits(params, cfg: ArchConfig, plan: CelloPlan, x: torch.Tensor):
+    x = _norm(x, params["final_norm"], cfg, plan)
     return (x.to(COMPUTE_DTYPE) @ bf16(params["lm_head"])
             ).to(torch.float32)
 
@@ -321,13 +311,13 @@ def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
     caches = []
     for p_layer, kind in zip(params["layers"], cfg.layer_kinds()):
         block = functools.partial(apply_block, p_layer, cfg=cfg, plan=plan,
-                                  positions=positions, img=img, train=train)
+                                  positions=positions, img=img)
         if remat_policy is not None:
             x, entry = remat_policy.checkpoint(block, x, kind)
         else:
             x, entry = block(x, kind)
         caches.append(entry)
-    return _logits(params, cfg, plan, x, train), caches
+    return _logits(params, cfg, plan, x), caches
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +429,7 @@ def _decode_attend(a, cache, h, pos: torch.Tensor, *, cfg: ArchConfig,
 
 def _decode_block(p, cache, x, kind: str, pos: torch.Tensor, *,
                   cfg: ArchConfig, plan: CelloPlan, donate: bool):
-    fused = plan.use_fused_rmsnorm
-    h = rms_norm(x, p["ln1"], cfg.norm_eps, fused=fused)
+    h = _norm(x, p["ln1"], cfg, plan)
     if kind in ("attn", "xattn"):
         y, new_cache = _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
                                       plan=plan, donate=donate)
@@ -455,7 +444,7 @@ def _decode_block(p, cache, x, kind: str, pos: torch.Tensor, *,
     else:
         raise ValueError(kind)
     x = x + y
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps, fused=fused)
+    h2 = _norm(x, p["ln2"], cfg, plan)
     x = x + _mlp(p, h2, cfg, plan)
     return x, new_cache
 

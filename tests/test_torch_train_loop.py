@@ -120,3 +120,37 @@ def test_checkpoint_restart_is_bitwise_the_continuous_run(tmp_path):
                     pytree.tree_leaves((resumed["params"],
                                         resumed["opt_state"]))):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "minitron-8b"])
+def test_donated_loop_is_bitwise_the_undonated_one(name):
+    """``TrainConfig(donate=True)`` writes weights and moments in place:
+    three steps give bitwise the losses, weights and optimizer state of
+    the ``donate=False`` loop, and step 0's loss is the one-step loss of
+    ``value_and_grad`` on the same weights and batch."""
+    from repro_torch.launch.train import (TrainConfig, make_loss_fn,
+                                          value_and_grad)
+    from repro_torch.models import init_params
+    cfg = get_config(name).reduced()
+    plan = default_plan(cfg, seq=16)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    params = init_params(cfg, seed=3, device="cpu")
+    copy = pytree.tree_map(torch.clone, params)
+    x, y = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                      global_batch=4)).batch_at(0)
+    one, _ = value_and_grad(make_loss_fn(cfg, plan, TrainConfig()))(
+        params, {"tokens": torch.from_numpy(x),
+                 "labels": torch.from_numpy(y)})
+    runs = {donate: train_loop(cfg, plan, opt, data_iter=_data(cfg.vocab),
+                               n_steps=3, params=p, log_every=0,
+                               train_cfg=TrainConfig(donate=donate))
+            for donate, p in ((False, params), (True, copy))}
+    assert runs[True]["history"][0]["loss"] == float(one)
+    assert [h["loss"] for h in runs[True]["history"]] == \
+        [h["loss"] for h in runs[False]["history"]]
+    assert runs[True]["params"] is copy          # written in place
+    for a, b in zip(pytree.tree_leaves((runs[True]["params"],
+                                        runs[True]["opt_state"])),
+                    pytree.tree_leaves((runs[False]["params"],
+                                        runs[False]["opt_state"]))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
