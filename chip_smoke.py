@@ -9,7 +9,7 @@ Phases, each of which raises (exit code 1) on failure:
    TF32 off;
 2. build: the CUDA C++ kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
    and their ``-Xptxas -v`` resource lines; the tensor-core kernels (B5
-   bf16, B6) and B6's rows kernel must not spill;
+   bf16, B6's up and down kernels) and B6's rows kernels must not spill;
 3. every kernel against its plain torch version on the card, at the shapes
    of the main path, in fp32 and fp64, with its time, the plain version's
    time, one library call's time as a yardstick and its bytes bound:
@@ -50,9 +50,9 @@ Phases, each of which raises (exit code 1) on failure:
    archs' causal GQA; B6: hubert's ungated gelu, D 1280, F 5120, and the
    vlm's gated silu, D 4096, F 14336, at 1024 and 4 rows; B7 at d 1024,
    1280 and 2048); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D
-   2560) and B9
+   2560, also phase 11's hybrid training batch) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
-   layout), in bf16 and fp32, each with and without an initial state (B8
+   layout; also at phase 11's batch 4), in bf16 and fp32, each with and without an initial state (B8
    also with long memory, Λ over [-12, -7], and at sequences that are no
    multiple of its chunk or below one, each call's CUDA launches counted
    by the profiler and a second call repeating bitwise; B9 also with
@@ -174,22 +174,29 @@ Phases, each of which raises (exit code 1) on failure:
    replays the first's search (``from_cache``), its plan equals the
    first's field for field and its run() is bitwise the first's; both
    ``codesign()`` times are printed;
-11. training, ``Session("granite-3-8b", device="cuda").default_plan(
-   seq=1024).train(...)``: full width with its depth cut to
-   ``TRAIN_LAYERS`` = 8 of 40 (fp32 weights, gradients and two moments
-   are 16 B a parameter: 134 GB at 40 layers), random weights from seed 0,
-   batches of 4 x 1024 from ``SyntheticLMData``, the plan's remat policy
-   (``attn_out``, ``mlp_out``) and AdamW; the forward on B5, B6 and B7
-   through ``models.autograd``, the backward through their plain forms.
-   One step's gradients: every leaf finite and not zero; loss and every
-   leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the same step on the
-   plain forms (``plain_forms``), the spread that of the plain forms
-   against the flags-off plan; with remat bitwise those without (or, if
-   two identical runs differ, within twice their spread); launches per
-   step as the policy predicts (remat: B5 16, B6 16, B7 33; without: 8,
-   8, 17).  Then the median warm step of the kernel and the plain-forms
-   train step (fwd, bwd, donated AdamW), taken in turns, with tokens/s,
-   the peak memory of a step with remat on and off, and three
+11. training, ``Session(arch, device="cuda").default_plan(seq=S)
+   .train(...)`` for each of ``TRAIN_PATHS``: granite-3-8b at
+   ``TRAIN_LAYERS`` = 8 of 40 layers, granite-moe-1b-a400m whole,
+   recurrentgemma-2b at 6 of 26 (1 x 4096), rwkv6-7b at 4 of 32,
+   hubert-xlarge at 12 of 48 (stubbed frames) and llama-3.2-vision-11b at
+   5 of 40 (one ``xattn`` layer, a stubbed 4 x 6404 image), full width
+   (fp32 weights, gradients and two moments are 16 B a parameter: 134 GB
+   for granite-3-8b's 40 layers), random weights from seed 0, batches of
+   4 x 1024 from ``SyntheticLMData``, the plan's remat policy and AdamW;
+   the forward on B5-B9 through ``models.autograd``, the backward through
+   their plain forms.  One step's gradients: every leaf finite and not
+   zero; loss and every leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of
+   the same step on the plain forms (``plain_forms``; an MoE arch's runs
+   on the plain run's routes), the spread that of the plain forms against
+   the flags-off plan (an arch without attention: against the same
+   function rounded elsewhere, ``other_roundings``); with remat
+   bitwise those without (or, if two identical runs differ, within twice
+   their spread); launches per step as ``train_launches`` predicts
+   (granite-3-8b with remat: B5 16, B6 16, B7 33; without: 8, 8, 17).
+   Then the median warm step of the kernel and the plain-forms train
+   step (fwd, bwd, donated AdamW), taken in turns, with tokens/s, the
+   memory held after the forward (less with remat) and the peak of a step
+   with remat on and off, and three
    ``CompiledPlan.train`` steps (the counted main path) with finite
    losses.
 
@@ -390,8 +397,26 @@ FAMILY_PATHS = (
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 #: ``CompiledPlan.train`` steps on the main path, and timed warm steps of
-#: each of the kernel and the plain-forms train step (taken in turns)
-TRAIN_LOOP_STEPS, TRAIN_TIMED = 3, 3
+#: each of the kernel and the plain-forms train step (taken in turns; the
+#: other families' paths take ``FAMILY_TIMED``)
+TRAIN_LOOP_STEPS, TRAIN_TIMED, FAMILY_TIMED = 3, 3, 2
+#: phase 11's paths: (arch, layers (None: all), batch, seq).  Every width
+#: as published; the depth cut so that the 16 B a parameter of training
+#: (fp32 weights, gradients, two moments) and the comparison runs'
+#: gradients fit the card and the run its time: granite-moe-1b-a400m whole
+#: (1.39 B parameters); recurrentgemma-2b 6 of 26 layers, two [rglru,
+#: rglru, attn] periods, one sequence of 4096 so that the window of 2048
+#: bites; rwkv6-7b 4 of 32; hubert-xlarge 12 of 48 on stubbed frames;
+#: llama-3.2-vision-11b 5 of 40, its first ``xattn`` layer the fifth, on a
+#: stubbed 4 x 6404 image
+TRAIN_PATHS = (
+    (LLM_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
+    (MOE_ARCH, None, TRAIN_BATCH, TRAIN_SEQ),
+    (HYBRID_ARCH, 6, 1, HYBRID_SEQ),
+    (SSM_ARCH, 4, TRAIN_BATCH, TRAIN_SEQ),
+    (AUDIO_ARCH, 12, TRAIN_BATCH, TRAIN_SEQ),
+    (VLM_ARCH, 5, TRAIN_BATCH, TRAIN_SEQ),
+)
 #: the least relative tolerance of the training loss and of a gradient
 #: leaf (2-norm), kernel path against the plain forms; the limit is
 #: ``max(TRAIN_MIN_TOL, 2 x the spread)`` where the spread is that of two
@@ -536,8 +561,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-#: the B5/B6 kernels that must not spill (mangled names contain these)
-NO_SPILL = ("flash_bf16_kernel", "mlp_tc_kernel", "mlp_rows_kernel")
+#: the B5/B6 kernels that must not spill (mangled names contain these):
+#: B6's tensor-core and rows kernels, each an up and a down kernel
+NO_SPILL = ("flash_bf16_kernel", "mlp_tc_up_kernel", "mlp_tc_down_kernel",
+            "mlp_rows_up_kernel", "mlp_rows_down_kernel")
 
 
 def ptxas_usage(log_text, names):
@@ -1451,9 +1478,9 @@ def check_mlp(results, D=4096, F_=12800):
 
 def check_mlp_recurrent(results):
     """B6 at the recurrent serving paths' prefill shapes: gated tanh-gelu
-    (recurrentgemma-2b, M 4096, D 2560, F 7680: 1.26 GB of fp32 split-F
-    partials) and relu² without a gate (rwkv6-7b, M 1024, D 4096, F 14336:
-    0.94 GB), fp32 weights."""
+    (recurrentgemma-2b, M 4096, D 2560, F 7680: a 126 MB fp32 hidden
+    tensor in scratch) and relu² without a gate (rwkv6-7b, M 1024, D 4096,
+    F 14336: 59 MB), fp32 weights."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1715,8 +1742,9 @@ def cuda_launches(fn, needle):
 
 
 def check_rglru(results):
-    """B8 at recurrentgemma-2b's prefill shape (B 1, S 4096, D 2560), bf16
-    and fp32, with and without an initial state; then long memory (Λ over
+    """B8 at recurrentgemma-2b's prefill shape (B 1, S 4096, D 2560, also
+    phase 11's training batch of one 4096-step sequence), bf16 and fp32,
+    with and without an initial state; then long memory (Λ over
     [-12, -7], a from ~0.993 to ~0.99995: the carries between chunks decide
     the result), a sequence that is no multiple of ``CHUNK`` and one below
     a chunk.  y held as ``_hold`` holds an output, the fp32 final state
@@ -1780,7 +1808,8 @@ def check_rglru(results):
 def check_wkv6(results):
     """B9 at rwkv6-7b's prefill shape (B 1, H 64, S 1024, E 64) on the
     model's layout (r, k, v, w as (B, H, S, E) views of (B, S, H, E)
-    tensors), bf16 and fp32, with and without an initial state; y held as
+    tensors), bf16 and fp32, with and without an initial state, and at
+    phase 11's training batch (B 4, bf16, no initial state); y held as
     ``_hold`` holds an output, the fp32 final state within
     ``KERNEL_TOL``.  No one torch call computes the recurrence."""
     import numpy as np
@@ -1798,12 +1827,17 @@ def check_wkv6(results):
     # strong decays: w over [-8, 3], a step's decay from ~0.9997 to ~2e-9
     w_strong = torch.from_numpy(np.random.default_rng(26).uniform(
         -8.0, 3.0, (B, S, H, E)).astype(np.float32)).cuda().transpose(1, 2)
-    for dt in ("bfloat16", "float32"):
+    w_train = (_rand(rng, (TRAIN_BATCH, S, H, E), torch.float32, 0.3)
+               - 0.5).transpose(1, 2)
+    for dt, B in (("bfloat16", 1), ("float32", 1),
+                  ("bfloat16", TRAIN_BATCH)):
         tdt = getattr(torch, dt)
         r, k, v = (_rand(rng, (B, S, H, E), tdt, sc).transpose(1, 2)
                    for sc in (1.0, 0.3, 1.0))
-        for decay, w_, init in (("model", w, None), ("model", w, s0),
-                                ("strong, w over [-8, 3]", w_strong, s0)):
+        cases = ((("model", w, None), ("model", w, s0),
+                  ("strong, w over [-8, 3]", w_strong, s0)) if B == 1
+                 else (("model, training batch", w_train, None),))
+        for decay, w_, init in cases:
             def kernel():
                 return wkv6(r, k, v, w_, u, init)
 
@@ -2730,20 +2764,6 @@ def check_decode_graph(cfg, plan, params, gen_prompt, profile=False):
     return out
 
 
-def _stub_inputs(cfg, stub, batch, seq):
-    """The family's stubbed embeddings on the card from a seeded
-    generator: ``frames`` (batch, seq, d_model) or ``img`` (batch,
-    vision_seq, d_model), bf16; none for a token-only arch."""
-    import torch
-    if stub is None:
-        return {}
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
-    rows = seq if stub == "frames" else cfg.vision_seq
-    return {stub: torch.randn((batch, rows, cfg.d_model), generator=gen,
-                              device="cuda").to(torch.bfloat16)}
-
-
 class recorded_routes:
     """Within the block, every MoE layer's routing (``models.moe.route``)
     is kept, with the router's top-(k+1) probabilities (``probs``);
@@ -2927,7 +2947,9 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).cuda()
     gen_prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).cuda()
-    stubbed = _stub_inputs(cfg, stub, 1, seq)
+    from repro_torch.launch.train import stub_inputs
+    stubbed = stub_inputs(cfg, 1, seq, 7, "cuda")
+    assert set(stubbed) == ({stub} if stub else set()), (stub, stubbed)
     decodes = decode_check is not None
     steps = GEN_PROMPT + GEN_NEW - 1
 
@@ -3916,14 +3938,17 @@ def check_bound_operator(routers):
 # --------------------------------------------------------------------------
 
 class plain_forms:
-    """Within the block, a training forward runs the three autograd
+    """Within the block, a training forward runs the five autograd
     Functions' backward forms as its forward too (chunked attention, the
-    plain bf16 MLP, the plain norm): the model reads the Functions from its
-    module at call time, so swapping the module attributes swaps the path.
-    Only this script does this; the package has no such switch."""
+    plain bf16 MLP, the plain norm, the chunked RG-LRU and WKV6 forms):
+    the model reads the Functions from its modules at call time, so
+    swapping the module attributes swaps the path.  Only this script does
+    this; the package has no such switch."""
 
     def __enter__(self):
-        from repro_torch.models import transformer
+        from repro_torch.kernels.rglru import rglru_plain
+        from repro_torch.kernels.rwkv6 import wkv6_plain
+        from repro_torch.models import recurrent, transformer
         from repro_torch.models.attention import chunked_flash_attention
         from repro_torch.models.autograd import plain_mlp
         from repro_torch.models.common import rms_norm
@@ -3940,17 +3965,62 @@ class plain_forms:
 
         class Norm:
             apply = staticmethod(rms_norm)
-        self._mod = transformer
-        self._saved = {n: getattr(transformer, n) for n in
-                       ("FlashAttentionFn", "FusedMLPFn", "RMSNormFn")}
+
+        class RGLRU:
+            apply = staticmethod(rglru_plain)
+
+        class WKV6:
+            apply = staticmethod(wkv6_plain)
+        self._saved = [(mod, n, getattr(mod, n)) for mod, n in (
+            (transformer, "FlashAttentionFn"), (transformer, "FusedMLPFn"),
+            (transformer, "RMSNormFn"), (recurrent, "RGLRUFn"),
+            (recurrent, "WKV6Fn"))]
         transformer.FlashAttentionFn = Flash
         transformer.FusedMLPFn = MLP
         transformer.RMSNormFn = Norm
+        recurrent.RGLRUFn = RGLRU
+        recurrent.WKV6Fn = WKV6
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self._saved.items():
-            setattr(self._mod, n, fn)
+        for mod, n, fn in self._saved:
+            setattr(mod, n, fn)
+        return False
+
+
+class other_roundings:
+    """Within the block, the plain forms round in other places: the MLP
+    runs on its fp32 weights in fp32 and rounds its output to bf16 once
+    (where the plain MLP rounds the weights, the products and the hidden
+    tensor to bf16; B6 computes this form), and the recurrences' plain
+    forms scan in chunks of twice their steps (``rglru_plain`` 128,
+    ``wkv6_plain`` 32).  The same function, rounded elsewhere.  Use it
+    only with ``plain_forms``: the kernels' wrappers size their buffers by
+    ``CHUNK``.  Only this script does this."""
+
+    def __enter__(self):
+        from repro_torch.kernels import rglru, rwkv6
+        from repro_torch.models import transformer
+        from repro_torch.models.common import COMPUTE_DTYPE, activation_fn
+
+        def fp32_mlp(xc, w_gate, w_up, w_down, activation,
+                     hidden=lambda h: h):
+            act = activation_fn(activation)
+            xf = xc.to(torch.float32)
+            up = xf @ w_up
+            h = act(xf @ w_gate) * up if w_gate is not None else act(up)
+            return (hidden(h) @ w_down).to(COMPUTE_DTYPE)
+        import torch
+        self._saved = [(m, "CHUNK", m.CHUNK) for m in (rglru, rwkv6)]
+        self._saved.append((transformer, "plain_mlp", transformer.plain_mlp))
+        for m in (rglru, rwkv6):
+            m.CHUNK = 2 * m.CHUNK
+        transformer.plain_mlp = fp32_mlp
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, value in self._saved:
+            setattr(m, name, value)
         return False
 
 
@@ -3964,29 +4034,56 @@ def _leaf_rel(got, want):
     return worst
 
 
-def drive_training(results_paths, profile=False):
-    """The training path: ``Session(granite-3-8b, device="cuda")
-    .default_plan(seq=1024)``, full width at ``TRAIN_LAYERS`` layers,
-    batches of 4 x 1024 from ``SyntheticLMData``, the plan's remat policy
-    and AdamW.  Checks, each failing the run: (a) every gradient leaf of
-    one step finite and not zero; (b) the kernel path's loss and every
-    leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the plain-forms run
-    (``plain_forms``), the spread that of the plain forms against the
-    flags-off plan (naive attention); (c) gradients with remat bitwise
-    those without, or, where two identical no-remat runs differ, within
-    twice their spread (the record says which held); (d) B5, B6 and B7
-    launched per step as the policy predicts (with remat every layer's
-    forward kernels twice, the final norm once); (e) ``TRAIN_LOOP_STEPS``
-    steps of ``CompiledPlan.train`` (donated) from the fresh weights, with
-    finite losses, step 0's loss within the loss limit of the one-step
-    check's, and the weights after step 0 those of a non-donated
-    ``make_train_step`` (bitwise where (c) held bitwise).  Then records
-    the median warm step time and tokens/s of the kernel step, the
-    plain-forms step and the kernel step without remat (taken in turns,
-    continuing from the trained weights), and the memory of a step with
-    remat on and off (``grads``); ``profile`` adds one profiled step of
-    each.  Returns the launch counts of the ``CompiledPlan.train``
-    run."""
+def train_launches(cfg, remat):
+    """B5-B9 launches of one training step of ``cfg`` with every kernel
+    flag on: each layer's norms (2), MLP (1, none in an MoE layer),
+    attention (1 in an ``attn`` / ``xattn`` layer) and scan (1 in an
+    ``rglru`` / ``rwkv`` layer), twice with remat (the recompute runs the
+    forward kernels again), and the final norm once."""
+    kinds = cfg.layer_kinds()
+    per = {"flash_attention": sum(k in ("attn", "xattn") for k in kinds),
+           "fused_mlp": 0 if cfg.is_moe else len(kinds),
+           "rmsnorm": 2 * len(kinds),
+           "rglru": sum(k == "rglru" for k in kinds),
+           "wkv6": sum(k == "rwkv" for k in kinds)}
+    n = 2 if remat else 1
+    out = {k: n * v for k, v in per.items()}
+    out["rmsnorm"] += 1
+    return out
+
+
+def drive_training(arch, layers, batch_size, seq, results_paths,
+                   profile=False):
+    """A training path: ``Session(arch, device="cuda").default_plan(seq=
+    seq)``, full width at ``layers`` layers, batches of ``batch_size`` x
+    ``seq`` from ``SyntheticLMData`` (with ``launch.train.stub_inputs``'s
+    frames or image for the audio and vlm families), the plan's remat
+    policy and AdamW.  Checks, each failing the run: (a) every gradient
+    leaf of one step finite and not zero (an audio model's token
+    embedding, which the frames replace, zero); (b) the kernel path's loss
+    and every leaf within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the
+    plain-forms run (``plain_forms``), the spread that of the plain forms
+    against the flags-off plan (naive attention where the plain forms
+    chunk it); an arch without attention, whose flags-off plan rounds as
+    the plain forms do, takes it against the same function rounded
+    elsewhere (``other_roundings``: the MLP in fp32, the recurrences in
+    chunks of twice their steps); for an MoE arch every run
+    takes the plain-forms run's routes (``replayed_routes``), so that the
+    runs differ by rounding alone; (c) gradients with remat bitwise those
+    without, or, where two identical no-remat runs differ, within twice
+    their spread (the record says which held); (d) B5-B9 launched per step
+    as ``train_launches`` predicts; (e) ``TRAIN_LOOP_STEPS`` steps of
+    ``CompiledPlan.train`` (donated) from the fresh weights, with finite
+    losses, step 0's loss within the loss limit of the one-step loss (for
+    an MoE arch, of the non-donated step's, which routes as it does), and
+    the weights after step 0 those of a non-donated ``make_train_step``
+    (bitwise where (c) held bitwise).  Then records the median warm step
+    time and tokens/s of the kernel step, the plain-forms step and the
+    kernel step without remat (taken in turns, continuing from the trained
+    weights), and the memory of a step with remat on and off (``grads``);
+    ``profile`` adds one profiled step of each.  Remat must leave less
+    held after the forward than no remat.  Returns the launch counts of
+    the ``CompiledPlan.train`` run."""
     import numpy as np
     import torch
     import torch.utils._pytree as pytree
@@ -3995,41 +4092,45 @@ def drive_training(results_paths, profile=False):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.launch.train import (TrainConfig, make_loss_fn,
-                                          make_train_step)
+                                          make_train_step, stub_inputs)
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, adamw_init
     t0 = time.perf_counter()
-    full = get_config(LLM_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
-    log(f"  {LLM_ARCH}: depth cut to {TRAIN_LAYERS} of {full.n_layers} "
-        "layers, every width as published")
-    compiled = Session(cfg, device="cuda").default_plan(seq=TRAIN_SEQ)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    log(f"  {arch}: depth {cfg.n_layers} of {full.n_layers} layers "
+        f"({''.join(k[0] for k in cfg.layer_kinds())}), every width as "
+        "published")
+    compiled = Session(cfg, device="cuda").default_plan(seq=seq)
     plan = compiled.plan
     assert (plan.use_flash_attention and plan.use_fused_mlp
             and plan.use_fused_rmsnorm), plan
-    assert plan.remat_save_names == ("attn_out", "mlp_out"), plan
+    assert {"attn_out", "mlp_out"} <= set(plan.remat_save_names), plan
     params = init_params(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH))
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=batch_size))
     x, y = data.batch_at(0)
     batch = {"tokens": torch.from_numpy(x).cuda(),
-             "labels": torch.from_numpy(y).cuda()}
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+             "labels": torch.from_numpy(y).cuda(),
+             **stub_inputs(cfg, batch_size, seq, 0, "cuda")}
+    tokens = batch_size * seq
     log(f"  plan {plan.remat_save_names} kv_block {plan.kv_block}; "
         f"{n_params / 1e9:.3f} B fp32 parameters "
         f"({torch.cuda.memory_allocated() / 1e9:.1f} GB); batch "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ}")
+        f"{batch_size}x{seq}"
+        + "".join(f", {k} {tuple(batch[k].shape)}"
+                  for k in ("frames", "img") if k in batch))
 
     grad_bytes = 4 * n_params            # fp32 gradients, one per weight
+    names = ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6")
 
     def grads(p, remat=True):
         """(loss, grads, launches, memory): ``value_and_grad`` with the
         forward and the backward taken apart, so that the bytes in use
         above the resident state can be read between them.  ``memory``:
         ``held``, what the forward leaves for the backward (the saved
-        activations and the logits); ``fwd_peak``, the forward's peak
-        (B6's split-F workspace of n_chunks x rows x D fp32 included);
+        activations and the logits); ``fwd_peak``, the forward's peak;
         ``peak``, the whole step's; ``peak_less_grads``, that peak less
         the gradients' ``grad_bytes``, which every form of the step must
         hold at its end."""
@@ -4044,30 +4145,51 @@ def drive_training(results_paths, profile=False):
         torch.cuda.synchronize()
         mem = dict(held=torch.cuda.memory_allocated() - base,
                    fwd_peak=torch.cuda.max_memory_allocated() - base)
-        g = pytree.tree_unflatten(list(torch.autograd.grad(loss, alias)),
-                                  spec)
+        g = pytree.tree_unflatten(list(torch.autograd.grad(
+            loss, alias, materialize_grads=True)), spec)
         torch.cuda.synchronize()
         mem["peak"] = torch.cuda.max_memory_allocated() - base
         mem["peak_less_grads"] = mem["peak"] - grad_bytes
         return float(loss.detach()), g, kernels.launches(), mem
 
-    L = TRAIN_LAYERS
-    want = {True: {"flash_attention": 2 * L, "fused_mlp": 2 * L,
-                   "rmsnorm": 4 * L + 1},
-            False: {"flash_attention": L, "fused_mlp": L,
-                    "rmsnorm": 2 * L + 1}}
-    loss_k, g_k, n_k, mem_remat = grads(plan)
-    for leaf in _leaves(g_k):                                      # (a)
+    # (b) first the plain forms, whose routes an MoE arch's other runs take
+    with plain_forms(), recorded_routes() as plain_routes:
+        loss_p, g_p, n_p, _ = grads(plan)
+    assert not any(n_p[k] for k in names), n_p
+    L = cfg.n_layers
+    routes = {True: plain_routes.routes,           # forward, then recompute
+              False: plain_routes.routes[:L]}
+    moe_note = {}
+    if cfg.is_moe:
+        share, n_routed = plain_routes.dropped_share()
+        moe_note = dict(routes="the plain-forms run's, replayed",
+                        dropped_share=share, routed_layers=n_routed)
+        log(f"  MoE: the plain-forms run dropped {share:.1%} of its (token, "
+            f"k) pairs at capacity; the kernel and flags-off runs replay "
+            f"its routes")
+
+    def routed(remat=True):
+        return (replayed_routes(routes[remat]) if cfg.is_moe
+                else contextlib.nullcontext())
+
+    want = {remat: train_launches(cfg, remat) for remat in (True, False)}
+    with routed():
+        loss_k, g_k, n_k, mem_remat = grads(plan)
+    unused = {id(params["embed"])} if cfg.family == "audio" else set()
+    for leaf, w in zip(_leaves(g_k), _leaves(params)):               # (a)
         assert bool(torch.isfinite(leaf).all()), "non-finite gradient"
-        assert bool((leaf != 0).any()), "a gradient leaf is all zero"
-    loss_nr, g_nr, n_nr, mem_off = grads(plan, remat=False)
+        assert bool((leaf != 0).any()) != (id(w) in unused), \
+            "a gradient leaf is all zero (or an unused one is not)"
+    with routed(False):
+        loss_nr, g_nr, n_nr, mem_off = grads(plan, remat=False)
     for remat, got in ((True, n_k), (False, n_nr)):                # (d)
-        assert {k: got[k] for k in want[remat]} == want[remat], (remat, got)
+        assert {k: got[k] for k in names} == want[remat], (remat, got)
     bitwise = loss_k == loss_nr and all(                           # (c)
         torch.equal(a, b) for a, b in zip(_leaves(g_k), _leaves(g_nr)))
     remat_check = dict(bitwise=bitwise)
     if not bitwise:
-        _, g_nr2, _, _ = grads(plan, remat=False)
+        with routed(False):
+            _, g_nr2, _, _ = grads(plan, remat=False)
         spread = _leaf_rel(g_nr2, g_nr)
         err = _leaf_rel(g_k, g_nr)
         del g_nr2
@@ -4075,12 +4197,12 @@ def drive_training(results_paths, profile=False):
             "remat gradients vs no remat", err, spread)
         remat_check.update(spread=spread, err=err)
     del g_nr
-    with plain_forms():
-        loss_p, g_p, n_p, _ = grads(plan)
-    assert not any(n_p[k] for k in want[True]), n_p
-    loss_off, g_off, _, _ = grads(dataclasses.replace(
-        plan, use_flash_attention=False, use_fused_mlp=False,
-        use_fused_rmsnorm=False))
+    attends = any(k in ("attn", "xattn") for k in cfg.layer_kinds())
+    with routed(), plain_forms(), (contextlib.nullcontext() if attends
+                                   else other_roundings()):
+        loss_off, g_off, _, _ = grads(dataclasses.replace(
+            plan, use_flash_attention=False, use_fused_mlp=False,
+            use_fused_rmsnorm=False))
     spread = _leaf_rel(g_off, g_p)
     loss_spread = abs(loss_off - loss_p) / abs(loss_p)
     del g_off
@@ -4091,14 +4213,15 @@ def drive_training(results_paths, profile=False):
     log(f"  one step: loss {loss_k:.6f} (plain forms {loss_p:.6f}, rel "
         f"{loss_err:.2e}, limit {loss_tol:.2e}); gradients: max leaf rel "
         f"err {err:.3e} against the plain forms (limit {tol:.3e} = 2 x the "
-        f"plain forms' spread against naive attention, {spread:.3e})")
+        f"plain forms' spread against the flags-off plan"
+        + ("" if attends else " in other roundings") + f", {spread:.3e})")
     assert loss_err <= loss_tol, ("training loss vs plain forms", loss_err)
     assert err <= tol, ("gradients vs plain forms", err, tol)
     held = "bitwise equal to" if bitwise else "within 2x the spread of"
     log(f"  remat gradients {held} the no-remat run's ({remat_check}); "
         f"launches per step with remat {want[True]}, without "
         f"{want[False]} (as predicted)")
-    del g_k, g_p
+    del g_k, g_p, routes
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4112,6 +4235,7 @@ def drive_training(results_paths, profile=False):
     ref_step = make_train_step(cfg, plan, opt_e, TrainConfig(donate=False))
     p_ref, _, m_ref = ref_step(params, adamw_init(params), batch)
     loss_ref = float(m_ref["loss"])
+    loss_one = loss_ref if cfg.is_moe else loss_k
     del m_ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -4142,25 +4266,25 @@ def drive_training(results_paths, profile=False):
     state = rest["opt_state"]
     del first, rest
     losses = [h["loss"] for h in history]
-    first_err = abs(losses[0] - loss_k) / abs(loss_k)
+    first_err = abs(losses[0] - loss_one) / abs(loss_one)
     log(f"  CompiledPlan.train losses {losses}; step 0 against the one-step "
-        f"check's loss: rel {first_err:.2e} (limit {loss_tol:.2e}); the "
-        f"non-donated make_train_step's loss {loss_ref:.6f}, its weights "
-        f"after the step against the donated step's: rel err "
+        f"loss {loss_one:.6f}: rel {first_err:.2e} (limit {loss_tol:.2e}); "
+        f"the non-donated make_train_step's loss {loss_ref:.6f}, its "
+        f"weights after the step against the donated step's: rel err "
         f"{donated_err:.3e} (limit {donated_tol:.3e})")
     assert len(losses) == TRAIN_LOOP_STEPS and all(
         np.isfinite(v) for v in losses), losses
     assert first_err <= loss_tol, ("train_loop step 0 vs one step",
-                                   losses[0], loss_k)
-    assert abs(loss_ref - losses[0]) / abs(loss_k) <= loss_tol, (
+                                   losses[0], loss_one)
+    assert abs(loss_ref - losses[0]) / abs(loss_one) <= loss_tol, (
         "donated vs non-donated step loss", losses[0], loss_ref)
     assert donated_err <= donated_tol, ("donated vs non-donated weights",
                                         donated_err, donated_tol)
     assert int(state["count"]) == TRAIN_LOOP_STEPS, state["count"]
-    assert {k: counts[k] for k in want[True]} == {
+    assert {k: counts[k] for k in names} == {
         k: TRAIN_LOOP_STEPS * n for k, n in want[True].items()}, counts
     # timed train steps, in turns: donated (in-place) AdamW, continuing
-    # from the main path's weights and moments
+    # from the main path's weights and moments, each on its own routes
     # (the kernel step also without remat, to price the recompute)
     opt = AdamWConfig(total_steps=100)
     steps = {remat: make_train_step(cfg, plan, opt, TrainConfig(
@@ -4182,7 +4306,7 @@ def drive_training(results_paths, profile=False):
     for name in times:                               # warm-up
         timed(name)
         times[name].clear()
-    for _ in range(TRAIN_TIMED):
+    for _ in range(TRAIN_TIMED if arch == LLM_ARCH else FAMILY_TIMED):
         for name in times:
             timed(name)
     step_ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
@@ -4196,12 +4320,12 @@ def drive_training(results_paths, profile=False):
 
     smi = smi_line()
     record = dict(
-        path=f"train {cfg.name} {TRAIN_LAYERS} layers "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ}", nvidia_smi=smi, layers=TRAIN_LAYERS,
-        n_params=n_params, plan=dataclasses.asdict(plan),
+        path=f"train {cfg.name} {cfg.n_layers} layers {batch_size}x{seq}",
+        nvidia_smi=smi, layers=cfg.n_layers, n_params=n_params,
+        plan=dataclasses.asdict(plan),
         loss=loss_k, plain_forms_loss=loss_p, loss_rel_err=loss_err,
         loss_tol=loss_tol, grad_rel_err=err, grad_tol=tol,
-        plain_spread=spread, remat=remat_check,
+        plain_spread=spread, remat=remat_check, moe=moe_note,
         launches_per_step_remat=want[True],
         launches_per_step_no_remat=want[False],
         step_ms=step_ms["kernel"], tokens_per_s=tokens / step_ms["kernel"]
@@ -4218,7 +4342,7 @@ def drive_training(results_paths, profile=False):
         profile=profiles, seconds=time.perf_counter() - t0)
     results_paths.append(record)
     log(f"  on {smi}: train step (fwd + bwd + AdamW, donated), median of "
-        f"{TRAIN_TIMED} warm: kernels {step_ms['kernel']:.1f} ms "
+        f"{len(times['kernel'])} warm: kernels {step_ms['kernel']:.1f} ms "
         f"({record['tokens_per_s']:.0f} tokens/s), plain forms "
         f"{step_ms['plain']:.1f} ms ({record['plain_tokens_per_s']:.0f} "
         f"tokens/s), kernels without remat "
@@ -4228,6 +4352,11 @@ def drive_training(results_paths, profile=False):
         f"{record['memory_gb']['no_remat']}")
     for name, prof in profiles.items():
         log(f"  profiled {name} step: {prof}")
+    # remat keeps fewer activations; the step's peak falls in the first
+    # layer's backward (scripts/train_memory.py), with nearly every
+    # gradient formed, alike in both forms, so it is recorded, not held
+    assert mem_remat["held"] < mem_off["held"], (
+        "remat does not keep fewer activations", mem_remat, mem_off)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4489,16 +4618,24 @@ def main(argv=None) -> int:
         totals[k] += v
 
     # ---- phase 11: training
-    card_phase(f"11: the training path, Session({LLM_ARCH!r}, "
-               f"device='cuda').default_plan(seq={TRAIN_SEQ}).train(...), "
-               f"{TRAIN_LAYERS} of its layers")
-    t0 = time.perf_counter()
-    counts = drive_training(paths, profile=args.profile)
-    for k, v in counts.items():
-        totals[k] += v
-    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
-        assert counts[k] > 0, f"kernel {k} was never launched in training"
-    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    train_totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    t_train = time.perf_counter()
+    for arch, layers, batch_size, seq in TRAIN_PATHS:
+        card_phase(f"11: the {arch} training path, Session({arch!r}, "
+                   f"device='cuda').default_plan(seq={seq}).train(...)"
+                   + (f", {layers} of its layers" if layers else ""))
+        t0 = time.perf_counter()
+        counts = drive_training(arch, layers, batch_size, seq, paths,
+                                profile=args.profile)
+        for k, v in counts.items():
+            totals[k] += v
+            train_totals[k] += v
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+    for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
+        assert train_totals[k] > 0, \
+            f"kernel {k} was never launched in training"
+    log(f"  phase 11 took {time.perf_counter() - t_train:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -5,10 +5,12 @@ Replaces ``repro/kernels/fused_mlp/kernel.py:37`` ``_mlp_kernel_gated``,
 ``:59`` ``_mlp_kernel_plain`` and ``:78`` ``fused_mlp`` (with ``ops.py``
 and ``ref.py``): ``act(x·Wg)·(x·Wu)·Wd``, or ``act(x·Wu)·Wd`` without a
 gate, act one of silu, tanh-gelu or relu², on the fp32 weights with fp32
-accumulation, cast to x's dtype once.  The hidden tensor stays on chip: the
-kernels split F into chunks whose fp32 partial outputs a second pass folds
-in a fixed order (see the source for the design and its bound).  One call
-launches both passes and counts one launch.
+accumulation, cast to x's dtype once.  The kernels split F into chunks
+whose fp32 parts of the output are summed in ascending chunk order, in two
+launches: the hidden tensor (x's rows × F, fp32) to a scratch buffer, then
+the down product, whose blocks each own an output tile and add every
+chunk's part to it in order (see the source for the design and its
+bound).  One call counts one launch.
 
 Two regimes (``launch_shape``): from 17 rows up the products run on the
 tensor cores in the 3×TF32 split (``matmul_3xtf32``: each fp32 operand as a
@@ -103,9 +105,10 @@ def fused_mlp_plain(x: torch.Tensor, w_gate: Optional[torch.Tensor],
 def launch_shape(m: int, f: int):
     """(block_m, hidden columns per chunk) for ``m`` token rows and ``f``
     hidden columns.  From ``TC_MIN_ROWS`` up, the tensor-core kernel: 64
-    rows × 256 columns.  Below, the rows kernel with rows padded to 4 or 16
-    and 64-column chunks, or 32 where F/64 would give fewer than 200 blocks,
-    so that two or more blocks run on each of the 132 SMs."""
+    rows × 256 columns.  Below, the rows kernels with rows padded to 4 or
+    16 and 64-column chunks, or 32 where F/64 would give fewer than 200
+    blocks, so that two or more hidden blocks run on each of the 132
+    SMs."""
     if m >= TC_MIN_ROWS:
         return 64, 256
     return (4 if m <= 4 else 16), (64 if f >= 64 * 200 else 32)
@@ -144,16 +147,15 @@ def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                          f"(got {f}) and 16-byte aligned tensors")
     m = x.numel() // d if d else 0
     block_m, chunk = launch_shape(m, f)
-    n_chunks = -(-f // chunk)
-    partial = torch.empty((n_chunks, m, d), dtype=torch.float32,
-                          device=x.device)
+    lib = cuda_library()
+    hidden = torch.empty((m, f), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    fn = (cuda_library().cello_fused_mlp_bf16 if x.dtype == torch.bfloat16
-          else cuda_library().cello_fused_mlp_f32)
+    fn = (lib.cello_fused_mlp_bf16 if x.dtype == torch.bfloat16
+          else lib.cello_fused_mlp_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     count("fused_mlp")
     check(fn(x.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
-             w_up.data_ptr(), w_down.data_ptr(), partial.data_ptr(),
+             w_up.data_ptr(), w_down.data_ptr(), hidden.data_ptr(),
              out.data_ptr(), m, d, f, chunk, block_m,
              ACTIVATIONS[activation], stream), "fused_mlp")
     return out

@@ -9,6 +9,12 @@ through ``torch.autograd.grad``, and the update through
 ``optim.adamw_update`` under ``torch.no_grad()``.  CUDA graphs stay
 serving's; nothing here is captured.
 
+The audio and vlm families train on stubbed inputs, as in the JAX
+package: :func:`stub_inputs` makes ``frames`` (audio, in place of the
+token embedding) and ``img`` (vlm, the image embeddings the ``xattn``
+layers attend to), and ``make_loss_fn`` passes a batch's ``frames`` and
+``img`` to the forward.
+
 ``TrainConfig`` keeps the JAX package's five fields.  ``remat`` and
 ``accum_steps`` act as there and ``donate`` makes the update write
 parameters and moments in place.  ``unroll`` changes nothing (the port
@@ -50,28 +56,51 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(cfg: ArchConfig, plan: CelloPlan, train_cfg: TrainConfig):
     """``loss_fn(params, batch)``: the mean cross-entropy of the training
-    forward, every layer checkpointed under the plan's policy when
-    ``train_cfg.remat`` (``models.forward`` raises for a family it does
-    not train)."""
+    forward on ``batch["tokens"]`` (and its ``frames`` / ``img`` where
+    given), every layer checkpointed under the plan's policy when
+    ``train_cfg.remat``."""
     policy = plan.checkpoint_policy() if train_cfg.remat else None
 
     def loss_fn(params, batch):
         logits, _ = forward(params, cfg, plan, batch["tokens"],
+                            frames=batch.get("frames"), img=batch.get("img"),
                             mode="train", remat_policy=policy)
         return cross_entropy(logits, batch["labels"])
 
     return loss_fn
 
 
+def stub_inputs(cfg: ArchConfig, batch: int, seq: int, step: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The stubbed frontend inputs of step ``step``: bf16 standard normal
+    ``frames`` (batch, seq, d_model) for the audio family and ``img``
+    (batch, vision_seq, d_model) for the vlm, none for the others, drawn
+    on ``device`` by a ``torch.Generator`` seeded with ``step``.  The JAX
+    package draws its stubs with ``jax.random.PRNGKey(step)``
+    (``repro/launch/train.py:184-192``), so the numbers differ from its
+    (the shapes, dtype and distribution are the same); tests that hold
+    the two packages together feed both the same arrays."""
+    shape = {"audio": ("frames", seq), "vlm": ("img", cfg.vision_seq)}
+    if cfg.family not in shape:
+        return {}
+    name, rows = shape[cfg.family]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(step)
+    return {name: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                              device=device, dtype=torch.bfloat16)}
+
+
 def value_and_grad(loss_fn):
     """``(params, batch) -> (loss, grads)``, the gradient a tree like
     ``params``; the caller's tensors are not marked (each leaf is a
-    detached alias that requires grad)."""
+    detached alias that requires grad).  A leaf the loss does not use (the
+    token embedding of an audio model, which reads ``frames``) gets zeros,
+    as ``jax.grad`` gives it."""
     def fn(params, batch):
         leaves, spec = pytree.tree_flatten(params)
         alias = [p.detach().requires_grad_(True) for p in leaves]
         loss = loss_fn(pytree.tree_unflatten(alias, spec), batch)
-        grads = torch.autograd.grad(loss, alias)
+        grads = torch.autograd.grad(loss, alias, materialize_grads=True)
         return loss.detach(), pytree.tree_unflatten(list(grads), spec)
     return fn
 
@@ -122,8 +151,10 @@ def train_loop(cfg: ArchConfig, plan: CelloPlan, opt_cfg: AdamWConfig, *,
                seed: int = 0, device=None) -> Dict[str, Any]:
     """init → step* → metrics history, on ``device`` (the parameters'
     device when ``params`` are given — ``models.params_from_numpy`` output,
-    say — else ``"cuda"`` unless the caller asks for the CPU).  Each step's
-    wall time (ended by reading its loss) goes to ``straggler.record``;
+    say — else ``"cuda"`` unless the caller asks for the CPU).  The audio
+    and vlm families' steps get :func:`stub_inputs` of their step.  Each
+    step's wall time (ended by reading its loss) goes to
+    ``straggler.record``;
     every ``checkpoint_every`` steps ``checkpointer.save(step + 1,
     {"params", "opt"}, extra={"step"})``."""
     if params is None:
@@ -137,6 +168,8 @@ def train_loop(cfg: ArchConfig, plan: CelloPlan, opt_cfg: AdamWConfig, *,
         inputs, labels = next(data_iter)
         batch = {"tokens": torch.as_tensor(inputs).to(device),
                  "labels": torch.as_tensor(labels).to(device)}
+        batch.update(stub_inputs(cfg, inputs.shape[0], inputs.shape[1], step,
+                                 device))
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])

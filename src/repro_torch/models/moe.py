@@ -17,6 +17,15 @@ on the host (no ``nonzero``, boolean-mask indexing or ``.item()``), so a
 decode step through it can be captured in a CUDA graph: the buffer is
 filled with ``index_copy_`` and read back by gather, with every dropped
 pair sent to a spare slot ``C`` that is never read.
+
+Under autograd the same ops carry the JAX package's gradients: the
+router's through the renormalised gates (``topk`` passes its values'
+gradient to the softmax), a kept pair's input through the buffer
+(``index_copy_``'s backward gathers the rows it wrote; the spare slot is
+sliced off, so a dropped pair gets zero, as JAX's ``where(keep, ·, 0)``
+gives it) and the experts' outputs through the combine gather.  The
+router logits and the experts' hidden tensor carry the JAX package's
+remat tags, ``router_logits`` and ``mlp_hidden``.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from .common import (COMPUTE_DTYPE, PARAM_DTYPE, activation_fn, bf16,
-                     dense_init, is_gated)
+                     dense_init, is_gated, tag)
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
@@ -73,7 +82,8 @@ def route(w_router: torch.Tensor, x: torch.Tensor, *, top_k: int,
     T = x.shape[0]
     E = w_router.shape[1]
     C = capacity(T, E, top_k, capacity_factor)
-    logits = x.to(torch.float32) @ w_router.to(torch.float32)
+    logits = tag(x.to(torch.float32) @ w_router.to(torch.float32),
+                 "router_logits")
     gates, idx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     flat_e = idx.reshape(T * top_k)
@@ -114,6 +124,7 @@ def apply_moe(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         h = act(g.to(torch.float32)).to(COMPUTE_DTYPE) * up
     else:
         h = act(up.to(torch.float32)).to(COMPUTE_DTYPE)
+    h = tag(h, "mlp_hidden")
     out_buf = torch.bmm(h, bf16(params["w_down"]))             # (E, C, D)
 
     # combine: each pair reads its row back, dropped pairs give zero

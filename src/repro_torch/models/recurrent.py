@@ -1,18 +1,21 @@
 """Recurrent blocks: RG-LRU (recurrentgemma) and RWKV-6 time-mix.
 
 The counterpart of ``repro.models.recurrent``.  Both expose a
-full-sequence form (prefill) and a single-step form (decode) that carries
-the recurrent state.  The mesh helpers (``*_pspecs``, ``constrain``) and
-the remat tag (``tag``) are not ported: the port has no device mesh and no
-training step yet.
+full-sequence form (prefill and training) and a single-step form (decode)
+that carries the recurrent state.  The mesh helpers (``*_pspecs``,
+``constrain``) are not ported: the port has no LLM device mesh yet.  The
+scan's output is tagged ``rnn_state`` where the JAX package tags it, so a
+remat policy that names it keeps it.
 
 The sequence forms always send the recurrence through the B8
-(``kernels.rglru``) and B9 (``kernels.rwkv6``) wrappers — the kernel for
+(``kernels.rglru``) and B9 (``kernels.rwkv6``) wrappers, inside their
+autograd Functions (``models.autograd.RGLRUFn``, ``WKV6Fn``: the wrapper
+forward, the plain chunked form's gradient backward) — the kernel for
 tensors on the card, its plain version for tensors on the CPU.  The JAX
 signature's ``use_kernel`` flag is thus fixed to True here and is not a
 parameter: a CUDA tensor launches the kernel or the wrapper raises.  The
-wrappers are imported at call time, so swapping the module attribute
-(``rglru`` / ``wkv6``) swaps what the model runs.
+Functions import the wrappers at call time, so swapping the module
+attribute (``rglru`` / ``wkv6``) swaps what the model runs.
 The single-step forms are plain torch ops, as in the JAX package: no
 kernel exists for one step.
 """
@@ -23,7 +26,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels.rglru import RGLRU_C, softplus
-from .common import COMPUTE_DTYPE, bf16, dense_init
+from .autograd import RGLRUFn, WKV6Fn
+from .common import COMPUTE_DTYPE, bf16, dense_init, tag
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,8 +58,8 @@ def apply_rglru_seq(params, x: torch.Tensor, h0=None
     xb = xc @ bf16(params["w_x"])
     gr = xc @ bf16(params["w_gate_r"])
     gi = xc @ bf16(params["w_gate_i"])
-    from ..kernels.rglru import rglru
-    h, hT = rglru(xb, gr, gi, params["a_param"], h0)
+    h, hT = RGLRUFn.apply(xb, gr, gi, params["a_param"], h0)
+    h = tag(h, "rnn_state")
     y = h.to(COMPUTE_DTYPE) @ bf16(params["w_out"])
     return y.to(x.dtype), hT
 
@@ -114,8 +118,8 @@ def apply_rwkv_seq(params, x: torch.Tensor, n_heads: int, s0=None
     v = _split_heads(xc @ bf16(params["w_v"]), n_heads)
     w = _split_heads((xc @ bf16(params["w_w"])).float()
                      + params["w_bias"].float(), n_heads)
-    from ..kernels.rwkv6 import wkv6
-    y, sT = wkv6(r, k, v, w, params["u"], s0)
+    y, sT = WKV6Fn.apply(r, k, v, w, params["u"], s0)
+    y = tag(y, "rnn_state")
     y = y.transpose(1, 2).reshape(B, S, D)
     out = y.to(COMPUTE_DTYPE) @ bf16(params["w_o"])
     return out.to(x.dtype), sT

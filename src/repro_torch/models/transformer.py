@@ -45,15 +45,20 @@ Modes:
     cache entry: (k, v), the RG-LRU's hT or the WKV state sT.  An
     ``xattn`` layer's (k, v) are the image's, of ``vision_seq`` rows.
   forward(..., mode="train", remat_policy=None) — the same, for a loss to
-    backpropagate through; the dense families only (``TRAINED_FAMILIES``).
-    A Function's backward is a differentiable plain form; where the plan
-    turns a kernel off, the plain forms of prefill (naive attention, the
-    plain MLP, the plain norm) are differentiated directly.  With a
-    ``remat_policy`` (``CelloPlan.checkpoint_policy()``) every layer is
-    one checkpointed region; the JAX package's region is one period,
-    which for the dense families is one layer.  The tensors are tagged
-    where the JAX model tags them: ``q_out``, ``attn_out``,
-    ``mlp_hidden`` (plain MLP only), ``mlp_out``, ``x_mid``.
+    backpropagate through, in every family (``frames`` and ``img`` as in
+    prefill).  A Function's backward is a differentiable plain form;
+    where the plan turns a kernel off, the plain forms of prefill (naive
+    attention, the plain MLP, the plain norm) are differentiated
+    directly; the recurrences always run B8/B9 under their Functions.
+    With a ``remat_policy`` (``CelloPlan.checkpoint_policy()``) every
+    layer is one checkpointed region; the JAX package's region is one
+    period (one layer for the dense, moe, ssm and audio families, an
+    ``[rglru, rglru, attn]`` triple for the hybrid one, a run of
+    ``cross_attn_every`` layers for the vlm), which recomputes the same
+    ops from the same kept tensors.  The tensors are tagged where the JAX
+    model tags them: ``q_out``, ``attn_out``, ``mlp_hidden`` (plain MLP
+    and MoE experts), ``router_logits``, ``rnn_state``, ``mlp_out``,
+    ``x_mid``.
   decode_step(...) — one token against the cache (ring-buffered when the
     arch uses a bounded attention window).  As in the JAX package, an
     ``xattn`` layer decodes as an ``attn`` layer does, on a ring cache of
@@ -80,10 +85,6 @@ from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
 
 Params = Dict[str, Any]
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
-#: the families ``forward(mode="train")`` runs; the others' training
-#: (B8/B9 Functions, MoE dispatch under autograd, the stubbed inputs) is
-#: ROADMAP.md §1 item 2
-TRAINED_FAMILIES = ("dense",)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -288,19 +289,13 @@ def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
     for an attention layer, hT (B, D) fp32 for an RG-LRU layer, sT (B, H,
     E, E) fp32 for an RWKV layer.
 
-    ``mode="train"`` (dense families) is the forward a loss backpropagates
+    ``mode="train"`` (every family) is the forward a loss backpropagates
     through; ``remat_policy`` (train only) checkpoints every layer under
     it (module docstring)."""
     _check_family(cfg)
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r}: forward runs 'prefill' or 'train'")
-    train = mode == "train"
-    if train and cfg.family not in TRAINED_FAMILIES:
-        raise ValueError(
-            f"{cfg.name}: training of the {cfg.family!r} family is not "
-            f"ported yet (ROADMAP.md §1 item 2); forward(mode='train') runs "
-            f"{', '.join(TRAINED_FAMILIES)}")
-    if remat_policy is not None and not train:
+    if remat_policy is not None and mode != "train":
         raise ValueError("remat_policy applies to mode='train' only")
     if frames is not None:
         x = frames.to(COMPUTE_DTYPE)
