@@ -198,7 +198,27 @@ Phases, each of which raises (exit code 1) on failure:
    memory held after the forward (less with remat) and the peak of a step
    with remat on and off, and three
    ``CompiledPlan.train`` steps (the counted main path) with finite
-   losses.
+   losses;
+12. the LLM mesh (``drive_llm_mesh``): granite-3-8b at ``TRAIN_LAYERS``
+   of 40 layers, full width, on ``make_local_mesh(2, 2)``, four slots on
+   the card (B5 on 16 of 32 query heads and 4 of 8 kv heads a slot, B6 on
+   6400 of 12800 hidden columns, B7 on every slot): a 2 x 1024 prefill
+   through ``models.sharded.forward``, ``generate`` of 4 x (16 + 32)
+   through ``ServeBundle.jit_decode(mesh, 4, 48)`` (one replay a step),
+   one training step's loss and gathered gradients against the unsharded
+   step's, then three ``jit_train_step`` steps at 4 x 1024 with ZeRO-1,
+   the plan's remat and donation; each held to the unsharded kernel run
+   (``LLM_TOL``, ``DECODE_TOL``, ``max(TRAIN_MIN_TOL, 2 x spread)``) with
+   the shifted controls rejected, the data replicas bitwise equal after
+   each step, launches as ``mesh_launches`` predicts (slots x the
+   unsharded pass's); per-slot parameter, moment and cache bytes held to
+   the specs' count, each pass's time beside the unsharded one's, and the
+   bytes each exchange kind moved.  Then one short check a family
+   (``MESH_FAMILIES``, ``drive_mesh_family``): granite-moe (routes
+   replayed), recurrentgemma (B8; its attention on the gather fallback),
+   rwkv6 (B9), hubert (prefill) and llama-vision (an ``xattn`` layer),
+   each sharded prefill and decode step against the unsharded one at the
+   same depth.  No speed is claimed: the slots share one card.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -211,6 +231,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -2735,7 +2756,7 @@ def check_decode_graph(cfg, plan, params, gen_prompt, profile=False):
     from repro_torch.launch import jit_decode_step, make_decode_fn
     from repro_torch.models import init_cache
     z = GEN_PROMPT + GEN_NEW
-    step = jit_decode_step(cfg, plan, GEN_BATCH, z)
+    step = jit_decode_step(cfg, plan, None, GEN_BATCH, z)
     eager = make_decode_fn(cfg, plan, donate=True)
     c_graph = init_cache(cfg, GEN_BATCH, z, device="cuda")
     c_eager = init_cache(cfg, GEN_BATCH, z, device="cuda")
@@ -2982,7 +3003,7 @@ def drive_serving(arch, seq, layer_kind, want_prefill, tols, results_paths,
             f"factor {p.moe_capacity_factor}, {cfg.n_experts} experts, "
             f"top-{cfg.top_k})")
     if decodes:
-        step = bundle.jit_decode(GEN_BATCH, GEN_PROMPT + GEN_NEW)
+        step = bundle.jit_decode(None, GEN_BATCH, GEN_PROMPT + GEN_NEW)
 
         def gen():            # one CUDA-graph replay a decode step
             return bundle.generate(params, gen_prompt, GEN_NEW)
@@ -4363,6 +4384,582 @@ def drive_training(arch, layers, batch_size, seq, results_paths,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 12: the LLM mesh
+# --------------------------------------------------------------------------
+
+#: phase 12's main path: granite-3-8b at full width, ``TRAIN_LAYERS`` of
+#: its 40 layers (8.0 GB of fp32 weights; on the mesh its two data
+#: replicas hold 16 GB, ZeRO-1's moments 16 GB more and a step's
+#: gradients 16 GB, beside the unsharded comparison runs), on
+#: ``make_local_mesh(*MESH_LLM)``: four slots on the one card
+MESH_LLM = (2, 2)
+MESH_PREFILL_BATCH = 2
+MESH_TRAIN_STEPS = 3
+#: one short check a family: (arch, layers, mesh, decodes).  granite-moe
+#: 4 of 24 layers, its routes replayed; recurrentgemma one [rglru, rglru,
+#: attn] period (B8 on D/2 channels; 10 heads and 1 kv head: attention
+#: takes the gather fallback, the cache sequence-sharded); rwkv6 2 of 32
+#: (B9 on 32 of 64 heads); hubert 3 of 48, prefill only (encoder-only);
+#: llama-vision 5 of 40, its fifth an ``xattn`` layer
+MESH_FAMILIES = (
+    (MOE_ARCH, 4, (1, 2), True),
+    (HYBRID_ARCH, 3, (2, 2), True),
+    (SSM_ARCH, 2, (1, 2), True),
+    (AUDIO_ARCH, 3, (2, 2), False),
+    (VLM_ARCH, 5, (1, 2), True),
+)
+
+
+def _sync(dev):
+    import torch
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _timed(fn, dev):
+    """(result, wall seconds) of ``fn()``, synchronized on a card."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def mesh_launches(cfg, slots, mode):
+    """B5-B9 launches of one ``mode`` pass over a mesh of ``slots``:
+    every slot runs every layer's kernels, split or gathered alike
+    (``models/sharded.py``), so ``slots`` times the unsharded pass's: in
+    prefill each layer's norms (2), MLP (1, none in an MoE layer),
+    attention (1 in an ``attn`` / ``xattn`` layer) and scan (1 in an
+    ``rglru`` / ``rwkv`` layer), and the final norm; a decode step only
+    the norms and the MLP; a train step ``train_launches`` with remat."""
+    if mode == "train":
+        per = train_launches(cfg, True)
+    else:
+        kinds = cfg.layer_kinds()
+        dec = mode == "decode"
+        per = {"flash_attention": 0 if dec else sum(
+                   k in ("attn", "xattn") for k in kinds),
+               "fused_mlp": 0 if cfg.is_moe else len(kinds),
+               "rmsnorm": 2 * len(kinds) + 1,
+               "rglru": 0 if dec else sum(k == "rglru" for k in kinds),
+               "wkv6": 0 if dec else sum(k == "rwkv" for k in kinds)}
+    return {k: slots * v for k, v in per.items()}
+
+
+def spec_bytes(shapes, shardings, slot):
+    """The bytes slot ``slot`` holds of a tree, counted from the global
+    shapes (``meta`` tensors) and the shardings alone."""
+    from repro_torch.launch import shardings as shd
+    total = 0
+    for t, s in zip(shd.tree_leaves(shapes), shd.tree_leaves(shardings)):
+        n = 1
+        for e in s.shard_shape(tuple(t.shape)):
+            n *= e
+        total += n * t.element_size()
+    return total
+
+
+def _held_bytes(tree, shapes, shardings, mesh):
+    """Per slot: (bytes held, bytes the specs count); they must agree."""
+    from repro_torch.launch import shardings as shd
+    out = [(shd.slot_bytes(tree, k), spec_bytes(shapes, shardings, k))
+           for k in range(mesh.size)]
+    assert all(a == b for a, b in out), out
+    return [a for a, _ in out]
+
+
+def _rel_to(got, want):
+    return max_err(got, want) / float(want.abs().max())
+
+
+def drive_llm_mesh(cfg, mesh_shape, results_paths, dev="cuda"):
+    """Phase 12's main path: ``cfg`` on ``make_local_mesh(*mesh_shape)``.
+    (a) a prefill of ``MESH_PREFILL_BATCH`` x ``PREFILL_SEQ`` through
+    ``models.sharded.forward``, logits within ``LLM_TOL`` of the
+    unsharded kernel run (``CompiledPlan.serve().prefill_fn``), the
+    shifted-position control rejected; (b) ``generate`` of ``GEN_BATCH``
+    x (``GEN_PROMPT`` + ``GEN_NEW``) through ``ServeBundle.jit_decode(
+    mesh, ...)``, one replay a step, its tokens equal to the unsharded
+    bundle's (or parted at a near tie), the decode logits at the last
+    prompt position within ``DECODE_TOL`` of the unsharded step's, the
+    previous position's rejected; (c) the training loss and every
+    gathered gradient leaf of one step within ``max(TRAIN_MIN_TOL, 2 x
+    spread)`` of the unsharded step's (the spread: the unsharded kernel
+    step's against its flags-off step's); (d) ``MESH_TRAIN_STEPS``
+    steps of ``jit_train_step`` (ZeRO-1, the plan's remat, donated):
+    finite losses, the first step's gathered params against the unsharded
+    step's on the same params and batch (each leaf's update within
+    ``max(TRAIN_MIN_TOL, 2 x spread)``, the spread that of AdamW's first
+    update from the flags-off gradients against the kernel ones), every
+    moment block of its ZeRO-1 shape, the data replicas of every param
+    block bitwise equal after each step.  B5-B7
+    launches of every pass as ``mesh_launches`` predicts.  Records the
+    per-slot parameter, moment and cache bytes (held against the specs'
+    count), each pass's time beside the unsharded one's, and the bytes
+    each exchange kind moved.  Returns the launch counts of (a), (b) and
+    (d)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import greedy_generate, jit_decode_step
+    from repro_torch.launch.train import (TrainConfig, jit_train_step,
+                                          make_loss_fn, make_mesh_loss_fn,
+                                          make_train_step, value_and_grad)
+    from repro_torch.models import init_cache, init_params, sharded
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import (clip_scale, global_norm, schedule,
+                                         update_leaf)
+    t0 = time.perf_counter()
+    on_card = str(dev).startswith("cuda")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(*mesh_shape, device=dev)
+    K = mesh.size
+    compiled = Session(cfg, device=dev).default_plan(seq=PREFILL_SEQ)
+    plan = compiled.plan
+    assert (plan.use_flash_attention and plan.use_fused_mlp
+            and plan.use_fused_rmsnorm), plan
+    bundle = compiled.serve()
+    params = init_params(cfg, seed=0, device=dev)
+    p_shapes, p_sh = shd.params_for(cfg, mesh)
+    sp = shd.shard_tree(params, p_sh)
+    p_bytes = _held_bytes(sp, p_shapes, p_sh, mesh)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, every width as published, "
+        f"on {mesh!r}; plan {plan.remat_save_names} kv_block "
+        f"{plan.kv_block}; parameter bytes a slot {p_bytes} (the specs' "
+        f"count; the model {sum(t.numel() * 4 for t in _leaves(params))})")
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MESH_PREFILL_BATCH, PREFILL_SEQ))).to(dev)
+    gen_prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).to(dev)
+    out = dict(path=f"mesh {cfg.name} {cfg.n_layers} layers on "
+               f"{mesh_shape}", mesh=list(mesh_shape), layers=cfg.n_layers,
+               param_bytes_per_slot=p_bytes)
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    # (a) prefill
+    want = mesh_launches(cfg, K, "prefill")
+    ref = bundle.prefill_fn(params, prompt)
+    mesh.reset_exchanged()
+    kernels.reset_launches()
+    logits, first_s = _timed(
+        lambda: sharded.forward(sp, cfg, plan, prompt)[0], dev)
+    got = kernels.launches()
+    assert {k: got[k] for k in want} == want, (got, want)
+    for k, v in got.items():
+        counts[k] += v
+    prefill_x = dict(mesh.exchanged)
+    assert bool(torch.isfinite(logits).all())
+    assert logits.shape == (MESH_PREFILL_BATCH, PREFILL_SEQ, cfg.padded_vocab)
+    rel = _rel_to(logits, ref)
+    control = max_err(logits[:, 1:], ref[:, :-1]) / float(ref.abs().max())
+    pre_ms = min(_timed(lambda: sharded.forward(sp, cfg, plan, prompt),
+                        dev)[1] for _ in range(3)) * 1e3
+    ref_ms = min(_timed(lambda: bundle.prefill_fn(params, prompt), dev)[1]
+                 for _ in range(3)) * 1e3
+    del logits, ref
+    log(f"  prefill {MESH_PREFILL_BATCH}x{PREFILL_SEQ}: logits vs the "
+        f"unsharded kernel run rel err {rel:.3e} (tol {LLM_TOL:g}; shifted "
+        f"one position {control:.3e}, must exceed it); launches {want} (as "
+        f"predicted); {pre_ms:.1f} ms (unsharded {ref_ms:.1f} ms); "
+        f"exchanged bytes {prefill_x}")
+    assert rel <= LLM_TOL, ("mesh prefill vs unsharded", rel)
+    assert control > LLM_TOL, ("the LLM limit passes shifted logits",
+                               control)
+    out.update(prefill_rel_err=rel, prefill_shifted_rel_err=control,
+               prefill_ms=pre_ms, unsharded_prefill_ms=ref_ms,
+               prefill_launches=want, prefill_exchanged_bytes=prefill_x)
+
+    # (b) decode: generate through the bundle's mesh step
+    z = GEN_PROMPT + GEN_NEW
+    steps = z - 1
+    step = bundle.jit_decode(mesh, GEN_BATCH, z)
+    assert step is bundle.jit_decode(mesh, GEN_BATCH, z)
+    c_shapes, c_sh = shd.cache_for(cfg, mesh, GEN_BATCH, z)
+    scache = shd.shard_tree(init_cache(cfg, GEN_BATCH, z, device=dev), c_sh)
+    c_bytes = _held_bytes(scache, c_shapes, c_sh, mesh)
+
+    def gen():                 # from a reset cache, as bundle.generate
+        for e in scache["layers"]:
+            for name, leaf in e.items():
+                for p in leaf.parts:
+                    p.fill_(-1 if name == "pos_idx" else 0)
+        return greedy_generate(sp, cfg, plan, gen_prompt, GEN_NEW,
+                               step_fn=step, cache=scache)
+    kernels.reset_launches()
+    toks, first_gen_s = _timed(gen, dev)
+    per_gen = kernels.launches()
+    want_step = mesh_launches(cfg, K, "decode")
+    got_step = {k: per_gen[k] / steps for k in want_step}
+    assert got_step == want_step, (got_step, want_step)
+    for k, v in per_gen.items():
+        counts[k] += v
+    assert step.stats == {"traces": 1, "dispatches": steps}, step.stats
+    toks_ref = bundle.generate(params, gen_prompt, GEN_NEW)
+    split = _first_split(toks, toks_ref, lambda col: _unsharded_logits_at(
+        bundle, params, cfg, toks_ref, col, dev))
+    gen_ms = min(_timed(gen, dev)[1] for _ in range(2)) * 1e3
+    ref_gen_ms = min(_timed(lambda: bundle.generate(params, gen_prompt,
+                                                    GEN_NEW), dev)[1]
+                     for _ in range(2)) * 1e3
+    assert step.stats == {"traces": 1, "dispatches": 3 * steps}, step.stats
+    stats = dict(step.stats)
+    calls = (api_calls(lambda: step(sp, scache, gen_prompt[:, :1],
+                                    GEN_PROMPT))
+             if str(dev).startswith("cuda") else {})
+    if calls:
+        assert calls["graph_launches"] == 1 and \
+            calls["kernel_launches"] <= 2, calls
+    # decode logits at the last prompt position, mesh step vs unsharded
+    dstep = jit_decode_step(cfg, plan, None, GEN_BATCH, z)
+    c_ref = init_cache(cfg, GEN_BATCH, z, device=dev)
+    c_mesh = shd.shard_tree(init_cache(cfg, GEN_BATCH, z, device=dev), c_sh)
+    last = []
+    for t in range(GEN_PROMPT):
+        a, _ = step(sp, c_mesh, gen_prompt[:, t:t + 1], t)
+        b, _ = dstep(params, c_ref, gen_prompt[:, t:t + 1], t)
+        last = (last + [(a.clone(), b.clone())])[-2:]
+    dec_rel = _rel_to(last[-1][0], last[-1][1])
+    dec_control = (max_err(last[-1][0], last[-2][1])
+                   / float(last[-1][1].abs().max()))
+    log(f"  generate {GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW}) through "
+        f"bundle.jit_decode(mesh, {GEN_BATCH}, {z}): {steps} steps, one "
+        f"replay each (stats after three generates {stats}; a warm step "
+        f"makes {calls}); "
+        f"launches per step {want_step} (as predicted); tokens {split}; "
+        f"decode logits at the last prompt position vs the unsharded "
+        f"step's rel err {dec_rel:.3e} (tol {DECODE_TOL:g}; against its "
+        f"position before {dec_control:.3e}, must exceed it); "
+        f"{gen_ms / steps:.2f} ms a step (unsharded {ref_gen_ms / steps:.2f}"
+        f" ms); exchanged bytes a step {step.exchanged}; cache bytes a slot "
+        f"{c_bytes} (the specs' count)")
+    assert dec_rel <= DECODE_TOL, ("mesh decode vs unsharded", dec_rel)
+    assert dec_control > DECODE_TOL, ("the decode limit passes the wrong "
+                                      "position", dec_control)
+    out.update(decode_rel_err=dec_rel, decode_previous_rel_err=dec_control,
+               decode_ms_per_step=gen_ms / steps,
+               unsharded_decode_ms_per_step=ref_gen_ms / steps,
+               decode_launches_per_step=want_step,
+               decode_step_stats=stats, api_calls_step=calls,
+               decode_exchanged_bytes=dict(step.exchanged),
+               cache_bytes_per_slot=c_bytes, **split)
+    del scache, c_mesh, c_ref, step, dstep
+    bundle._steps.clear()
+    bundle._caches.clear()
+    gc.collect()
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # (c) one step's loss and gradients against the unsharded step's
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=PREFILL_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    x, y = data.batch_at(0)
+    batch = {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+    tc = TrainConfig()
+    loss_u, g_u = value_and_grad(make_loss_fn(cfg, plan, tc))(params, batch)
+    off = dataclasses.replace(plan, use_flash_attention=False,
+                              use_fused_mlp=False, use_fused_rmsnorm=False)
+    loss_o, g_o = value_and_grad(make_loss_fn(cfg, off, tc))(params, batch)
+    spread = _leaf_rel(g_o, g_u)
+    loss_spread = abs(float(loss_o) - float(loss_u)) / abs(float(loss_u))
+    # the spread of AdamW's first update (fresh moments), the flags-off
+    # gradients' against the kernel gradients', leaf by leaf: the limit of
+    # (d)'s first mesh step against the unsharded step
+    opt = AdamWConfig(total_steps=100)
+    lr1, bc1, bc2 = schedule(opt, torch.ones((), dtype=torch.int32,
+                                             device=dev))
+
+    def first_updates(g_tree):
+        scale = clip_scale(opt, global_norm(g_tree))
+        for p_, g_ in zip(_leaves(params), _leaves(g_tree)):
+            z = torch.zeros_like(p_, dtype=torch.float32)
+            p1, _, _ = update_leaf(opt, g_, z, z.clone(), p_, lr=lr1,
+                                   scale=scale, bc1=bc1, bc2=bc2,
+                                   inplace=False)
+            yield p1 - p_
+    with torch.no_grad():
+        upd_spread = max(float(torch.linalg.vector_norm(a - b)
+                               / torch.linalg.vector_norm(b))
+                         for a, b in zip(first_updates(g_o),
+                                         first_updates(g_u)))
+    del g_o
+    gc.collect()
+    kernels.reset_launches()
+    mesh.reset_exchanged()
+    loss_s, g_s = sharded.value_and_grad(make_mesh_loss_fn(cfg, plan, tc))(
+        sp, batch)
+    got = kernels.launches()
+    want_train = mesh_launches(cfg, K, "train")
+    assert {k: got[k] for k in want_train} == want_train, (got, want_train)
+    err = 0.0
+    for s, g in zip(shd.tree_leaves(g_s, lambda v: isinstance(
+            v, shd.Sharded)), _leaves(g_u)):
+        full = s.gather()
+        err = max(err, float(torch.linalg.vector_norm(full - g)
+                             / torch.linalg.vector_norm(g)))
+        del full
+    tol = max(TRAIN_MIN_TOL, 2 * spread)
+    loss_tol = max(TRAIN_MIN_TOL, 2 * loss_spread)
+    loss_err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+    log(f"  one training step {TRAIN_BATCH}x{PREFILL_SEQ}: loss "
+        f"{float(loss_s):.6f} (unsharded {float(loss_u):.6f}, rel "
+        f"{loss_err:.2e}, limit {loss_tol:.2e}); gathered gradients: max "
+        f"leaf rel err {err:.3e} (limit {tol:.3e} = 2 x the unsharded "
+        f"kernel step's spread against its flags-off step, {spread:.3e}); "
+        f"launches {want_train} (as predicted)")
+    assert loss_err <= loss_tol, ("mesh loss vs unsharded", loss_err)
+    assert err <= tol, ("mesh gradients vs unsharded", err, tol)
+    out.update(train_loss=float(loss_s), unsharded_train_loss=float(loss_u),
+               train_loss_rel_err=loss_err, train_loss_tol=loss_tol,
+               grad_rel_err=err, grad_tol=tol, grad_spread=spread,
+               train_launches=want_train)
+    del g_s, g_u
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # the unsharded step's time (donated; from here on ``params`` is its),
+    # its first step's params kept on the host with each leaf's update
+    # norm, for (d)'s first step (``sp`` still holds the initial params)
+    ref_step = make_train_step(cfg, plan, opt, TrainConfig(donate=True))
+    state = adamw_init(params)
+    ref_times = []
+    for i in range(2):
+        (_, _, m), s_ = _timed(lambda: ref_step(params, state, batch), dev)
+        ref_times.append(s_)
+        assert np.isfinite(float(m["loss"]))
+        if i == 0:
+            ref_first = []
+            for p_, s0 in zip(_leaves(params), shd.tree_leaves(
+                    sp, lambda v: isinstance(v, shd.Sharded))):
+                norm = float(torch.linalg.vector_norm(p_ - s0.gather()))
+                ref_first.append((p_.to("cpu", copy=True), norm))
+    del state, params
+    gc.collect()
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # (d) jit_train_step: ZeRO-1, the plan's remat, donated
+    specs = shd.input_specs(cfg, ShapeSpec("mesh", PREFILL_SEQ, TRAIN_BATCH,
+                                           "train"), mesh)
+    tstep = jit_train_step(cfg, plan, opt, mesh, TrainConfig(),
+                           batch_specs=specs)
+    sp, so = tstep.shard(sp)
+    o_sh = tstep.o_shardings
+    m_bytes = [a + b for a, b in zip(
+        _held_bytes(so["m"], p_shapes, o_sh["m"], mesh),
+        _held_bytes(so["v"], p_shapes, o_sh["v"], mesh))]
+    for m, sh in zip(shd.tree_leaves(so["m"], lambda v: isinstance(
+            v, shd.Sharded)), shd.tree_leaves(o_sh["m"])):
+        assert all(tuple(p.shape) == sh.shard_shape(m.shape)
+                   for p in m.parts), (m, sh)
+    losses, times, xchg = [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        kernels.reset_launches()
+        (_, _, m), s_ = _timed(lambda: tstep(sp, so, batch), dev)
+        got = kernels.launches()
+        assert {k: got[k] for k in want_train} == want_train, got
+        for k, v in got.items():
+            counts[k] += v
+        losses.append(float(m["loss"]))
+        times.append(s_)
+        xchg.append(dict(tstep.exchanged))
+        for s in shd.tree_leaves(sp, lambda v: isinstance(v, shd.Sharded)):
+            for grp in mesh.groups(("data",)):
+                assert all(torch.equal(s.parts[grp[0]], s.parts[j])
+                           for j in grp[1:]), ("replicas part", i)
+        if i == 0:           # the first update against the unsharded one
+            upd_err = 0.0
+            for s, (want, norm) in zip(shd.tree_leaves(
+                    sp, lambda v: isinstance(v, shd.Sharded)), ref_first):
+                full = s.gather()
+                upd_err = max(upd_err, float(torch.linalg.vector_norm(
+                    full - want.to(full.device))) / norm)
+                del full
+            del ref_first
+    upd_tol = max(TRAIN_MIN_TOL, 2 * upd_spread)
+    assert upd_err <= upd_tol, ("mesh first update vs unsharded", upd_err,
+                                upd_tol)
+    assert all(np.isfinite(v) for v in losses), losses
+    assert all(int(c) == MESH_TRAIN_STEPS for c in so["count"].parts)
+    step_ms = float(np.median(times[1:])) * 1e3
+    ref_ms = float(np.median(ref_times[1:])) * 1e3
+    log(f"  jit_train_step x{MESH_TRAIN_STEPS} (ZeRO-1, remat, donated): "
+        f"losses {losses}; the first step's gathered params vs the "
+        f"unsharded step's: max leaf rel err of the update {upd_err:.3e} "
+        f"(limit {upd_tol:.3e} = 2 x the first update's spread, the "
+        f"flags-off gradients' against the kernel ones', {upd_spread:.3e});"
+        f" the data replicas of every param block bitwise "
+        f"equal after each step; every moment block of its ZeRO-1 shape; "
+        f"launches a step {want_train}; {step_ms:.1f} ms a warm step "
+        f"(unsharded {ref_ms:.1f} ms); exchanged bytes a step {xchg[-1]}; "
+        f"moment bytes a slot {m_bytes} (the specs' count)")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    out.update(train_losses=losses, first_update_rel_err=upd_err,
+               first_update_tol=upd_tol, first_update_spread=upd_spread,
+               train_step_ms=step_ms,
+               train_step_ms_all=[t * 1e3 for t in times],
+               unsharded_train_step_ms=ref_ms,
+               train_exchanged_bytes=xchg[-1],
+               moment_bytes_per_slot=m_bytes, peak_memory_gb=peak,
+               seconds=time.perf_counter() - t0)
+    log(f"  peak memory over the path {peak} GB")
+    results_paths.append(out)
+    del sp, so, tstep
+    gc.collect()
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _unsharded_logits_at(bundle, params, cfg, toks, col, dev):
+    """The unsharded decode step's logits after feeding ``toks[:, :col]``
+    (where two runs' tokens part)."""
+    from repro_torch.models import init_cache
+    c = init_cache(cfg, toks.shape[0], GEN_PROMPT + GEN_NEW, device=dev)
+    lg = None
+    for t in range(col):
+        lg, c = bundle.decode_fn(params, c, toks[:, t:t + 1], t)
+    return lg[:, -1]
+
+
+def drive_mesh_family(arch, layers, mesh_shape, decodes, results_paths,
+                      dev="cuda", cfg=None):
+    """One family's short check on ``make_local_mesh(*mesh_shape)`` at
+    ``layers`` layers: a ``MESH_PREFILL_BATCH`` x ``PREFILL_SEQ`` prefill
+    against the unsharded kernel run, and (``decodes``) the mesh decode
+    step (``jit_decode_step(cfg, plan, mesh, ...)``, graphed) over a
+    ``GEN_BATCH`` x ``GEN_PROMPT`` prompt against the unsharded graphed
+    step at the last prompt position, each within ``LLM_TOL`` /
+    ``DECODE_TOL`` (rwkv6-7b ``RWKV_TOL``) with the shifted-position
+    control rejected.  An MoE arch's sharded runs replay the unsharded
+    runs' routes (``recorded_routes`` / ``replayed_routes``), and its
+    decode steps run eagerly (``models.sharded.decode_step``): a replay
+    would keep the captured step's routes.  Launches as
+    ``mesh_launches``.  Returns the launch counts of the sharded runs."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import jit_decode_step
+    from repro_torch.launch.train import stub_inputs
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, sharded)
+    t0 = time.perf_counter()
+    if cfg is None:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+    mesh = make_local_mesh(*mesh_shape, device=dev)
+    K = mesh.size
+    plan = Session(cfg, device=dev).default_plan(seq=PREFILL_SEQ).plan
+    plan = dataclasses.replace(plan, use_flash_attention=True,
+                               use_fused_mlp=True, use_fused_rmsnorm=True)
+    tol = RWKV_TOL if cfg.family == "ssm" else LLM_TOL
+    dec_tol = RWKV_TOL if cfg.family == "ssm" else DECODE_TOL
+    params = init_params(cfg, seed=0, device=dev)
+    p_shapes, p_sh = shd.params_for(cfg, mesh)
+    sp = shd.shard_tree(params, p_sh)
+    p_bytes = _held_bytes(sp, p_shapes, p_sh, mesh)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MESH_PREFILL_BATCH, PREFILL_SEQ))).to(dev)
+    stub = stub_inputs(cfg, MESH_PREFILL_BATCH, PREFILL_SEQ, 7, dev)
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    with recorded_routes() as routes:
+        ref = forward(params, cfg, plan, prompt, **stub)[0]
+    moe_ctx = ((lambda: replayed_routes(routes.routes)) if cfg.is_moe
+               else contextlib.nullcontext)
+    kernels.reset_launches()
+    mesh.reset_exchanged()
+    with moe_ctx():
+        logits = sharded.forward(sp, cfg, plan, prompt, **stub)[0]
+    got = kernels.launches()
+    want = mesh_launches(cfg, K, "prefill")
+    assert {k: got[k] for k in want} == want, (got, want)
+    for k, v in got.items():
+        counts[k] += v
+    rel = _rel_to(logits, ref)
+    control = max_err(logits[:, 1:], ref[:, :-1]) / float(ref.abs().max())
+    out = dict(path=f"mesh family {cfg.name} {cfg.n_layers} layers on "
+               f"{mesh_shape}", mesh=list(mesh_shape), layers=cfg.n_layers,
+               param_bytes_per_slot=p_bytes, prefill_rel_err=rel,
+               prefill_shifted_rel_err=control, tol=tol,
+               prefill_launches=want,
+               prefill_exchanged_bytes=dict(mesh.exchanged),
+               moe_routes="the unsharded run's, replayed" if cfg.is_moe
+               else None)
+    text = (f"prefill {MESH_PREFILL_BATCH}x{PREFILL_SEQ} vs unsharded rel "
+            f"err {rel:.3e} (tol {tol:g}; shifted {control:.3e}, must "
+            f"exceed it), launches {want}")
+    assert rel <= tol and control > tol, (rel, control, tol)
+    del logits, ref
+    if decodes:
+        z = GEN_PROMPT + GEN_NEW
+        gen_prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).to(dev)
+        if cfg.is_moe:
+            step = (lambda p, c, tok, t: sharded.decode_step(
+                p, c, cfg, plan, tok, t))
+            ref_step = (lambda p, c, tok, t: decode_step(
+                p, c, cfg, plan, tok, t, donate=True))
+        else:
+            step = jit_decode_step(cfg, plan, mesh, GEN_BATCH, z)
+            ref_step = jit_decode_step(cfg, plan, None, GEN_BATCH, z)
+        c_mesh = shd.shard_tree(init_cache(cfg, GEN_BATCH, z, device=dev),
+                                shd.cache_for(cfg, mesh, GEN_BATCH, z)[1])
+        c_ref = init_cache(cfg, GEN_BATCH, z, device=dev)
+        with recorded_routes() as droutes:
+            refs = []
+            for t in range(GEN_PROMPT):
+                b, _ = ref_step(params, c_ref, gen_prompt[:, t:t + 1], t)
+                refs = (refs + [b.clone()])[-2:]
+        kernels.reset_launches()
+        with (replayed_routes(droutes.routes) if cfg.is_moe
+              else contextlib.nullcontext()):
+            for t in range(GEN_PROMPT):
+                a, _ = step(sp, c_mesh, gen_prompt[:, t:t + 1], t)
+        got = kernels.launches()
+        want_d = mesh_launches(cfg, K, "decode")
+        assert {k: got[k] for k in want_d} == {
+            k: GEN_PROMPT * v for k, v in want_d.items()}, (got, want_d)
+        for k, v in got.items():
+            counts[k] += v
+        d_rel = _rel_to(a, refs[-1])
+        d_control = max_err(a, refs[-2]) / float(refs[-1].abs().max())
+        if not cfg.is_moe:
+            assert step.stats == {"traces": 1, "dispatches": GEN_PROMPT}
+        out.update(decode_rel_err=d_rel, decode_previous_rel_err=d_control,
+                   decode_tol=dec_tol, decode_launches_per_step=want_d,
+                   decode_graphed=not cfg.is_moe)
+        text += (f"; decode over a {GEN_BATCH}x{GEN_PROMPT} prompt "
+                 f"({'eager, routes replayed' if cfg.is_moe else 'graphed'})"
+                 f" vs unsharded at the last position rel err {d_rel:.3e} "
+                 f"(tol {dec_tol:g}; the position before {d_control:.3e}, "
+                 f"must exceed it)")
+        assert d_rel <= dec_tol and d_control > dec_tol, (d_rel, d_control)
+    out["seconds"] = time.perf_counter() - t0
+    results_paths.append(out)
+    log(f"  {cfg.name} ({cfg.n_layers} layers, "
+        f"{''.join(k[0] for k in cfg.layer_kinds())}) on {mesh_shape}: "
+        f"{text}; parameter bytes a slot {p_bytes}")
+    del params, sp
+    gc.collect()
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4636,6 +5233,34 @@ def main(argv=None) -> int:
         assert train_totals[k] > 0, \
             f"kernel {k} was never launched in training"
     log(f"  phase 11 took {time.perf_counter() - t_train:.1f} s")
+
+    # ---- phase 12: the LLM mesh
+    from repro_torch.configs import get_config
+    mesh_totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    t_mesh = time.perf_counter()
+    card_phase(f"12: the LLM mesh, {LLM_ARCH} ({TRAIN_LAYERS} of its "
+               f"layers) on make_local_mesh{MESH_LLM}: models.sharded "
+               "prefill, generate through ServeBundle.jit_decode(mesh, ...), "
+               "jit_train_step with ZeRO-1")
+    runs = [lambda: drive_llm_mesh(dataclasses.replace(
+        get_config(LLM_ARCH), n_layers=TRAIN_LAYERS), MESH_LLM, paths)]
+    runs += [functools.partial(drive_mesh_family, arch, layers, shape, dec,
+                               paths) for arch, layers, shape, dec
+             in MESH_FAMILIES]
+    for i, run in enumerate(runs):
+        if i:
+            arch, layers, shape, dec = MESH_FAMILIES[i - 1]
+            card_phase(f"12: the {arch} mesh check, {layers} of its layers "
+                       f"on make_local_mesh{shape}")
+        counts = run()
+        for k, v in counts.items():
+            totals[k] += v
+            mesh_totals[k] += v
+        log(f"  done at {time.perf_counter() - t_start:.1f} s")
+    for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
+        assert mesh_totals[k] > 0, f"kernel {k} was never launched on the mesh"
+    log(f"  phase 12 took {time.perf_counter() - t_mesh:.1f} s; launches "
+        f"{ {k: v for k, v in mesh_totals.items() if v} }")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -6,9 +6,17 @@ The counterpart of ``repro.checkpoint.store``, with its layout:
 latest checkpoint (restore only considers committed steps).  A leaf's flat
 key is its tree path as the JAX package writes it (``['layers']--[0]--
 ['attn']--['wq']`` with every character outside ``[A-Za-z0-9_.-]`` made
-``_``).  ``meta.json`` records each leaf's shape, dtype and PartitionSpec;
-the port has no device mesh yet, so every spec is ``null`` and
-``load_checkpoint`` restores onto the target leaf's device.
+``_``).  ``meta.json`` records each leaf's shape, dtype and PartitionSpec.
+
+Elasticity, as in the JAX package: a leaf is stored in full (gathered)
+form.  A per-slot tree (``launch.shardings.shard_tree``'s ``Sharded``
+leaves) is saved by gathering each leaf, with its spec recorded (a list
+of axis entries; ``null`` for a global tensor), so the layout on disk is
+the reference's whatever the mesh.  ``load_checkpoint(shardings=)``
+restores each leaf into the given sharding's per-slot form, on whatever
+mesh that is: a run checkpointed on a (2, 2) mesh restores onto a (1, 4)
+one unchanged.  Without ``shardings`` each leaf is restored onto the
+target leaf's device.
 
 ``AsyncCheckpointer.save`` snapshots every tensor to host memory on the
 caller's thread (a copy: an in-place optimizer step may overwrite the
@@ -36,31 +44,50 @@ def _key_of(path) -> str:
     return "--".join(_SAFE.sub("_", str(p)) for p in path)
 
 
+def _is_sharded(x) -> bool:
+    from ..launch.shardings import Sharded
+    return isinstance(x, Sharded)
+
+
+def _spec_of(leaf):
+    if _is_sharded(leaf):
+        return [list(e) if isinstance(e, tuple) else e
+                for e in leaf.sharding.spec]
+    return None
+
+
 def _host(leaf) -> np.ndarray:
+    if _is_sharded(leaf):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 
-def _flatten_with_paths(tree: Tree) -> Dict[str, np.ndarray]:
-    return {_key_of(path): _host(leaf)
+def _flatten_with_paths(tree: Tree) -> Dict[str, Tuple[np.ndarray, Any]]:
+    """flat key -> (host array, recorded spec)."""
+    return {_key_of(path): (_host(leaf), _spec_of(leaf))
             for path, leaf in pytree.tree_flatten_with_path(tree)[0]}
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree,
                     extra: Optional[Dict] = None) -> str:
     """Write a committed checkpoint; returns its path."""
+    return _write_flat(directory, step, _flatten_with_paths(tree), extra)
+
+
+def _write_flat(directory: str, step: int, flat,
+                extra: Optional[Dict]) -> str:
     path = os.path.join(directory, f"step_{step:08d}")
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
-    flat = _flatten_with_paths(tree)
     meta = {"step": step, "extra": extra or {},
             "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
-                           "pspec": None}
-                       for k, v in flat.items()}}
-    for k, v in flat.items():
+                           "pspec": spec}
+                       for k, (v, spec) in flat.items()}}
+    for k, (v, _) in flat.items():
         np.save(os.path.join(tmp, "arrays", k + ".npy"), v)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -89,25 +116,43 @@ def latest_step(directory: str) -> Optional[int]:
 
 def load_checkpoint(directory: str, step: int, target: Tree,
                     shardings: Optional[Tree] = None) -> Tuple[Tree, Dict]:
-    """Restore into the structure of ``target``: each leaf gets the target
-    leaf's dtype and device.  Returns ``(tree, extra)``.  ``shardings``
-    (the JAX package's elastic re-shard) waits for the LLM mesh."""
-    if shardings is not None:
-        raise NotImplementedError("load_checkpoint(shardings=...): the port "
-                                  "has no LLM device mesh yet")
+    """Restore into the structure of ``target`` (global tensors, ``meta``
+    ones, or ``Sharded`` leaves).  Returns ``(tree, extra)``.  Without
+    ``shardings`` each leaf gets the target leaf's dtype and device; with
+    ``shardings`` (a tree of the target's structure whose leaves are
+    ``NamedSharding``s, or None for a leaf restored as above) a leaf is
+    restored into that sharding's per-slot form, in the target leaf's
+    dtype: the JAX package's elastic re-shard."""
+    from ..launch.mesh import NamedSharding
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     leaves, spec = pytree.tree_flatten_with_path(target)
+    if shardings is None:
+        shard_leaves = [None] * len(leaves)
+    else:
+        shard_leaves = spec.flatten_up_to(shardings)
+        for s in shard_leaves:
+            if s is not None and not isinstance(s, NamedSharding):
+                raise TypeError(f"load_checkpoint(shardings=...): a leaf is "
+                                f"a {type(s).__name__}, not a NamedSharding "
+                                "of a launch.mesh.DeviceMesh")
     out = []
-    for pth, leaf in leaves:
+    for (pth, leaf), sharding in zip(leaves, shard_leaves):
         key = _key_of(pth)
         arr = np.load(os.path.join(path, "arrays", key + ".npy"))
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"target {tuple(leaf.shape)}")
-        out.append(torch.from_numpy(arr).to(device=leaf.device,
-                                            dtype=leaf.dtype))
+        if sharding is not None:
+            from ..launch.shardings import shard_leaf
+            out.append(shard_leaf(torch.from_numpy(arr).to(
+                dtype=leaf.dtype), sharding))
+        else:
+            device = (leaf.parts[0].device if _is_sharded(leaf)
+                      else leaf.device)
+            out.append(torch.from_numpy(arr).to(device=device,
+                                                dtype=leaf.dtype))
     return pytree.tree_unflatten(out, spec), meta["extra"]
 
 
@@ -124,11 +169,11 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Tree, extra: Optional[Dict] = None
              ) -> None:
         self.wait()
-        host_tree = pytree.tree_map(_host, tree)   # snapshot on this thread
+        flat = _flatten_with_paths(tree)     # snapshot on this thread
 
         def _write():
             try:
-                save_checkpoint(self.directory, step, host_tree, extra)
+                _write_flat(self.directory, step, flat, extra)
                 self._gc()
             except BaseException as e:          # surfaced on next wait()
                 self._error = e

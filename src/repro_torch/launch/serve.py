@@ -4,11 +4,17 @@ The counterpart of ``repro.launch.serve`` on one device.  PyTorch runs
 eagerly, so the prefill and the plain decode step are plain functions;
 every tensor stays on the device of the parameters and the prompt.
 
-``jit_decode_step`` is the counterpart of the JAX package's jitted,
-cache-donating step, without its mesh (that comes with the device mesh):
-on a CUDA device it captures the donating decode step
-(``models.decode_step(..., donate=True)``) into one CUDA graph and replays
-it once per step.  ``ServeBundle.generate`` decodes through it.
+``jit_decode_step(cfg, plan, mesh, batch, seq_len)`` is the counterpart
+of the JAX package's jitted, cache-donating step, with its signature.
+With ``mesh=None`` it is the one-device step: on a CUDA device it captures
+the donating decode step (``models.decode_step(..., donate=True)``) into
+one CUDA graph and replays it once per step (:class:`DecodeStep`);
+``ServeBundle.generate`` decodes through it.  With a ``DeviceMesh`` it is
+:class:`MeshDecodeStep`: the params and the cache in per-slot form by
+``params_for`` / ``cache_for``'s shardings, the whole per-slot step
+(``models.sharded.decode_step``) captured once into one graph (every slot
+sits on the one card), the global logits and the sharded cache returned,
+as the reference's ``out_shardings`` say.
 
 The prefill takes the audio family's ``frames`` and the vlm family's
 ``img`` as the JAX package's does.  As there, only ``Session.trace("decode")``
@@ -105,6 +111,9 @@ class DecodeStep:
         self._shapes = [(t.shape, t.dtype) for t in _leaves(
             init_cache(cfg, batch, seq_len, device="meta"))]
         self._step = make_decode_fn(cfg, plan, donate=True, unroll=unroll)
+        self._init_state()
+
+    def _init_state(self) -> None:
         self._scope = obs.next_scope("decode")
         self._lock = threading.Lock()
         self._key: Optional[Tuple] = None
@@ -119,15 +128,25 @@ class DecodeStep:
         return {"traces": int(_TRACES.value(scope=self._scope)),
                 "dispatches": int(_DISPATCHES.value(scope=self._scope))}
 
-    def __call__(self, params, cache, tokens: torch.Tensor, pos):
-        if tokens.shape != (self.batch, 1):
-            raise ValueError(f"decode step for batch {self.batch}: tokens "
-                             f"{tuple(tokens.shape)}, want ({self.batch}, 1)")
+    def _prepare(self, params, cache):
+        """(params, cache, the cache's tensors), the cache checked."""
         leaves = list(_leaves(cache))
         if [(t.shape, t.dtype) for t in leaves] != self._shapes:
             raise ValueError(f"decode step for (batch, seq_len) = "
                              f"({self.batch}, {self.seq_len}): the cache is "
                              "not one that init_cache makes for them")
+        return params, cache, leaves
+
+    def _scratch(self, cache):
+        """A copy of ``cache`` for the warm-up to decode into."""
+        return {"layers": [{k: v.clone() for k, v in e.items()}
+                           for e in cache["layers"]]}
+
+    def __call__(self, params, cache, tokens: torch.Tensor, pos):
+        if tokens.shape != (self.batch, 1):
+            raise ValueError(f"decode step for batch {self.batch}: tokens "
+                             f"{tuple(tokens.shape)}, want ({self.batch}, 1)")
+        params, cache, leaves = self._prepare(params, cache)
         key = (id(params), tokens.dtype, tuple(t.data_ptr() for t in leaves))
         with self._lock:
             traced = key != self._key
@@ -167,8 +186,7 @@ class DecodeStep:
         # the warm-up builds the kernels (a capture cannot); it decodes
         # into a copy of the cache and, like the capture, counts nowhere
         with torch.cuda.stream(side), kernels.capturing() as warm:
-            scratch = {"layers": [{k: v.clone() for k, v in e.items()}
-                                  for e in cache["layers"]]}
+            scratch = self._scratch(cache)
             self._step(params, scratch, self._tokens, self._pos)
         current.wait_stream(side)
         del scratch
@@ -184,12 +202,89 @@ class DecodeStep:
         self._counts = {k: v for k, v in counts.items() if v}
 
 
-def jit_decode_step(cfg: ArchConfig, plan: CelloPlan, batch: int,
+class MeshDecodeStep(DecodeStep):
+    """:class:`DecodeStep` over a ``DeviceMesh``: the step is
+    ``models.sharded.decode_step``, every slot's blocks walked in one
+    capture.  ``params`` come in per-slot form (``shard_tree`` of
+    ``p_shardings``, ``params_for``'s); a global tree raises
+    ``TypeError``, since a copy the step made of it would not see a later
+    in-place update of the caller's tree.  The cache comes in per-slot
+    form (``cache_for``'s shardings, ``c_shardings``) and is written in
+    place, or global, which the step shards into a new per-slot cache
+    that it returns.  The logits are global, on slot 0.  ``exchanged``
+    holds the bytes one step's exchanges move, by kind
+    (``DeviceMesh.exchanged``), counted when the step's Python runs: every
+    step on the CPU, the warm-up and the capture on a card (a replay moves
+    the same bytes)."""
+
+    def __init__(self, cfg: ArchConfig, plan: CelloPlan, mesh, batch: int,
+                 seq_len: int, *, unroll: bool = False):
+        from ..models import sharded
+        from . import shardings as shd
+        self.cfg, self.plan, self.mesh = cfg, plan, mesh
+        self.batch, self.seq_len = batch, seq_len
+        _, self.p_shardings = shd.params_for(cfg, mesh)
+        c_shapes, self.c_shardings = shd.cache_for(cfg, mesh, batch, seq_len)
+        self._want = [(t.sharding, tuple(t.shape), t.dtype)
+                      for t in shd.tree_leaves(c_shapes)]
+
+        def step(params, cache, tokens, pos):
+            before = dict(mesh.exchanged)
+            out = sharded.decode_step(params, cache, cfg, plan, tokens, pos)
+            self.exchanged = {k: mesh.exchanged[k] - before[k]
+                              for k in before}
+            return out
+        self._step = step
+        self.exchanged: Dict[str, int] = {}
+        self._init_state()
+
+    def _prepare(self, params, cache):
+        from . import shardings as shd
+        if not isinstance(params["embed"], shd.Sharded):
+            raise TypeError("the mesh decode step takes per-slot params: "
+                            "shard them once with launch.shardings."
+                            "shard_tree(params, step.p_shardings)")
+        leaves = shd.tree_leaves(cache, lambda x: isinstance(x, shd.Sharded))
+        if leaves and not isinstance(leaves[0], shd.Sharded):
+            cache = shd.shard_tree(cache, self.c_shardings)
+            leaves = shd.tree_leaves(cache,
+                                     lambda x: isinstance(x, shd.Sharded))
+        if [(s.sharding, s.shape, s.dtype) for s in leaves] != self._want:
+            raise ValueError(f"decode step for (batch, seq_len) = "
+                             f"({self.batch}, {self.seq_len}) on {self.mesh}:"
+                             " the cache is not one that cache_for shards "
+                             "for them")
+        return params, cache, [p for s in leaves for p in s.parts]
+
+    def _scratch(self, cache):
+        from . import shardings as shd
+        return shd.map_tree(
+            lambda s: shd.Sharded([p.clone() for p in s.parts], s.sharding,
+                                  s.shape), cache,
+            is_leaf=lambda x: isinstance(x, shd.Sharded))
+
+
+def jit_decode_step(cfg: ArchConfig, plan: CelloPlan, mesh, batch: int,
                     seq_len: int, *, unroll: bool = False) -> DecodeStep:
     """The decode step ``(params, cache, tokens, pos) -> (logits, cache)``
-    for ``batch`` sequences and a cache of ``seq_len`` positions: the
-    donating step, one CUDA-graph replay a step (:class:`DecodeStep`)."""
-    return DecodeStep(cfg, plan, batch, seq_len, unroll=unroll)
+    for ``batch`` sequences and a cache of ``seq_len`` positions, the
+    cache donated: one CUDA-graph replay a step.  ``mesh`` is None (one
+    device, :class:`DecodeStep`) or a ``launch.mesh.DeviceMesh``
+    (:class:`MeshDecodeStep`); anything else raises ``TypeError`` — a
+    call in the pre-mesh form ``(cfg, plan, batch, seq_len)`` would
+    otherwise take the batch for the mesh."""
+    from .mesh import DeviceMesh
+    for name, v in (("batch", batch), ("seq_len", seq_len)):
+        if isinstance(v, bool) or not isinstance(v, int):
+            raise TypeError(f"jit_decode_step: {name} must be an int, got "
+                            f"{type(v).__name__}")
+    if mesh is None:
+        return DecodeStep(cfg, plan, batch, seq_len, unroll=unroll)
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"jit_decode_step: mesh must be a DeviceMesh or "
+                        f"None, got {type(mesh).__name__} (the signature is "
+                        "(cfg, plan, mesh, batch, seq_len))")
+    return MeshDecodeStep(cfg, plan, mesh, batch, seq_len, unroll=unroll)
 
 
 def greedy_generate(params, cfg: ArchConfig, plan: CelloPlan,
@@ -233,10 +328,11 @@ def reset_cache(cache) -> None:
 class ServeBundle:
     """Serving entry points bound to one (cfg, plan) pair, produced by
     ``repro_torch.api.CompiledPlan.serve()``.  It keeps one decode step
-    (``jit_decode``) and one cache per (batch, cache_len), and ``generate``
-    decodes through them, resetting the cache first: a second ``generate``
-    of the same shape on the same params captures nothing.  ``unroll`` is
-    passed to every function the bundle makes (see the module docstring)."""
+    per (mesh, batch, cache_len) (``jit_decode``) and one cache per
+    (batch, cache_len), and ``generate`` decodes through the ``mesh=None``
+    steps, resetting the cache first: a second ``generate`` of the same
+    shape on the same params captures nothing.  ``unroll`` is passed to
+    every function the bundle makes (see the module docstring)."""
     cfg: ArchConfig
     plan: CelloPlan
     unroll: bool = False
@@ -255,20 +351,22 @@ class ServeBundle:
     def decode_fn(self):
         return make_decode_fn(self.cfg, self.plan, unroll=self.unroll)
 
-    def jit_decode(self, batch: int, seq_len: int) -> DecodeStep:
-        """The bundle's decode step for (batch, seq_len), made once."""
+    def jit_decode(self, mesh, batch: int, seq_len: int) -> DecodeStep:
+        """The bundle's decode step for (mesh, batch, seq_len), made once
+        (``jit_decode_step``'s arguments and errors)."""
         with self._lock:
-            step = self._steps.get((batch, seq_len))
+            step = self._steps.get((mesh, batch, seq_len))
             if step is None:
-                step = self._steps[batch, seq_len] = jit_decode_step(
-                    self.cfg, self.plan, batch, seq_len, unroll=self.unroll)
+                step = self._steps[mesh, batch, seq_len] = jit_decode_step(
+                    self.cfg, self.plan, mesh, batch, seq_len,
+                    unroll=self.unroll)
             return step
 
     def generate(self, params, prompt: torch.Tensor, n_new: int,
                  cache_len: Optional[int] = None) -> torch.Tensor:
         B, Plen = prompt.shape
         Z = cache_len or (Plen + n_new)
-        step = self.jit_decode(B, Z)
+        step = self.jit_decode(None, B, Z)
         key = (B, Z, str(prompt.device))
         with self._lock:
             cache = self._caches.get(key)

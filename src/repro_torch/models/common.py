@@ -1,9 +1,23 @@
-"""Shared model utilities: dtype policy, RoPE, activations, RMSNorm, and
-the remat tags.
+"""Shared model utilities: the mesh context, dtype policy, RoPE,
+activations, RMSNorm, and the remat tags.
 
-The counterparts of ``repro.models.common`` for one device.  The mesh
-helpers (``constrain``, ``set_mesh_context``) are not ported: the port has
-no LLM device mesh yet.
+The counterparts of ``repro.models.common``.  Sharding uses *logical*
+axis names resolved through a per-thread context (``set_mesh_context``),
+or against a mesh passed in (``launch.shardings``), with the JAX package's
+table (``repro/models/common.py:29-40``):
+
+    logical axis   single-pod          multi-pod
+    "batch"     -> ("data",)        -> ("pod", "data")
+    "model"     -> "model"          -> "model"
+    "data"      -> ("data",)        -> ("pod", "data")
+
+``pspec`` and ``named_sharding`` build the port's ``PartitionSpec`` and
+``NamedSharding`` (``launch.mesh``) from logical names.  ``constrain`` places
+nothing: the JAX package hands its constraint to GSPMD, which partitions
+the program, while the port has no partitioner — ``models.sharded`` walks
+the mesh's slots itself, each slot computing on its own shards — so here
+it only checks the logical axes against the tensor's shape and returns
+the tensor.
 
 ``tag`` is the counterpart of ``checkpoint_name``: an identity op
 (``repro_torch::tag``, registered with ``torch.library``) that carries a
@@ -13,6 +27,7 @@ checkpointing and recompute the rest.
 """
 from __future__ import annotations
 
+import threading
 from typing import Iterable
 
 import torch
@@ -22,6 +37,72 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
+
+_CTX = threading.local()
+
+
+# ---------------------------------------------------------------------------
+# mesh context
+# ---------------------------------------------------------------------------
+
+def logical_axes(mesh) -> dict:
+    """The table above for ``mesh``'s axis names: each logical axis's
+    mesh axes (None where the mesh lacks them)."""
+    data = mesh.data_axes or None
+    return {"batch": data, "data": data,
+            "model": "model" if "model" in mesh.axis_names else None}
+
+
+def set_mesh_context(mesh) -> None:
+    """Make ``mesh`` (a ``launch.mesh.DeviceMesh``, or None) the calling
+    thread's mesh, and resolve the logical axes against its names."""
+    _CTX.mesh = mesh
+    _CTX.axes = {} if mesh is None else logical_axes(mesh)
+
+
+def get_mesh():
+    return getattr(_CTX, "mesh", None)
+
+
+def resolve_axis(name, mesh=None):
+    """The mesh axes of the logical axis ``name`` under the calling
+    thread's mesh (None outside the table), or under ``mesh`` when one is
+    given: then a name outside the table is already mesh axes (a ZeRO-1
+    spec's ``("data",)``) and passes as it is, as ``launch.shardings``
+    resolves spec trees."""
+    if name is None:
+        return None
+    if mesh is None:
+        return getattr(_CTX, "axes", {}).get(name)
+    return logical_axes(mesh).get(name, name)
+
+
+def pspec(*logical):
+    """The ``PartitionSpec`` of the logical axes under the current mesh."""
+    from ..launch.mesh import PartitionSpec
+    return PartitionSpec(*(resolve_axis(a) for a in logical))
+
+
+def constrain(x: torch.Tensor, *logical) -> torch.Tensor:
+    """``x``, unchanged (see the module docstring).  With a mesh, more
+    logical axes than ``x`` has dimensions raise ``ValueError``, as the
+    JAX one's constraint does; an axis whose mesh extent does not divide
+    its dimension would be left unsplit there (recurrentgemma's 10 heads
+    do not split 16 ways), which here is nothing to do."""
+    if get_mesh() is not None and len(logical) > x.dim():
+        raise ValueError(f"{len(logical)} logical axes for a tensor of "
+                         f"{x.dim()} dimensions")
+    return x
+
+
+def named_sharding(*logical):
+    """The ``NamedSharding`` of the logical axes under the current mesh;
+    None without one."""
+    mesh = get_mesh()
+    if mesh is None:
+        return None
+    from ..launch.mesh import NamedSharding
+    return NamedSharding(mesh, pspec(*logical))
 
 
 def dense_init(gen: torch.Generator, shape, scale: float, device,

@@ -16,12 +16,14 @@ there, so none does here.  Nothing in ``apply_moe`` reads a device value
 on the host (no ``nonzero``, boolean-mask indexing or ``.item()``), so a
 decode step through it can be captured in a CUDA graph: the buffer is
 filled with ``index_copy_`` and read back by gather, with every dropped
-pair sent to a spare slot ``C`` that is never read.
+pair sent to a spare block that is never read.  ``expert_share`` is that
+body for a range of experts, so that a mesh's model slots
+(``models.sharded``) each run their experts' share of it.
 
 Under autograd the same ops carry the JAX package's gradients: the
 router's through the renormalised gates (``topk`` passes its values'
 gradient to the softmax), a kept pair's input through the buffer
-(``index_copy_``'s backward gathers the rows it wrote; the spare slot is
+(``index_copy_``'s backward gathers the rows it wrote; the spare block is
 sliced off, so a dropped pair gets zero, as JAX's ``where(keep, ·, 0)``
 gives it) and the experts' outputs through the combine gather.  The
 router logits and the experts' hidden tensor carry the JAX package's
@@ -29,7 +31,7 @@ remat tags, ``router_logits`` and ``mlp_hidden``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -55,6 +57,15 @@ def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
         p["w_gate"] = dense_init(gen, (n_experts, d_model, d_ff), s_in,
                                  device, dtype)
     return p
+
+
+def moe_pspecs(activation: str) -> Dict[str, tuple]:
+    """Logical PartitionSpec per param (expert axis on "model")."""
+    specs = {"w_router": (None, None), "w_up": ("model", None, None),
+             "w_down": ("model", None, None)}
+    if is_gated(activation):
+        specs["w_gate"] = ("model", None, None)
+    return specs
 
 
 class Routing(NamedTuple):
@@ -94,28 +105,38 @@ def route(w_router: torch.Tensor, x: torch.Tensor, *, top_k: int,
     return Routing(gates, idx, torch.clamp(pos, 0, C - 1), keep, C)
 
 
-def apply_moe(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
-              top_k: int, activation: str,
-              capacity_factor: float = 1.25) -> torch.Tensor:
-    """x: (tokens, d_model) -> (tokens, d_model), in x's dtype."""
+def expert_share(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 r: Routing, *, activation: str, first: int = 0,
+                 n_local: Optional[int] = None) -> torch.Tensor:
+    """The experts ``[first, first + n_local)``'s share of the FFN on
+    routes ``r``: the (token, k) pairs routed to them dispatched into
+    their buffer, their products, and the combine's gated products
+    ``(T, top_k, D)`` in bf16, zero for the pairs they do not hold.
+    ``params`` holds those experts' weights (all ``E`` of them by
+    default).  ``apply_moe`` sums it over k; ``models.sharded`` sums the
+    model slots' shares first, each slot holding ``E/TP`` experts."""
     T, D = x.shape
-    E = params["w_router"].shape[1]
-    act = activation_fn(activation)
-    r = route(params["w_router"], x, top_k=top_k,
-              capacity_factor=capacity_factor)
+    top_k = r.idx.shape[1]
     C = r.capacity
+    if n_local is None:
+        n_local = params["w_up"].shape[0]
+    act = activation_fn(activation)
     flat_e = r.idx.reshape(T * top_k)
+    mine = (flat_e >= first) & (flat_e < first + n_local)
+    held = mine & r.keep
+    e_loc = torch.where(mine, flat_e - first, torch.zeros_like(flat_e))
 
     # dispatch: pair t·k + j lands in row (expert, slot) of the buffer; a
-    # dropped pair lands in the expert's spare slot C, which is never read,
-    # so every kept row is written once and the copy is exact
-    row = flat_e * (C + 1) + torch.where(r.keep, r.slot,
-                                         torch.full_like(r.slot, C))
+    # pair not held here lands in the spare block past the experts' rows,
+    # which is never read, so every held row is written once and the copy
+    # is exact
+    row = torch.where(held, e_loc * (C + 1) + r.slot,
+                      torch.full_like(r.slot, n_local * (C + 1)))
     xk = x.to(COMPUTE_DTYPE).repeat_interleave(top_k, dim=0)  # (T*k, D)
-    buf = torch.zeros((E * (C + 1), D), dtype=COMPUTE_DTYPE,
+    buf = torch.zeros(((n_local + 1) * (C + 1), D), dtype=COMPUTE_DTYPE,
                       device=x.device)
     buf.index_copy_(0, row, xk)
-    buf = buf.view(E, C + 1, D)[:, :C]                         # (E, C, D)
+    buf = buf.view(n_local + 1, C + 1, D)[:n_local, :C]       # (E, C, D)
 
     # the experts, batched over E
     up = torch.bmm(buf, bf16(params["w_up"]))
@@ -127,8 +148,17 @@ def apply_moe(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     h = tag(h, "mlp_hidden")
     out_buf = torch.bmm(h, bf16(params["w_down"]))             # (E, C, D)
 
-    # combine: each pair reads its row back, dropped pairs give zero
-    y = out_buf[flat_e, r.slot]                                # (T*k, D)
-    y = torch.where(r.keep[:, None], y, torch.zeros_like(y))
-    y = y.reshape(T, top_k, D) * r.gates[..., None].to(COMPUTE_DTYPE)
+    # combine: each held pair reads its row back, the others give zero
+    y = out_buf[e_loc, r.slot]                                 # (T*k, D)
+    y = torch.where(held[:, None], y, torch.zeros_like(y))
+    return y.reshape(T, top_k, D) * r.gates[..., None].to(COMPUTE_DTYPE)
+
+
+def apply_moe(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+              top_k: int, activation: str,
+              capacity_factor: float = 1.25) -> torch.Tensor:
+    """x: (tokens, d_model) -> (tokens, d_model), in x's dtype."""
+    r = route(params["w_router"], x, top_k=top_k,
+              capacity_factor=capacity_factor)
+    y = expert_share(params, x, r, activation=activation)
     return y.sum(dim=1).to(x.dtype)

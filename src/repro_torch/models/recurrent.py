@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.models.recurrent``.  Both expose a
 full-sequence form (prefill and training) and a single-step form (decode)
-that carries the recurrent state.  The mesh helpers (``*_pspecs``,
-``constrain``) are not ported: the port has no LLM device mesh yet.  The
+that carries the recurrent state, and the logical PartitionSpecs of
+their parameters (``rglru_pspecs``: channels on "model"; ``rwkv_pspecs``:
+heads on "model"), which ``models.sharded`` splits them by.  The
 scan's output is tagged ``rnn_state`` where the JAX package tags it, so a
 remat policy that names it keeps it.
 
@@ -49,6 +50,13 @@ def init_rglru_params(gen: torch.Generator, d_model: int, dtype, *,
         "w_out": dense_init(gen, (D, D), s, device, dtype),
         "a_param": a_param.mul_(0.2).add_(0.9),       # uniform [0.9, 1.1)
     }
+
+
+def rglru_pspecs() -> Dict[str, tuple]:
+    # channel dim sharded on "model": the recurrence is elementwise in d
+    return {"w_x": (None, "model"), "w_gate_r": (None, "model"),
+            "w_gate_i": (None, "model"), "w_out": ("model", None),
+            "a_param": ("model",)}
 
 
 def apply_rglru_seq(params, x: torch.Tensor, h0=None
@@ -102,6 +110,14 @@ def init_rwkv_params(gen: torch.Generator, d_model: int, n_heads: int, dtype,
     }
 
 
+def rwkv_pspecs() -> Dict[str, tuple]:
+    # head dim sharded on "model" (heads are independent in the recurrence)
+    return {"w_r": (None, "model"), "w_k": (None, "model"),
+            "w_v": (None, "model"), "w_w": (None, "model"),
+            "w_o": ("model", None), "u": ("model", None),
+            "w_bias": ("model",)}
+
+
 def _split_heads(t: torch.Tensor, H: int) -> torch.Tensor:
     """(B,S,D) -> (B,H,S,E), a view (the B9 kernel takes its strides)."""
     B, S, D = t.shape
@@ -110,7 +126,10 @@ def _split_heads(t: torch.Tensor, H: int) -> torch.Tensor:
 
 def apply_rwkv_seq(params, x: torch.Tensor, n_heads: int, s0=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> (y: (B,S,D), sT: (B,H,E,E) fp32)."""
+    """x: (B,S,D) -> (y: (B,S,D), sT: (B,H,E,E) fp32).  ``params`` may
+    hold a slot's share of the heads (``n_heads`` of them, the projections'
+    columns and ``w_o``'s rows theirs): ``y`` is then that share's part of
+    the output."""
     B, S, D = x.shape
     xc = x.to(COMPUTE_DTYPE)
     r = _split_heads(xc @ bf16(params["w_r"]), n_heads)
@@ -120,7 +139,7 @@ def apply_rwkv_seq(params, x: torch.Tensor, n_heads: int, s0=None
                      + params["w_bias"].float(), n_heads)
     y, sT = WKV6Fn.apply(r, k, v, w, params["u"], s0)
     y = tag(y, "rnn_state")
-    y = y.transpose(1, 2).reshape(B, S, D)
+    y = y.transpose(1, 2).reshape(B, S, -1)
     out = y.to(COMPUTE_DTYPE) @ bf16(params["w_o"])
     return out.to(x.dtype), sT
 
@@ -130,9 +149,10 @@ def apply_rwkv_step(params, x: torch.Tensor, s: torch.Tensor, n_heads: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,1,D), s: (B,H,E,E) -> (y: (B,1,D), s').  ``donate`` writes s'
     into ``s`` in place (the same roundings, so the same bits) and returns
-    it."""
-    B, _, D = x.shape
-    E = D // n_heads
+    it.  ``params`` may hold a slot's share of the heads, as in
+    :func:`apply_rwkv_seq`."""
+    B = x.shape[0]
+    E = params["u"].shape[-1]
     xc = x[:, 0].to(COMPUTE_DTYPE)
     r = (xc @ bf16(params["w_r"])).reshape(B, n_heads, E)
     k = (xc @ bf16(params["w_k"])).reshape(B, n_heads, E)
@@ -148,6 +168,6 @@ def apply_rwkv_step(params, x: torch.Tensor, s: torch.Tensor, n_heads: int,
         s_new = s.mul_(decay[..., :, None]).add_(kv)
     else:
         s_new = decay[..., :, None] * s + kv
-    y = y.reshape(B, 1, D).to(COMPUTE_DTYPE)
+    y = y.reshape(B, 1, n_heads * E).to(COMPUTE_DTYPE)
     out = y @ bf16(params["w_o"])
     return out.to(x.dtype), s_new

@@ -69,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import operator
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -79,9 +80,10 @@ from .attention import naive_attention
 from .autograd import FlashAttentionFn, FusedMLPFn, RMSNormFn, plain_mlp
 from .common import (COMPUTE_DTYPE, PARAM_DTYPE, apply_rope, bf16,
                      dense_init, is_gated, rms_norm, tag)
-from .moe import apply_moe, init_moe_params
+from .moe import apply_moe, init_moe_params, moe_pspecs
 from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
-                        apply_rwkv_step, init_rglru_params, init_rwkv_params)
+                        apply_rwkv_step, init_rglru_params, init_rwkv_params,
+                        rglru_pspecs, rwkv_pspecs)
 
 Params = Dict[str, Any]
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
@@ -151,14 +153,50 @@ def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str, *,
     return p
 
 
+def block_pspecs(cfg: ArchConfig, kind: str) -> Params:
+    """Logical PartitionSpecs of one block's parameters
+    (``repro/models/transformer.py:104``): attention's q/k/v columns and
+    o rows on "model" (heads), the MLP's hidden columns, the MoE's
+    experts, the RG-LRU's channels and the RWKV's heads."""
+    p: Params = {"ln1": (None,), "ln2": (None,)}
+    if kind in ("attn", "xattn"):
+        p["attn"] = {"wq": (None, "model"), "wk": (None, "model"),
+                     "wv": (None, "model"), "wo": ("model", None)}
+    elif kind == "rglru":
+        p["rglru"] = rglru_pspecs()
+    elif kind == "rwkv":
+        p["rwkv"] = rwkv_pspecs()
+    if cfg.is_moe:
+        p["moe"] = moe_pspecs(cfg.activation)
+    else:
+        p["mlp"] = {"w_up": (None, "model"), "w_down": ("model", None)}
+        if is_gated(cfg.activation):
+            p["mlp"]["w_gate"] = (None, "model")
+    return p
+
+
+def param_pspecs(cfg: ArchConfig) -> Params:
+    """Logical PartitionSpec tree matching ``init_params``'s structure,
+    one entry a layer (the JAX package's ``param_pspecs``, ``:147``, on its
+    stacked layout; ``models.convert.pspecs_from_reference`` carries that
+    into this one)."""
+    return {"embed": ("model", None), "final_norm": (None,),
+            "lm_head": (None, "model"),
+            "layers": [block_pspecs(cfg, kind) for kind in cfg.layer_kinds()]}
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
                 dtype=PARAM_DTYPE) -> Params:
     """Random weights from ``seed``, with the JAX package's shapes and
     scales (its numbers differ: a ``torch.Generator`` on ``device`` draws
-    them).  ``device`` is ``"cuda"`` unless the caller asks for the CPU."""
+    them).  ``device`` is ``"cuda"`` unless the caller asks for the CPU.
+    On ``"meta"`` it builds the shapes and dtypes without allocation (no
+    generator exists there; the draws take none)."""
     _check_family(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     D = cfg.d_model
     params: Params = {
         "embed": dense_init(gen, (cfg.padded_vocab, D), D ** -0.5, device,
@@ -233,28 +271,41 @@ def _norm(x, w, cfg: ArchConfig, plan: CelloPlan):
     return rms_norm(x, w, cfg.norm_eps)
 
 
+def residual_layer(x, p, *, norm, mixer, ffn, add=operator.add, mid=None):
+    """The pre-norm residual layer every family runs: ``x1 = x +
+    mixer(norm(x, p["ln1"]))`` (then ``mid(x1)``, the remat tag), and
+    ``x1 + ffn(norm(x1, p["ln2"]))``.  Returns (that, the mixer's second
+    result).  The unsharded model calls it on one tensor; ``models.sharded``
+    on its slots' list of tensors, with an elementwise ``add`` and
+    ``norm`` and a mixer and ffn that exchange between the slots."""
+    y, entry = mixer(norm(x, p["ln1"]))
+    x = add(x, y)
+    if mid is not None:
+        x = mid(x)
+    return add(x, ffn(norm(x, p["ln2"]))), entry
+
+
 def apply_block(p, x, kind: str, *, cfg: ArchConfig, plan: CelloPlan,
                 positions: torch.Tensor,
                 img: Optional[torch.Tensor] = None):
     """Full-sequence block of ``kind``.  Returns (x_out, cache entry):
     (k, v), hT or sT.  An ``xattn`` block attends to ``img``; an
     encoder-only arch's blocks attend both ways, without rope."""
-    h = _norm(x, p["ln1"], cfg, plan)
-    if kind in ("attn", "xattn"):
-        y, entry = _attend(p["attn"], h, cfg=cfg, plan=plan,
+    def mixer(h):
+        if kind in ("attn", "xattn"):
+            return _attend(p["attn"], h, cfg=cfg, plan=plan,
                            causal=(not cfg.encoder_only) and kind == "attn",
                            img=img if kind == "xattn" else None,
                            rope=not cfg.encoder_only, positions=positions)
-    elif kind == "rglru":
-        y, entry = apply_rglru_seq(p["rglru"], h)
-    elif kind == "rwkv":
-        y, entry = apply_rwkv_seq(p["rwkv"], h, cfg.n_heads)
-    else:
+        if kind == "rglru":
+            return apply_rglru_seq(p["rglru"], h)
+        if kind == "rwkv":
+            return apply_rwkv_seq(p["rwkv"], h, cfg.n_heads)
         raise ValueError(kind)
-    x = tag(x + y, "x_mid")
-    h2 = _norm(x, p["ln2"], cfg, plan)
-    x = x + _mlp(p, h2, cfg, plan)
-    return x, entry
+    return residual_layer(x, p, norm=functools.partial(_norm, cfg=cfg,
+                                                       plan=plan),
+                          mixer=mixer, ffn=lambda h: _mlp(p, h, cfg, plan),
+                          mid=lambda t: tag(t, "x_mid"))
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +414,39 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     return {"layers": [entry(kind) for kind in cfg.layer_kinds()]}
 
 
+def cache_pspecs(cfg: ArchConfig, batch: int, *, seq_len: int = 0,
+                 tp: int = 16) -> Dict[str, List[Dict[str, tuple]]]:
+    """Logical pspecs of the cache, one entry a layer
+    (``repro/models/transformer.py:399``).
+
+    Batch shards on "batch" when it is more than 1; the TP axis goes on
+    the kv-head dim when kv_heads % tp == 0, otherwise on the
+    cache-length dim when ``seq_len`` is given and its length divides
+    (sequence-sharded KV), else nowhere."""
+    batch_axis = "batch" if batch > 1 else None
+    spec = CacheSpec(cfg, seq_len or cfg.window or 1)
+
+    def kv_spec(kind: str):
+        Z = spec.z_for(kind) if seq_len else 0
+        if cfg.n_kv_heads % tp == 0:
+            return (batch_axis, None, "model", None)
+        if Z and Z % tp == 0:
+            return (batch_axis, "model", None, None)
+        return (batch_axis, None, None, None)
+
+    def entry(kind: str):
+        if kind in ("attn", "xattn"):
+            return {"k": kv_spec(kind), "v": kv_spec(kind),
+                    "pos_idx": (None,)}
+        if kind == "rglru":
+            return {"h": (batch_axis, "model")}
+        if kind == "rwkv":
+            return {"s": (batch_axis, "model", None, None)}
+        raise ValueError(kind)
+
+    return {"layers": [entry(kind) for kind in cfg.layer_kinds()]}
+
+
 def _position(pos, device) -> torch.Tensor:
     """``pos`` as a 0-d int32 tensor on ``device``: a host int becomes a
     fill on the device (a tensor from a host value would copy from pageable
@@ -424,24 +508,22 @@ def _decode_attend(a, cache, h, pos: torch.Tensor, *, cfg: ArchConfig,
 
 def _decode_block(p, cache, x, kind: str, pos: torch.Tensor, *,
                   cfg: ArchConfig, plan: CelloPlan, donate: bool):
-    h = _norm(x, p["ln1"], cfg, plan)
-    if kind in ("attn", "xattn"):
-        y, new_cache = _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
-                                      plan=plan, donate=donate)
-    elif kind == "rglru":
-        y, h_new = apply_rglru_step(p["rglru"], h, cache["h"],
-                                    donate=donate)
-        new_cache = cache if donate else {"h": h_new}
-    elif kind == "rwkv":
-        y, s_new = apply_rwkv_step(p["rwkv"], h, cache["s"], cfg.n_heads,
-                                   donate=donate)
-        new_cache = cache if donate else {"s": s_new}
-    else:
+    def mixer(h):
+        if kind in ("attn", "xattn"):
+            return _decode_attend(p["attn"], cache, h, pos, cfg=cfg,
+                                  plan=plan, donate=donate)
+        if kind == "rglru":
+            y, h_new = apply_rglru_step(p["rglru"], h, cache["h"],
+                                        donate=donate)
+            return y, (cache if donate else {"h": h_new})
+        if kind == "rwkv":
+            y, s_new = apply_rwkv_step(p["rwkv"], h, cache["s"],
+                                       cfg.n_heads, donate=donate)
+            return y, (cache if donate else {"s": s_new})
         raise ValueError(kind)
-    x = x + y
-    h2 = _norm(x, p["ln2"], cfg, plan)
-    x = x + _mlp(p, h2, cfg, plan)
-    return x, new_cache
+    return residual_layer(x, p, norm=functools.partial(_norm, cfg=cfg,
+                                                       plan=plan),
+                          mixer=mixer, ffn=lambda h: _mlp(p, h, cfg, plan))
 
 
 def decode_step(params, cache, cfg: ArchConfig, plan: CelloPlan,

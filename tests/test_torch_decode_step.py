@@ -195,7 +195,7 @@ def test_generate_through_the_step_matches_jax(arch, flags):
     bundle = Session(arch["pcfg"], device="cpu").default_plan(seq=64)
     bundle = dataclasses.replace(bundle, plan=pplan).serve()
     first = bundle.generate(arch["pparams"], torch.from_numpy(prompt), 32)
-    step = bundle.jit_decode(4, 48)
+    step = bundle.jit_decode(None, 4, 48)
     assert step.stats == {"traces": 1, "dispatches": 47}
     again = bundle.generate(arch["pparams"], torch.from_numpy(prompt), 32)
     assert step.stats == {"traces": 1, "dispatches": 94}
@@ -208,7 +208,7 @@ def test_generate_through_the_step_matches_jax(arch, flags):
 def test_step_traces_once_per_params_and_cache(arch):
     _, pplan = _plans(arch, False)
     cfg, params = arch["pcfg"], arch["pparams"]
-    step = jit_decode_step(cfg, pplan, 2, CACHE_LEN)
+    step = jit_decode_step(cfg, pplan, None, 2, CACHE_LEN)
     assert step.stats == {"traces": 0, "dispatches": 0}
     tok = torch.from_numpy(_tokens(arch, (2, 1), 4))
     c1 = init_cache(cfg, 2, CACHE_LEN, device="cpu")

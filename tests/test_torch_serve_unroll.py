@@ -60,8 +60,8 @@ def test_unroll_changes_no_output(arch, kind):
     toks = rolled.generate(params, prompt, 4)
     assert torch.equal(toks, unrolled.generate(params, prompt, 4))
     # the bundle's decode step carries the keyword into its step function
-    step = unrolled.jit_decode(2, 10)
-    assert step is unrolled.jit_decode(2, 10)
+    step = unrolled.jit_decode(None, 2, 10)
+    assert step is unrolled.jit_decode(None, 2, 10)
     cache = pt_serve.init_cache(cfg, 2, 10, device="cpu")
     cache_u = pt_serve.init_cache(cfg, 2, 10, device="cpu")
     tok = prompt[:, :1]
@@ -69,7 +69,8 @@ def test_unroll_changes_no_output(arch, kind):
     b, _ = pt_serve.make_decode_fn(cfg, compiled.plan, unroll=True)(
         params, cache_u, tok, 0)
     assert torch.equal(a, b)
-    c, _ = pt_serve.jit_decode_step(cfg, compiled.plan, 2, 10, unroll=True)(
+    c, _ = pt_serve.jit_decode_step(cfg, compiled.plan, None, 2, 10,
+                                    unroll=True)(
         params, pt_serve.init_cache(cfg, 2, 10, device="cpu"), tok, 0)
     assert torch.equal(a, c)
     assert torch.equal(

@@ -336,5 +336,5 @@ def test_checkpoint_commit_protocol_and_async_writer(tmp_path):
                        snap)
     with pytest.raises(ValueError, match="shape"):
         checkpoint.load_checkpoint(d, 3, bad)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         checkpoint.load_checkpoint(d, 3, snap, shardings=snap)
