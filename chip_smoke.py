@@ -218,7 +218,19 @@ Phases, each of which raises (exit code 1) on failure:
    replayed), recurrentgemma (B8; its attention on the gather fallback),
    rwkv6 (B9), hubert (prefill) and llama-vision (an ``xattn`` layer),
    each sharded prefill and decode step against the unsharded one at the
-   same depth.  No speed is claimed: the slots share one card.
+   same depth.  No speed is claimed: the slots share one card;
+13. the dry run (``launch/dryrun.py``): (a) granite-3-8b's decode_32k and
+   prefill_32k cells on the 16 x 16 meta mesh at ``TRAIN_LAYERS`` of 40
+   layers, walked by child processes that see no card (started with the
+   run), the kernels' calls as ``mesh_launches`` predicts for 256 slots,
+   the roofline terms on the H100 data-sheet peaks and the peak estimate
+   against 80 GB printed; (b) phase 12's three steps (prefill, decode
+   step, ZeRO-1 train step on ``make_local_mesh(2, 2)``) walked on meta
+   and eagerly on the card under one ``CostCounter``: contraction flops,
+   every kernel's work, the exchanges by kind and the argument bytes
+   equal, the card's launches the kernels' calls, the card's memory
+   within ``MEMORY_BAND`` of the meta estimate, each step's time beside
+   its bound on one card.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -244,11 +256,13 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the non-tensor
-#: fp32 / fp64 rates and the dense tensor-core rates (bf16, TF32)
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12,
-              "tf32": 495e12}
+from repro_torch.launch.roofline import H100  # noqa: E402
+
+#: H100 SXM peaks (NVIDIA data sheet, ``launch/roofline.py``'s ``H100``
+#: row): HBM3 bandwidth, the non-tensor fp32 / fp64 rates and the dense
+#: tensor-core rates (bf16, TF32)
+PEAK_BYTES_S = H100.hbm_bw
+PEAK_FLOPS = dict(H100.flops)
 #: timed run() calls per main path
 RUN_REPS = 10
 #: the overbooked cells: a banded operand whose CSR triple (35.1 MB in
@@ -1264,6 +1278,7 @@ def check_rmsnorm(results, d=4096, eps=1e-6):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import work as rmsnorm_work
     rng = np.random.default_rng(21)
     w = _rand(rng, (d,), torch.float32, 0.1)
     both = ("float32", "bfloat16")
@@ -1281,25 +1296,12 @@ def check_rmsnorm(results, d=4096, eps=1e-6):
             times = measure(lambda: rmsnorm(x, w, eps=eps),
                             lambda: rmsnorm_plain(x, w, eps=eps),
                             lambda: F.rms_norm(x, (d,), w1, eps))
-            nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+            flops, nbytes = rmsnorm_work(x, w)
             record(results, "B7 rmsnorm", kernel="rmsnorm",
                    case=f"rows={rows} d={d}", dtype=dt, err=err,
                    rel_err=rel, tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=4 * x.numel(), times=times, peak="float32")
-
-
-def _attn_pairs(S, T, causal, window):
-    """(query, key) pairs that the mask keeps: the products the data needs."""
-    import torch
-    qi = torch.arange(S)[:, None] + (T - S)
-    kj = torch.arange(T)[None, :]
-    keep = torch.ones(S, T, dtype=torch.bool)
-    if causal:
-        keep &= kj <= qi
-    if window is not None:
-        keep &= kj > qi - window
-    return int(keep.sum())
+                   flops=flops, times=times, peak="float32")
 
 
 #: B5's arithmetic per operand type, and the peak that bounds it: bf16 on
@@ -1337,6 +1339,7 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import work as flash_work
     rng = np.random.default_rng(22)
     for B, dt in ((B, "float32"), (B, "bfloat16"),
                   (TRAIN_BATCH, "bfloat16")):
@@ -1354,16 +1357,14 @@ def check_flash(results, B=1, H=32, KVH=8, S=PREFILL_SEQ, E=128):
             lambda: flash_attention(q, k, v, causal=True),
             lambda: flash_attention_plain(q, k, v, causal=True),
             lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True))
-        pairs = _attn_pairs(S, S, True, None)
-        flops = 4 * B * H * E * pairs
+        flops, nbytes = flash_work(q, k, v, causal=True)
         record(results, "B5 flash  ", kernel="flash_attention",
                case=f"B={B} H={H} KVH={KVH} S=T={S} E={E} causal"
                + (" (training batch)" if B == TRAIN_BATCH else ""),
                dtype=dt, err=err, rel_err=rel,
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding",
-               nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
-               flops=flops, times=times, **B5_MATH[dt])
+               nbytes=nbytes, flops=flops, times=times, **B5_MATH[dt])
     for name, (h, kvh, s, t, e, causal, window) in {
             "E=256 (gemma-7b)": (16, 16, 200, 200, 256, True, None),
             "E=80 window=96 (h2o-danube)": (8, 2, 300, 300, 80, True, 96),
@@ -1394,6 +1395,7 @@ def check_flash_hybrid(results):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import work as flash_work
     cfg = get_config(HYBRID_ARCH)
     rng = np.random.default_rng(26)
     B, S, W = 1, HYBRID_SEQ, cfg.window
@@ -1418,15 +1420,13 @@ def check_flash_hybrid(results):
         kx, vx = k.expand(B, H, S, E), v.expand(B, H, S, E)
         times = measure(kernel, plain, lambda: F.scaled_dot_product_attention(
             q, kx, vx, attn_mask=keep))
-        pairs = _attn_pairs(S, S, True, W)
-        flops = 4 * B * H * E * pairs
+        flops, nbytes = flash_work(q, k, v, causal=True, window=W)
         record(results, "B5 flash  ", kernel="flash_attention",
                case=f"{HYBRID_ARCH} B={B} H={H} KVH={KVH} S=T={S} E={E} "
                f"causal window={W}", dtype=dt, err=err, rel_err=rel,
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding",
-               nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
-               flops=flops, times=times, **B5_MATH[dt])
+               nbytes=nbytes, flops=flops, times=times, **B5_MATH[dt])
 
 
 def check_mlp(results, D=4096, F_=12800):
@@ -1438,6 +1438,7 @@ def check_mlp(results, D=4096, F_=12800):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    from repro_torch.kernels.fused_mlp import work as mlp_work
     rng = np.random.default_rng(23)
     wg = _rand(rng, (D, F_), torch.float32, D ** -0.5)
     wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
@@ -1469,14 +1470,13 @@ def check_mlp(results, D=4096, F_=12800):
             times = measure(lambda: fused_mlp(x, wg, wu, wd),
                             lambda: fused_mlp_plain(x, wg, wu, wd),
                             library)
-            flops = 6 * rows * D * F_
+            flops, nbytes = mlp_work(x, wg, wu, wd)
             record(results, "B6 mlp    ", kernel="fused_mlp",
                    case=f"gated silu M={rows} D={D} F={F_}", dtype=dt,
                    err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding",
-                   nbytes=(3 * D * F_ * 4 + 2 * x.numel() * x.element_size()),
-                   flops=flops, times=times,
+                   nbytes=nbytes, flops=flops, times=times,
                    **b6_math(rows, D, F_, True, dt),
                    tf32_control_rel_err=controls.get(rows))
     for name, (m, f, gated, act) in {
@@ -1507,6 +1507,7 @@ def check_mlp_recurrent(results):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    from repro_torch.kernels.fused_mlp import work as mlp_work
     from repro_torch.models.common import is_gated
     rng = np.random.default_rng(27)
     for arch, m in ((HYBRID_ARCH, HYBRID_SEQ), (SSM_ARCH, SSM_SEQ)):
@@ -1538,15 +1539,13 @@ def check_mlp_recurrent(results):
             torch.cuda.synchronize()
             err, rel = _hold(f"fused_mlp {arch}", got, plain(), dt)
             times = measure(kernel, plain, library)
-            flops = (6 if gated else 4) * m * D * F_
+            flops, nbytes = mlp_work(x, wg, wu, wd)
             record(results, "B6 mlp    ", kernel="fused_mlp",
                    case=f"{arch} {'gated ' if gated else ''}{act} M={m} "
                    f"D={D} F={F_}", dtype=dt, err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding",
-                   nbytes=((3 if gated else 2) * D * F_ * 4
-                           + 2 * x.numel() * x.element_size()),
-                   flops=flops, times=times,
+                   nbytes=nbytes, flops=flops, times=times,
                    **b6_math(m, D, F_, gated, dt))
 
 
@@ -1615,6 +1614,7 @@ def check_flash_families(results):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import work as flash_work
     rng = np.random.default_rng(28)
     B, S = 1, PREFILL_SEQ
     for arch, causal, cross in ((AUDIO_ARCH, False, False),
@@ -1660,13 +1660,13 @@ def check_flash_families(results):
             times = measure(kernel, plain,
                             lambda: F.scaled_dot_product_attention(
                                 q, kx, vx, is_causal=causal))
-            flops = 4 * B * H * E * _attn_pairs(S, T, causal, None)
+            flops, nbytes = flash_work(q, k, v, causal=causal)
             record(results, "B5 flash  ", kernel="flash_attention",
                    case=what, dtype=dt, err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding",
-                   nbytes=(q.numel() * 2 + k.numel() * 2) * q.element_size(),
-                   flops=flops, times=times, **B5_MATH[dt], **extra)
+                   nbytes=nbytes, flops=flops, times=times, **B5_MATH[dt],
+                   **extra)
 
 
 def check_mlp_families(results):
@@ -1679,6 +1679,7 @@ def check_mlp_families(results):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_plain
+    from repro_torch.kernels.fused_mlp import work as mlp_work
     from repro_torch.models.common import is_gated
     rng = np.random.default_rng(29)
     for arch, rows_list in ((AUDIO_ARCH, (PREFILL_SEQ,)),
@@ -1716,15 +1717,14 @@ def check_mlp_families(results):
                         f"{rel:.3e})")
                     continue
                 times = measure(kernel, plain, library)
+                flops, nbytes = mlp_work(x, wg, wu, wd)
                 record(results, "B6 mlp    ", kernel="fused_mlp",
                        case=f"{arch} {'gated ' if gated else ''}{act} "
                        f"M={m} D={D} F={F_}", dtype=dt, err=err,
                        rel_err=rel,
                        tol=KERNEL_TOL["float32"] if dt == "float32"
                        else "1 bf16 rounding",
-                       nbytes=((3 if gated else 2) * D * F_ * 4
-                               + 2 * x.numel() * x.element_size()),
-                       flops=(6 if gated else 4) * m * D * F_, times=times,
+                       nbytes=nbytes, flops=flops, times=times,
                        **b6_math(m, D, F_, gated, dt))
 
 
@@ -1776,6 +1776,7 @@ def check_rglru(results):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.rglru import CHUNK, rglru, rglru_plain
+    from repro_torch.kernels.rglru import work as rglru_work
     B, D = 1, get_config(HYBRID_ARCH).d_model
     rng = np.random.default_rng(24)
     a_param = _rand(rng, (D,), torch.float32)
@@ -1811,16 +1812,14 @@ def check_rglru(results):
         assert launches == (2 if S > CHUNK else 1), ("rglru launches",
                                                      launches, S)
         times = _eager_times(kernel, plain)
-        es = x.element_size()
-        nbytes = (4 * es * B * S * D + 4 * D
-                  + 4 * B * D * (1 if init is None else 2))
+        flops, nbytes = rglru_work(x, gr, gi, ap, init)
         record(results, "B8 rglru  ", kernel="rglru",
                case=f"{HYBRID_ARCH} B={B} S={S} D={D} "
                f"h0={'none' if init is None else 'given'}{what}", dtype=dt,
                err=err, rel_err=rel,
                tol=KERNEL_TOL["float32"] if dt == "float32"
                else "1 bf16 rounding", nbytes=nbytes,
-               flops=16 * B * S * D, times=times, peak="float32",
+               flops=flops, times=times, peak="float32",
                plain_timing="eager", state_max_abs_err=h_err,
                state_rel_err=h_rel, cuda_launches_per_call=launches,
                repeats_bitwise=True)
@@ -1837,6 +1836,7 @@ def check_wkv6(results):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_plain
+    from repro_torch.kernels.rwkv6 import work as wkv6_work
     cfg = get_config(SSM_ARCH)
     B, S, H = 1, SSM_SEQ, cfg.n_heads
     E = cfg.d_model // H
@@ -1870,14 +1870,8 @@ def check_wkv6(results):
             err, rel = _hold("wkv6 y", got[0], want[0], dt)
             s_err, s_rel = _hold("wkv6 sT", got[1], want[1], "float32")
             times = _eager_times(kernel, plain)
-            es = r.element_size()
-            # the fewest operations: per state element and step, 2 for y's
-            # Σ_i r_i·S_ij and 3 for S_ij ← d_i·S_ij + k_i·v_j; per lane
-            # and step, 3 for Σ_i r_i·u_i·k_i, 2 for y_j += v_j·(that) and
-            # 2 for the decay exp(−exp(w_i))
-            n = B * H * S * E
-            nbytes = (4 * es * n + 4 * n + 4 * H * E
-                      + 4 * B * H * E * E * (1 if init is None else 2))
+            # the fewest operations (``kernels/rwkv6.py::work``)
+            flops, nbytes = wkv6_work(r, k, v, w_, u, init)
             record(results, "B9 wkv6   ", kernel="wkv6",
                    case=f"{SSM_ARCH} B={B} H={H} S={S} E={E} "
                    f"s0={'none' if init is None else 'given'} decay {decay}",
@@ -1885,7 +1879,7 @@ def check_wkv6(results):
                    err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=5 * n * E + 7 * n, times=times, peak="float32",
+                   flops=flops, times=times, peak="float32",
                    plain_timing="eager", state_max_abs_err=s_err,
                    state_rel_err=s_rel)
 
@@ -4960,6 +4954,198 @@ def drive_mesh_family(arch, layers, mesh_shape, decodes, results_paths,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 13: the dry run against the card
+# --------------------------------------------------------------------------
+
+#: phase 13 (a): granite-3-8b's production cells (the 16 x 16 meta mesh)
+#: at ``TRAIN_LAYERS`` of its 40 layers, walked by ``launch.dryrun`` in
+#: child processes that see no card, started with the run and read in
+#: phase 13
+DRYRUN_SHAPES = ("decode_32k", "prefill_32k")
+#: seconds phase 13 waits at most for a child still walking
+DRYRUN_WAIT = 600
+#: phase 13 (b): the card's memory of a mesh step (the most allocated
+#: over the step from a reset, less what the card held beside the step's
+#: arguments, plus those) over the dry run's estimate (the slots' argument
+#: + output + temp - alias bytes) must lie in this band (PERF.md §6)
+MEMORY_BAND = (0.9, 1.15)
+#: the card's memory, for the production cells' fit
+CARD_BYTES = 80e9
+
+
+def start_dryrun_cells():
+    """One ``python -m repro_torch.launch.dryrun`` a shape of
+    ``DRYRUN_SHAPES``, in the background, with no card visible; returns
+    [(shape, process, JSON path, log path)].  Every child is stopped at
+    exit if it still runs."""
+    import atexit
+    from repro_torch.kernels import build
+    out = build.build_dir() / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src") + (
+                   os.pathsep + os.environ["PYTHONPATH"]
+                   if os.environ.get("PYTHONPATH") else ""))
+    children = []
+    for shape in DRYRUN_SHAPES:
+        logf = out / f"{shape}.log"
+        with open(logf, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 LLM_ARCH, "--shape", shape, "--mesh", "single", "--layers",
+                 str(TRAIN_LAYERS), "--outdir", str(out)], cwd=ROOT, env=env,
+                stdout=fh, stderr=subprocess.STDOUT)
+        children.append((shape, proc,
+                         out / f"{LLM_ARCH}__{shape}__single.json", logf))
+
+    def stop():
+        for _, proc, _, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return children
+
+
+def _terms(r):
+    return (f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}")
+
+
+def check_dryrun_cells(children, results_paths):
+    """Phase 13 (a): each child's cell ``ok`` on 256 slots at
+    ``TRAIN_LAYERS`` layers, its kernels' calls as ``mesh_launches``
+    predicts for 256 slots; prints the roofline terms on the H100
+    data-sheet peaks and the peak estimate against the card's memory."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=TRAIN_LAYERS)
+    for shape, proc, path, logf in children:
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=DRYRUN_WAIT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(("dry-run cell still walking", shape))
+        with open(logf) as fh:
+            text = fh.read()
+        assert rc == 0, (shape, rc, text[-3000:])
+        with open(path) as fh:
+            res = json.load(fh)
+        assert res["status"] == "ok" and res["n_chips"] == 256 and \
+            res["layers"] == TRAIN_LAYERS, res
+        mode = "decode" if shape.startswith("decode") else "prefill"
+        want = mesh_launches(cfg, 256, mode)
+        calls = {k: v["calls"] for k, v in res["kernels"].items()}
+        assert calls == want, (shape, calls, want)
+        r, mem = res["roofline"], res["memory"]
+        assert all(r[k] > 0 for k in ("compute_s", "memory_s",
+                                      "collective_s")), r
+        fits = mem["peak_estimate_bytes"] <= CARD_BYTES
+        log(f"  {LLM_ARCH} {shape} on the 16x16 meta mesh, "
+            f"{TRAIN_LAYERS} of 40 layers (walked in {res['lower_s']} s, "
+            f"waited {time.perf_counter() - t0:.1f} s): {_terms(r)} (H100 "
+            f"data-sheet peaks: predictions); a chip's flops "
+            f"{res['cost']['flops_per_chip']:.4g}, bytes "
+            f"{res['cost']['bytes_per_chip']:.4g}, collective bytes "
+            f"{res['collectives']['total']:.4g}; peak estimate "
+            f"{mem['peak_estimate_bytes'] / 1e9:.3f} GB a chip "
+            f"({'fits' if fits else 'does not fit'} {CARD_BYTES / 1e9:.0f} "
+            f"GB); kernel calls {calls}")
+        results_paths.append(dict(path=f"dry run {LLM_ARCH} {shape} single "
+                                  f"{TRAIN_LAYERS} layers", card=CARD,
+                                  **{k: res[k] for k in (
+                                      "lower_s", "memory", "cost",
+                                      "collectives", "roofline", "kernels",
+                                      "ops")}))
+
+
+def drive_dryrun_vs_card(cfg, results_paths):
+    """Phase 13 (b): phase 12's three steps (``cfg`` on
+    ``make_local_mesh(*MESH_LLM)``: a ``MESH_PREFILL_BATCH`` x
+    ``PREFILL_SEQ`` prefill, a decode step at ``GEN_BATCH`` x
+    (``GEN_PROMPT`` + ``GEN_NEW``), a ZeRO-1 train step at ``TRAIN_BATCH``
+    x ``PREFILL_SEQ``) walked by ``launch.dryrun.walk_cell`` on meta and
+    eagerly on the card under the same counter.  Equal between the two:
+    the contractions' flops, every kernel's calls, flops and bytes, the
+    exchanges' bytes and counts by kind, the argument bytes; the card's
+    launches those calls; the card's memory within ``MEMORY_BAND`` of the
+    meta estimate.  Prints each step's time (two more runs, the least)
+    beside its roofline bound on one card.  Returns the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import _plan_for, walk_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    meta = make_local_mesh(*MESH_LLM, device="meta")
+    card = make_local_mesh(*MESH_LLM, device="cuda")
+    K = card.size
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    for shape in (ShapeSpec("mesh prefill", PREFILL_SEQ, MESH_PREFILL_BATCH,
+                            "prefill"),
+                  ShapeSpec("mesh decode", GEN_PROMPT + GEN_NEW, GEN_BATCH,
+                            "decode"),
+                  ShapeSpec("mesh train", PREFILL_SEQ, TRAIN_BATCH,
+                            "train")):
+        plan = _plan_for(cfg, shape, "flash")
+        m = walk_cell(cfg, shape, meta, plan)
+        kernels.reset_launches()
+        c = walk_cell(cfg, shape, card, plan, timed_runs=2)
+        got = kernels.launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"{shape.mode} {shape.global_batch}x{shape.seq_len}"
+        for key in ("kernels", "exchanged"):
+            assert m[key] == c[key], (what, key, m[key], c[key])
+        assert m["counted"]["contraction_flops"] == \
+            c["counted"]["contraction_flops"], (what, m["counted"],
+                                                c["counted"])
+        assert m["memory"]["arguments"] == c["memory"]["arguments"], what
+        launched = {k: got[k] for k in kernels.WORK_KERNELS}
+        assert launched == {k: 3 * v["calls"] for k, v in
+                            c["kernels"].items()}, (what, launched)
+        for k, v in got.items():
+            counts[k] += v
+        dm = c["device_memory"]
+        step_bytes = dm["max_allocated"] - dm["allocated_before"]
+        est = K * m["memory"]["peak_estimate_bytes"]
+        measured = step_bytes + K * c["memory"]["argument_bytes"]
+        ratio = measured / est
+        walk_est = est - K * m["memory"]["argument_bytes"]
+        flops = m["cost"]["flops_per_chip"] * K
+        nbytes = m["cost"]["bytes_per_chip"] * K
+        bound_s = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES_S)
+        work = {k: (v["calls"], v["flops"], v["bytes"])
+                for k, v in m["kernels"].items() if v["calls"]}
+        log(f"  {what}: meta and card equal in contraction flops "
+            f"{m['counted']['contraction_flops']}, kernel work {work}, "
+            f"exchanges {m['exchanged']}, argument bytes a slot "
+            f"{m['memory']['arguments']}; ops {m['ops']} / {c['ops']}, "
+            f"aten bytes {m['counted']['bytes']} / {c['counted']['bytes']} "
+            f"(meta / card); memory: card {measured / 1e9:.3f} GB against "
+            f"the estimate {est / 1e9:.3f} GB, ratio {ratio:.4f} (band "
+            f"{MEMORY_BAND}); the step's own {step_bytes / 1e9:.3f} GB "
+            f"against {walk_est / 1e9:.3f} GB; step "
+            f"{c['run_seconds'] * 1e3:.2f} ms on the card against a bound "
+            f"of {bound_s * 1e3:.3f} ms on one card (the slots' flops "
+            f"{flops:.4g} and bytes {nbytes:.4g} at the H100 data-sheet "
+            f"peaks); walks {m['seconds']:.1f} s (meta) / "
+            f"{c['seconds']:.1f} s (card) [{CARD}]")
+        assert MEMORY_BAND[0] <= ratio <= MEMORY_BAND[1], (what, ratio)
+        results_paths.append(dict(
+            path=f"dry run vs card {cfg.name} {cfg.n_layers} layers {what} "
+            f"on {MESH_LLM}", card=CARD, memory_ratio=ratio,
+            memory_band=list(MEMORY_BAND), card_bytes=measured,
+            estimate_bytes=est, step_bytes=step_bytes,
+            walk_estimate_bytes=walk_est, step_ms=c["run_seconds"] * 1e3,
+            bound_ms_one_card=bound_s * 1e3, meta=m,
+            card_walk={k: c[k] for k in ("seconds", "run_seconds",
+                                         "device_memory", "ops", "counted",
+                                         "cost", "roofline")}))
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4996,6 +5182,8 @@ def main(argv=None) -> int:
     # directory of this checkout unless the caller names one
     os.environ.setdefault("CELLO_CACHE_DIR",
                           str(build.build_dir() / "codesign_cache"))
+    # phase 13 (a)'s meta walks run on the host while the card works
+    dryrun_children = start_dryrun_cells()
     # ---- phase 1: environment
     triton = build.import_triton()
     card_phase("1: environment")
@@ -5261,6 +5449,21 @@ def main(argv=None) -> int:
         assert mesh_totals[k] > 0, f"kernel {k} was never launched on the mesh"
     log(f"  phase 12 took {time.perf_counter() - t_mesh:.1f} s; launches "
         f"{ {k: v for k, v in mesh_totals.items() if v} }")
+
+    # ---- phase 13: the dry run against the card
+    t_dry = time.perf_counter()
+    card_phase(f"13: the dry run (launch/dryrun.py) on the meta device: "
+               f"{LLM_ARCH} {DRYRUN_SHAPES} on the production mesh, "
+               f"{TRAIN_LAYERS} of its layers; then phase 12's three steps "
+               f"on meta and on the card under one counter")
+    check_dryrun_cells(dryrun_children, paths)
+    counts = drive_dryrun_vs_card(dataclasses.replace(
+        get_config(LLM_ARCH), n_layers=TRAIN_LAYERS), paths)
+    for k, v in counts.items():
+        totals[k] += v
+    for k in ("flash_attention", "fused_mlp", "rmsnorm"):
+        assert counts[k] > 0, f"kernel {k} was never launched in phase 13"
+    log(f"  phase 13 took {time.perf_counter() - t_dry:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -46,10 +46,19 @@ so a run can show that its path went through the kernels:
   device), and every replay of the graph then calls ``count(name, n)``
   with the capture's counts, so the counts keep meaning kernels run on
   the device.
+
+B5–B9 also run on ``meta`` tensors: the wrapper checks its arguments as
+on the card and returns empty outputs of the kernel's shapes and dtypes,
+and launches nothing (``on_cuda(..., meta=True)``).  Each of their
+modules has ``work(...) -> (flops, nbytes)``, the function's operations
+and its least bytes, and the wrapper reports that work with
+:func:`report_work` on meta and on the card alike, beside its
+``count``; :func:`costing` opens a scope that sums it.  The
+dry run (``launch.dryrun``) counts a step's kernels so.
 """
 import contextlib
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
                             "spmv_sliced": 0, "stencil2d": 0,
@@ -65,6 +74,9 @@ LAUNCHES: Dict[str, int] = {"stream": 0, "stream_finalize": 0, "spmv": 0,
 
 _lock = threading.Lock()
 _local = threading.local()
+
+#: the kernels that report their work (B5–B9)
+WORK_KERNELS = ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6")
 
 
 def count(name: str, n: int = 1) -> None:
@@ -109,6 +121,39 @@ def capturing() -> Iterator[Dict[str, int]]:
         stack.pop()
 
 
+#: the open :func:`costing` scopes, process-wide (a backward on the card
+#: runs on autograd's device thread, and its kernels count all the same)
+_COSTS: List[Dict[str, Dict[str, int]]] = []
+
+
+def report_work(name: str, flops: int, nbytes: int) -> None:
+    """One call of kernel ``name`` doing ``flops`` operations on ``nbytes``
+    least bytes, added to every open :func:`costing` scope."""
+    if name not in WORK_KERNELS:
+        raise KeyError(name)
+    with _lock:
+        for scope in _COSTS:
+            entry = scope[name]
+            entry["calls"] += 1
+            entry["flops"] += flops
+            entry["bytes"] += nbytes
+
+
+@contextlib.contextmanager
+def costing() -> Iterator[Dict[str, Dict[str, int]]]:
+    """Per kernel of ``WORK_KERNELS``, the ``calls``, ``flops`` and
+    ``bytes`` that the wrappers report while the block is open, from any
+    thread (as ``LAUNCHES`` counts)."""
+    scope = {k: {"calls": 0, "flops": 0, "bytes": 0} for k in WORK_KERNELS}
+    with _lock:
+        _COSTS.append(scope)
+    try:
+        yield scope
+    finally:
+        with _lock:
+            _COSTS.remove(scope)
+
+
 def reset_launches() -> None:
     with _lock:
         for k in LAUNCHES:
@@ -121,13 +166,16 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
-def on_cuda(*tensors) -> bool:
+def on_cuda(*tensors, meta: bool = False) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; raises for a mix or any other device."""
+    lies on the CPU; raises for a mix or any other device.  With ``meta``
+    (B5–B9) every tensor on the meta device is True too: the wrapper then
+    takes the kernel's path up to its launch."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
+    if kinds == {"cuda"} or (meta and kinds == {"meta"}):
         return True
     raise ValueError(f"kernel operands on devices {sorted(kinds)}: need "
-                     "all on one CUDA device or all on the CPU")
+                     "all on one CUDA device or all on the CPU"
+                     + (" (or all on meta)" if meta else ""))

@@ -19,11 +19,12 @@ version repeats whichever arithmetic the kernel runs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from . import count, on_cuda
+from . import count, on_cuda, report_work
 
 #: keys per kv tile of the plain version and of the fp32 kernel (the bf16
 #: kernel takes 64, or 32 where E > 128)
@@ -96,12 +97,39 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, S, E).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def attention_pairs(S: int, T: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """The (query, key) pairs that the mask keeps, queries aligned to the
+    end of the keys: the products that the data needs."""
+    n = 0
+    for i in range(S):
+        p = T - S + i
+        hi = min(p, T - 1) if causal else T - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None
+         ) -> Tuple[int, int]:
+    """(operations, least bytes) of one call: 4·E operations for each kept
+    (query, key) pair of each query head (the two products; masked pairs
+    are not counted), q, k, v read and the output written once."""
+    B, H, S, E = q.shape
+    T = k.shape[2]
+    flops = 4 * B * H * E * attention_pairs(S, T, causal, window)
+    return flops, (q.numel() * 2 + k.numel() * 2) * q.element_size()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention.  q ``(B, H, S, E)``; k, v ``(B, KVH, T, E)``.
-    Returns ``(B, H, S, E)`` in q's dtype, with q's strides."""
-    if not on_cuda(q, k, v):
+    Returns ``(B, H, S, E)`` in q's dtype, with q's strides (on meta
+    tensors an empty one, and nothing launched)."""
+    if not on_cuda(q, k, v, meta=True):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     from .build import check, cuda_library
@@ -122,11 +150,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel takes unit stride over E")
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            (not t.is_meta and t.data_ptr() % 16)
+            or any(st % 8 for st in t.stride()[:3])
             for t in (q, k, v, out)):
         raise ValueError("flash_attention bf16 kernel copies 16-byte rows: "
                          "it takes 16-byte aligned pointers and strides over "
                          "(B, H, S) that are multiples of 8 elements")
+    report_work("flash_attention", *work(q, k, v, causal=causal,
+                                         window=window))
+    if out.is_meta:
+        return out
     strides = (ctypes.c_longlong * 12)(
         *[st for t in (q, k, v, out) for st in t.stride()[:3]])
     fn = (cuda_library().cello_flash_attention_bf16

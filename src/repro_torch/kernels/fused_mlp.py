@@ -20,12 +20,12 @@ CUDA cores.  The plain version repeats the regime's arithmetic.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import count, on_cuda
+from . import count, on_cuda, report_work
 
 #: activation name -> the kernel's code
 ACTIVATIONS = {"silu": 0, "gelu": 1, "relu2": 2}
@@ -114,16 +114,30 @@ def launch_shape(m: int, f: int):
     return (4 if m <= 4 else 16), (64 if f >= 64 * 200 else 32)
 
 
+def work(x: torch.Tensor, w_gate: Optional[torch.Tensor],
+         w_up: torch.Tensor, w_down: torch.Tensor) -> Tuple[int, int]:
+    """(operations, least bytes) of one call on M = x's rows: 2·M·D·F for
+    each of the two or three products (6·M·D·F gated, 4·M·D·F plain), the
+    weights read once, x read and the output written once."""
+    d, f = w_up.shape
+    m = x.numel() // d if d else 0
+    n_w = 3 if w_gate is not None else 2
+    return (2 * n_w * m * d * f,
+            n_w * d * f * w_up.element_size()
+            + 2 * x.numel() * x.element_size())
+
+
 def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_up: torch.Tensor, w_down: torch.Tensor, *,
               activation: str = "silu") -> torch.Tensor:
     """x ``(..., D)``; w_gate, w_up ``(D, F)``; w_down ``(F, D)``.  Returns
-    ``(..., D)`` in x's dtype."""
+    ``(..., D)`` in x's dtype (on meta tensors an empty one, and nothing
+    launched)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in "
                          f"{sorted(ACTIVATIONS)}")
     weights = [w for w in (w_gate, w_up, w_down) if w is not None]
-    if not on_cuda(x, *weights):
+    if not on_cuda(x, *weights, meta=True):
         return fused_mlp_plain(x, w_gate, w_up, w_down, activation=activation)
     from .build import check, cuda_library
     d = x.shape[-1]
@@ -141,15 +155,19 @@ def fused_mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                             else f", w_gate {tuple(w_gate.shape)}"))
     if not (x.is_contiguous() and all(w.is_contiguous() for w in weights)):
         raise ValueError("fused_mlp kernel takes contiguous tensors")
-    if d % 8 or f % 4 or any(t.data_ptr() % 16 for t in (x, *weights)):
+    if d % 8 or f % 4 or any(not t.is_meta and t.data_ptr() % 16
+                             for t in (x, *weights)):
         raise ValueError(f"fused_mlp kernel copies 16-byte vectors: it takes "
                          f"D a multiple of 8 (got {d}), F a multiple of 4 "
                          f"(got {f}) and 16-byte aligned tensors")
     m = x.numel() // d if d else 0
     block_m, chunk = launch_shape(m, f)
-    lib = cuda_library()
     hidden = torch.empty((m, f), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    report_work("fused_mlp", *work(x, w_gate, w_up, w_down))
+    if out.is_meta:
+        return out
+    lib = cuda_library()
     fn = (lib.cello_fused_mlp_bf16 if x.dtype == torch.bfloat16
           else lib.cello_fused_mlp_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import count, on_cuda
+from . import count, on_cuda, report_work
 
 #: the RG-LRU's fixed scale of the log decay (``RGLRU_C``)
 RGLRU_C = 8.0
@@ -87,15 +87,29 @@ def rglru_plain(x: torch.Tensor, gate_r: torch.Tensor, gate_i: torch.Tensor,
     return y.reshape(B, N * C, D)[:, :S].contiguous(), h[:, -1]
 
 
+def work(x: torch.Tensor, gate_r: torch.Tensor, gate_i: torch.Tensor,
+         a_param: torch.Tensor, h0: Optional[torch.Tensor] = None
+         ) -> Tuple[int, int]:
+    """(operations, least bytes) of one call: 16 a step and channel (the
+    two gates, the decay, the input's scale and the step), x, the two
+    gates read and y written once, a_param read, hT written and h0 read
+    once."""
+    B, S, D = x.shape
+    return (16 * B * S * D,
+            4 * x.element_size() * B * S * D + 4 * D
+            + 4 * B * D * (1 if h0 is None else 2))
+
+
 def rglru(x: torch.Tensor, gate_r: torch.Tensor, gate_i: torch.Tensor,
           a_param: torch.Tensor, h0: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU scan of ``x`` (B, S, D) under the gates' pre-activations
     (x's dtype and shape), the fp32 ``a_param`` (D,) and the optional fp32
     initial state ``h0`` (B, D).  Returns (y, hT).  On CUDA one call is
-    two kernel launches (one when S ≤ ``CHUNK``) and counts once."""
+    two kernel launches (one when S ≤ ``CHUNK``) and counts once; on meta
+    tensors empty outputs, and nothing launched."""
     given = [t for t in (x, gate_r, gate_i, a_param, h0) if t is not None]
-    if not on_cuda(*given):
+    if not on_cuda(*given, meta=True):
         return rglru_plain(x, gate_r, gate_i, a_param, h0)
     from .build import check, cuda_library
     B, S, D = x.shape
@@ -119,6 +133,9 @@ def rglru(x: torch.Tensor, gate_r: torch.Tensor, gate_i: torch.Tensor,
     h_out = torch.empty((B, D), dtype=torch.float32, device=x.device)
     carry = torch.empty((B, max(0, -(-S // CHUNK) - 1), D, 2),
                         dtype=torch.float32, device=x.device)
+    report_work("rglru", *work(x, gate_r, gate_i, a_param, h0))
+    if y.is_meta:
+        return y, h_out
     fn = (cuda_library().cello_rglru_bf16 if x.dtype == torch.bfloat16
           else cuda_library().cello_rglru_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream

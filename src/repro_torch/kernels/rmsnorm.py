@@ -10,9 +10,11 @@ plan has ``use_fused_rmsnorm``.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from . import count, on_cuda
+from . import count, on_cuda, report_work
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -25,10 +27,19 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *,
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
+def work(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
+    """(operations, least bytes) of one call: 4 operations an element (the
+    square and its sum, the scale, the weight), x read and y written
+    once, w read once."""
+    return (4 * x.numel(),
+            2 * x.numel() * x.element_size() + w.numel() * w.element_size())
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm of ``x`` (..., D) with the fp32 weight ``w`` (D,)."""
-    if not on_cuda(x, w):
+    """RMSNorm of ``x`` (..., D) with the fp32 weight ``w`` (D,); on meta
+    tensors an empty output, and nothing launched."""
+    if not on_cuda(x, w, meta=True):
         return rmsnorm_plain(x, w, eps=eps)
     from .build import check, cuda_library
     d = x.shape[-1]
@@ -41,6 +52,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm kernel takes contiguous tensors")
     y = torch.empty_like(x)
+    report_work("rmsnorm", *work(x, w))
+    if y.is_meta:
+        return y
     rows = x.numel() // d if d else 0
     fn = (cuda_library().cello_rmsnorm_bf16 if x.dtype == torch.bfloat16
           else cuda_library().cello_rmsnorm_f32)

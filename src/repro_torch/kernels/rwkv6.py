@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import count, on_cuda
+from . import count, on_cuda, report_work
 
 MAX_HEAD_DIM = 64
 #: time steps per chunk of the chunked form (``kChunk`` in ``csrc/wkv6.cu``)
@@ -89,15 +89,31 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.reshape(B, H, N * C, E)[:, :, :S].to(r.dtype), state
 
 
+def work(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, s0: Optional[torch.Tensor] = None
+         ) -> Tuple[int, int]:
+    """(operations, least bytes) of one call, the fewest operations: per
+    state element and step, 2 for y's Σ_i r_i·S_ij and 3 for S_ij ←
+    d_i·S_ij + k_i·v_j; per lane and step, 3 for Σ_i r_i·u_i·k_i, 2 for
+    y_j += v_j·(that) and 2 for the decay exp(−exp(w_i)).  r, k, v and w
+    read and y written once, u read, sT written and s0 read once."""
+    B, H, S, E = r.shape
+    n = B * H * S * E
+    return (5 * n * E + 7 * n,
+            4 * r.element_size() * n + 4 * n + 4 * H * E
+            + 4 * B * H * E * E * (1 if s0 is None else 2))
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 over r, k, v (B, H, S, E) of one dtype, the fp32 log decay w
     (B, H, S, E), the fp32 bonus u (H, E) and the optional fp32 initial
     state s0 (B, H, E, E).  Any strides over (B, H, S), unit stride over E;
-    y takes r's strides.  Returns (y, sT)."""
+    y takes r's strides.  Returns (y, sT); on meta tensors empty ones, and
+    nothing launched."""
     given = [t for t in (r, k, v, w, u, s0) if t is not None]
-    if not on_cuda(*given):
+    if not on_cuda(*given, meta=True):
         return wkv6_plain(r, k, v, w, u, s0)
     from .build import check, cuda_library
     B, H, S, E = r.shape
@@ -123,6 +139,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          "contiguous u and s0")
     y = torch.empty_like(r)
     s_out = torch.empty((B, H, E, E), dtype=torch.float32, device=r.device)
+    report_work("wkv6", *work(r, k, v, w, u, s0))
+    if y.is_meta:
+        return y, s_out
     strides = (ctypes.c_longlong * 15)(
         *[st for t in (r, k, v, w, y) for st in t.stride()[:3]])
     fn = (cuda_library().cello_wkv6_bf16 if r.dtype == torch.bfloat16

@@ -131,6 +131,10 @@ class NamedSharding:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
 
 
+#: the kinds of exchange a :class:`DeviceMesh` counts
+EXCHANGES = ("psum", "all_gather", "ppermute", "gather")
+
+
 def _named_devices(device) -> torch.device:
     """``device`` as the LLM mesh's slots take it: ``None`` is the current
     card, ``"meta"`` builds a mesh that holds no memory."""
@@ -151,9 +155,12 @@ class DeviceMesh:
     ``exchanged`` counts the bytes that the exchanges moved between
     slots, by kind: ``psum`` (a fold to the group's first slot and a copy
     back, ``2·(n−1)·b`` for n parts of b bytes), ``all_gather`` (every
-    slot receives the n−1 parts it does not hold, ``n·(n−1)·b``) and
+    slot receives the n−1 parts it does not hold, ``n·(n−1)·b``),
+    ``ppermute`` (every slot of a group receives one part, ``n·b``) and
     ``gather`` (parts put together on slot 0, the bytes of every part held
-    elsewhere).  :meth:`reset_exchanged` zeroes them."""
+    elsewhere); ``n_<kind>`` counts the exchanges of each kind, one a
+    call that moves bytes, whatever its groups.  :meth:`reset_exchanged`
+    zeroes them."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence):
@@ -169,7 +176,8 @@ class DeviceMesh:
             raise ValueError(f"{len(devices)} devices for {n} slots")
         self.devices: Tuple[torch.device, ...] = tuple(
             _concrete(d) for d in devices)
-        self.exchanged = {"psum": 0, "all_gather": 0, "gather": 0}
+        self.exchanged = dict.fromkeys(
+            EXCHANGES + tuple(f"n_{k}" for k in EXCHANGES), 0)
 
     @property
     def size(self) -> int:
@@ -228,6 +236,13 @@ class DeviceMesh:
         for k in self.exchanged:
             self.exchanged[k] = 0
 
+    def record(self, kind: str, nbytes: int) -> None:
+        """One exchange of ``kind`` that moved ``nbytes`` between slots (a
+        call that moved nothing, over groups of one slot, is none)."""
+        if nbytes:
+            self.exchanged[kind] += nbytes
+            self.exchanged[f"n_{kind}"] += 1
+
     def psum(self, parts: Sequence[torch.Tensor], axes: Sequence[str],
              dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
         """For every group along ``axes``: ``((p0 + p1) + p2) + …`` in
@@ -238,6 +253,7 @@ class DeviceMesh:
             raise ValueError(f"psum: {len(parts)} parts for {self.size} "
                              "slots")
         out: List[Optional[torch.Tensor]] = [None] * self.size
+        moved = 0
         for members in self.groups(axes):
             first = members[0]
             total = parts[first]
@@ -248,9 +264,9 @@ class DeviceMesh:
             out[first] = total
             for k in members[1:]:
                 out[k] = total.to(self.devices[k], copy=True)
-            n = len(members)
-            self.exchanged["psum"] += 2 * (n - 1) * (
+            moved += 2 * (len(members) - 1) * (
                 total.numel() * total.element_size())
+        self.record("psum", moved)
         return out
 
     @torch.no_grad()
@@ -262,14 +278,16 @@ class DeviceMesh:
         if len(parts) != self.size:
             raise ValueError(f"psum_: {len(parts)} parts for {self.size} "
                              "slots")
+        moved = 0
         for members in self.groups(axes):
             total = parts[members[0]]
             for k in members[1:]:
                 total.add_(parts[k].to(total.device))
             for k in members[1:]:
                 parts[k].copy_(total)
-            self.exchanged["psum"] += 2 * (len(members) - 1) * (
+            moved += 2 * (len(members) - 1) * (
                 total.numel() * total.element_size())
+        self.record("psum", moved)
         return parts
 
     def all_gather(self, parts: Sequence[torch.Tensor], axes: Sequence[str],
@@ -278,6 +296,7 @@ class DeviceMesh:
         ``dim`` in group order, one whole tensor on each slot of the
         group.  Differentiable."""
         out: List[Optional[torch.Tensor]] = [None] * self.size
+        moved = 0
         for members in self.groups(axes):
             n = len(members)
             for k in members:
@@ -285,8 +304,24 @@ class DeviceMesh:
                                      for j in members], dim) if n > 1
                           else parts[k])
             part = parts[members[0]]
-            self.exchanged["all_gather"] += n * (n - 1) * (
-                part.numel() * part.element_size())
+            moved += n * (n - 1) * part.numel() * part.element_size()
+        self.record("all_gather", moved)
+        return out
+
+    def ppermute(self, parts: Sequence[torch.Tensor], axes: Sequence[str],
+                 shift: int) -> List[torch.Tensor]:
+        """For every group along ``axes``: the slot at position ``(j +
+        shift) % n`` of the group receives the part of position ``j``
+        (``lax.ppermute`` on a ring).  Differentiable."""
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        moved = 0
+        for members in self.groups(axes):
+            n = len(members)
+            for j, k in enumerate(members):
+                dst = members[(j + shift) % n]
+                out[dst] = parts[k].to(self.devices[dst], copy=True)
+                moved += parts[k].numel() * parts[k].element_size()
+        self.record("ppermute", moved)
         return out
 
     def gather(self, parts: Sequence[torch.Tensor], slots: Sequence[int],
@@ -294,9 +329,8 @@ class DeviceMesh:
         """``parts[k]`` for ``k`` in ``slots``, concatenated along ``dim``
         on slot 0.  Differentiable."""
         dev = self.devices[0]
-        self.exchanged["gather"] += sum(
-            parts[k].numel() * parts[k].element_size() for k in slots
-            if k != 0)
+        self.record("gather", sum(parts[k].numel() * parts[k].element_size()
+                                  for k in slots if k != 0))
         if len(slots) == 1:
             return parts[slots[0]].to(dev)
         return torch.cat([parts[k].to(dev) for k in slots], dim)

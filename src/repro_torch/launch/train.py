@@ -275,6 +275,7 @@ def mesh_adamw_update(cfg: AdamWConfig, grads, state, params, *,
             vs.append(vk)
         # the data slots' updated slices, to every replica
         if m.sharding.axes() != p.sharding.axes():
+            moved = 0
             for members in mesh.groups(mesh.data_axes):
                 for j in members:
                     rel = _sub_block(p, m.sharding, j)
@@ -284,8 +285,8 @@ def mesh_adamw_update(cfg: AdamWConfig, grads, state, params, *,
                 n = len(members)
                 block = ps[members[0]][_sub_block(p, m.sharding,
                                                   members[0])]
-                mesh.exchanged["all_gather"] += n * (n - 1) * (
-                    block.numel() * block.element_size())
+                moved += n * (n - 1) * block.numel() * block.element_size()
+            mesh.record("all_gather", moved)
         new_p.append(shd.Sharded(ps, p.sharding, p.shape))
         new_m.append(shd.Sharded(ms, m.sharding, m.shape))
         new_v.append(shd.Sharded(vs, v.sharding, v.shape))

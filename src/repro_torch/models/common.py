@@ -182,6 +182,8 @@ def _tag_op(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 _tag_op.register_autograd(lambda ctx, grad: (grad, None))
+# the op's shape on meta tensors and under fake modes (the dry run's walk)
+_tag_op.register_fake(lambda x, name: torch.empty_like(x))
 
 
 def tag(x: torch.Tensor, name: str) -> torch.Tensor:

@@ -183,7 +183,9 @@ class _Walk:
         scale = torch.tensor(math.sqrt(self.cfg.d_model), dtype=COMPUTE_DTYPE)
         return [r.to(COMPUTE_DTYPE) * scale for r in rows]
 
-    def logits(self, xs: Parts, split: bool) -> torch.Tensor:
+    def logits(self, xs: Parts, split: bool, gather: bool = True):
+        """The logits on slot 0 (``gather``), or each slot's block of them
+        (its batch rows, its vocab columns where ``lm_head`` splits)."""
         fn = self.params["final_norm"]
         lm = self.params["lm_head"]
         out = []
@@ -191,6 +193,8 @@ class _Walk:
             h = _norm(xs[k], fn.parts[k], self.cfg, self.plan)
             out.append((h.to(COMPUTE_DTYPE) @ bf16(lm.parts[k])
                         ).to(torch.float32))
+        if not gather:
+            return out
         return self.to_global(out, -1 if _splits(lm, 1) else None, split)
 
     # -- blocks ---------------------------------------------------------------
@@ -411,13 +415,15 @@ def apply_moe(params, hs: Parts, cfg: ArchConfig,
 def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
             *, frames: Optional[torch.Tensor] = None,
             img: Optional[torch.Tensor] = None, mode: str = "prefill",
-            remat_policy=None):
+            remat_policy=None, gather_logits: bool = True):
     """``models.forward`` over the mesh of ``params`` (per-slot form).
     The inputs are global tensors; each slot takes its batch block.
     Returns (logits (B, S, padded_vocab) fp32 on slot 0, [cache entry per
     layer] gathered to slot 0 in prefill, Nones in train).  With a
     ``remat_policy`` each layer, all slots together, is one checkpointed
-    region, so the recompute runs every slot's kernels again."""
+    region, so the recompute runs every slot's kernels again.  With
+    ``gather_logits=False`` the logits are each slot's block of them (a
+    list), as a sharded output keeps them."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r}: forward runs 'prefill' or 'train'")
     if remat_policy is not None and mode != "train":
@@ -445,24 +451,25 @@ def forward(params, cfg: ArchConfig, plan: CelloPlan, tokens: torch.Tensor,
             out, entry = block(*xs)
         xs = list(out)
         caches.append(entry)
-    return w.logits(xs, split), caches
+    return w.logits(xs, split, gather_logits), caches
 
 
 def decode_step(params, cache, cfg: ArchConfig, plan: CelloPlan,
-                tokens: torch.Tensor, pos):
+                tokens: torch.Tensor, pos, *, gather_logits: bool = True):
     """``models.decode_step(..., donate=True)`` over the mesh: ``params``
     and ``cache`` in per-slot form (``cache_for``'s shardings), ``tokens``
     (B, 1) global, ``pos`` a host int or a 0-d tensor.  Every slot's cache
     blocks are written in place.  Returns (logits (B, 1, padded_vocab)
-    fp32 on slot 0, cache).  Nothing reads a device value on the host, so
-    the step can be captured in one CUDA graph."""
+    fp32 on slot 0, or each slot's block with ``gather_logits=False``,
+    cache).  Nothing reads a device value on the host, so the step can be
+    captured in one CUDA graph."""
     w = _Walk(params, cfg, plan)
     split = w.batch_split(tokens.shape[0])
     xs = w.embed(w.per_slot(tokens, split))
     pos_k = [_position(pos, d) for d in w.devs]
     for i, kind in enumerate(cfg.layer_kinds()):
         xs = w.decode_block(i, kind, xs, cache, pos_k, split)
-    return w.logits(xs, split), cache
+    return w.logits(xs, split, gather_logits), cache
 
 
 def value_and_grad(loss_fn):
@@ -496,6 +503,14 @@ def value_and_grad(loss_fn):
     return fn
 
 
+def _address(t: torch.Tensor):
+    """Where ``t``'s data starts: its pointer, or on meta (every pointer
+    0) its storage and offset."""
+    if t.is_meta:
+        return t.untyped_storage()._cdata, t.storage_offset()
+    return t.data_ptr()
+
+
 def reduce_replicas(parts: Parts, like: Sharded) -> Sharded:
     """``parts`` (one a slot, shaped as ``like``'s blocks) summed over the
     mesh axes that ``like``'s sharding does not name, in slot order, in
@@ -504,7 +519,7 @@ def reduce_replicas(parts: Parts, like: Sharded) -> Sharded:
     axes = tuple(a for a in mesh.axis_names
                  if a not in like.sharding.axes() and mesh.shape[a] > 1)
     if axes:
-        if len({p.data_ptr() for p in parts}) < len(parts):
+        if len({_address(p) for p in parts}) < len(parts):
             parts = [p.clone() for p in parts]     # autograd shared one
         mesh.psum_(parts, axes)
     return Sharded(parts, like.sharding, like.shape)

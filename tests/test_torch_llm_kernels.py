@@ -244,17 +244,26 @@ def test_rmsnorm_bf16_within_one_rounding():
 
 
 def test_wrappers_refuse_a_device_they_cannot_run_on():
-    """Neither the CPU nor a CUDA device: the wrappers raise, they do not
-    fall back."""
+    """Operands on more than one device (the CPU and meta): the wrappers
+    raise, they do not fall back.  All on meta is the dry run's path (the
+    kernel's checks and empty outputs, nothing launched,
+    ``tests/test_torch_dryrun.py``)."""
     q = torch.empty((1, 2, 4, 16), device="meta")
     with pytest.raises(ValueError, match="devices"):
-        flash_attention(q, q, q)
+        flash_attention(q, torch.zeros(1, 2, 4, 16), q)
     x = torch.empty((4, 16), device="meta")
     with pytest.raises(ValueError, match="devices"):
-        rmsnorm(x, torch.empty(16, device="meta"))
+        rmsnorm(x, torch.zeros(16))
     with pytest.raises(ValueError, match="devices"):
-        fused_mlp(x, None, torch.empty((16, 8), device="meta"),
+        fused_mlp(torch.zeros(4, 16), None, torch.empty((16, 8),
+                                                        device="meta"),
                   torch.empty((8, 16), device="meta"))
+    before = kernels.launches()
+    assert flash_attention(q, q, q).is_meta
+    assert rmsnorm(x, torch.empty(16, device="meta")).is_meta
+    assert fused_mlp(x, None, torch.empty((16, 8), device="meta"),
+                     torch.empty((8, 16), device="meta")).is_meta
+    assert kernels.launches() == before
 
 
 # ---------------------------------------------------------------------------

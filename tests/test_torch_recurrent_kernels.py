@@ -352,19 +352,27 @@ def test_wrappers_on_cpu_tensors_run_plain_and_count_no_launch():
 
 
 def test_wrappers_refuse_a_device_they_cannot_run_on():
-    """Neither the CPU nor a CUDA device, or a mix: the wrappers raise,
-    they do not fall back."""
+    """A mix of devices (the CPU and meta): the wrappers raise, they do
+    not fall back.  All on meta is the dry run's path (the kernel's
+    checks and empty outputs, nothing launched,
+    ``tests/test_torch_dryrun.py``)."""
     x = torch.empty((1, 4, 16), device="meta")
     ap = torch.empty(16, device="meta")
     with pytest.raises(ValueError, match="devices"):
-        rglru(x, x, x, ap)
+        rglru(x, x, x, torch.zeros(16))
     with pytest.raises(ValueError, match="devices"):
         rglru(torch.zeros(1, 4, 16), torch.zeros(1, 4, 16),
               torch.zeros(1, 4, 16), torch.zeros(16),
               torch.empty((1, 16), device="meta"))
     r = torch.empty((1, 2, 4, 16), device="meta")
     with pytest.raises(ValueError, match="devices"):
-        wkv6(r, r, r, r, torch.empty((2, 16), device="meta"))
+        wkv6(r, r, r, r, torch.zeros(2, 16))
+    before = kernels.launches()
+    y, h = rglru(x, x, x, ap)
+    assert y.is_meta and h.shape == (1, 16)
+    y, s = wkv6(r, r, r, r, torch.empty((2, 16), device="meta"))
+    assert y.is_meta and s.shape == (1, 2, 16, 16)
+    assert kernels.launches() == before
 
 
 # ---------------------------------------------------------------------------
