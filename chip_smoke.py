@@ -213,12 +213,25 @@ Phases, each of which raises (exit code 1) on failure:
    each step, launches as ``mesh_launches`` predicts (slots x the
    unsharded pass's); per-slot parameter, moment and cache bytes held to
    the specs' count, each pass's time beside the unsharded one's, and the
-   bytes each exchange kind moved.  Then one short check a family
-   (``MESH_FAMILIES``, ``drive_mesh_family``): granite-moe (routes
-   replayed), recurrentgemma (B8; its attention on the gather fallback),
-   rwkv6 (B9), hubert (prefill) and llama-vision (an ``xattn`` layer),
-   each sharded prefill and decode step against the unsharded one at the
-   same depth.  No speed is claimed: the slots share one card;
+   bytes each exchange kind moved.  Then granite-3-8b at the production
+   TP (``drive_mesh_tp``): ``MESH_TP_LAYERS`` layers at full width on
+   ``make_local_mesh(1, 16)``, where its 8 kv heads do not split 16
+   ways, so attention is query-split (B5 on 2 query heads and the kv head
+   they read a slot, the head's k / v columns all-gathered from the 2
+   slots that hold them), the ``generate`` cache of 4 x 48 entries is
+   sequence-sharded (each slot attends its 3 entries, the slots combine
+   the softmax by a max, a sum and a psum of the context, and only the
+   slot that holds the ring position writes the entry), and the loss is
+   vocab-parallel (no logits gathered): a 1 x 1024 prefill, ``generate``
+   of 4 x (16 + 32) and one training step's loss and gradients, each
+   against the unsharded run as above, each pass's exchanges by kind
+   equal to ``query_split_exchanges``' count from the shapes.  Then one
+   short check a family (``MESH_FAMILIES``, ``drive_mesh_family``):
+   granite-moe (routes replayed), recurrentgemma (B8; its attention
+   query-split at TP 2, its decode cache sequence-sharded), rwkv6 (B9),
+   hubert (prefill) and llama-vision (an ``xattn`` layer), each sharded
+   prefill and decode step against the unsharded one at the same depth.
+   No speed is claimed: the slots share one card;
 13. the dry run (``launch/dryrun.py``): (a) granite-3-8b's decode_32k and
    prefill_32k cells on the 16 x 16 meta mesh at ``TRAIN_LAYERS`` of 40
    layers, walked by child processes that see no card (started with the
@@ -4392,8 +4405,10 @@ MESH_PREFILL_BATCH = 2
 MESH_TRAIN_STEPS = 3
 #: one short check a family: (arch, layers, mesh, decodes).  granite-moe
 #: 4 of 24 layers, its routes replayed; recurrentgemma one [rglru, rglru,
-#: attn] period (B8 on D/2 channels; 10 heads and 1 kv head: attention
-#: takes the gather fallback, the cache sequence-sharded); rwkv6 2 of 32
+#: attn] period (B8 on D/2 channels; 10 heads and 1 kv head at TP 2:
+#: attention query-split, B5 on 5 query heads a slot against the kv head
+#: whose columns the 2 slots all-gather, and the 48-entry decode cache
+#: sequence-sharded, 24 entries a slot); rwkv6 2 of 32
 #: (B9 on 32 of 64 heads); hubert 3 of 48, prefill only (encoder-only);
 #: llama-vision 5 of 40, its fifth an ``xattn`` layer
 MESH_FAMILIES = (
@@ -4422,12 +4437,13 @@ def _timed(fn, dev):
 
 def mesh_launches(cfg, slots, mode):
     """B5-B9 launches of one ``mode`` pass over a mesh of ``slots``:
-    every slot runs every layer's kernels, split or gathered alike
-    (``models/sharded.py``), so ``slots`` times the unsharded pass's: in
-    prefill each layer's norms (2), MLP (1, none in an MoE layer),
-    attention (1 in an ``attn`` / ``xattn`` layer) and scan (1 in an
-    ``rglru`` / ``rwkv`` layer), and the final norm; a decode step only
-    the norms and the MLP; a train step ``train_launches`` with remat."""
+    every slot runs every layer's kernels, split, query-split or gathered
+    alike (``models/sharded.py``), so ``slots`` times the unsharded
+    pass's: in prefill each layer's norms (2), MLP (1, none in an MoE
+    layer), attention (1 in an ``attn`` / ``xattn`` layer) and scan (1 in
+    an ``rglru`` / ``rwkv`` layer), and the final norm; a decode step
+    only the norms and the MLP; a train step ``train_launches`` with
+    remat."""
     if mode == "train":
         per = train_launches(cfg, True)
     else:
@@ -4954,6 +4970,239 @@ def drive_mesh_family(arch, layers, mesh_shape, decodes, results_paths,
     return counts
 
 
+#: phase 12's production-TP check: granite-3-8b at full width on
+#: ``make_local_mesh(*MESH_TP)``, ``MESH_TP_LAYERS`` of its 40 layers (run
+#: time).  At TP 16 its 32 query heads split (2 a slot) and its 8 kv heads
+#: do not: attention is query-split (B5 on 2 query heads and the 1 kv head
+#: they read a slot, that head's k / v columns all-gathered from the 2
+#: slots that hold them), and the ``GEN_PROMPT + GEN_NEW`` = 48-entry
+#: decode cache is sequence-sharded, 3 entries a slot
+MESH_TP = (1, 16)
+MESH_TP_LAYERS = 2
+
+
+def query_split_exchanges(cfg, tp, mode, batch, seq):
+    """The bytes and counts by kind that one ``mode`` pass of ``cfg`` (every
+    layer ``attn`` with a dense MLP, query-split: TP divides its query
+    heads and its kv heads divide TP) exchanges on a (1, ``tp``) mesh,
+    from the shapes alone.  ``seq`` is the prefill or train length, or the
+    decode cache's; ``train`` is the loss and its gradients under remat
+    (each layer's exchanges again in its recompute, which stops early at
+    the MLP's psum, whose output no backward reads; then each replicated
+    leaf's gradient summed).  Parameters and partials fp32, activations
+    bf16; the charges are ``DeviceMesh``'s: a psum or pmax of b bytes
+    2(n-1)b, an all-gather n(n-1)b a group of n parts of b bytes, a
+    gather the bytes that slot 0 does not hold."""
+    n, L, B = tp, cfg.n_layers, batch
+    D, H, KVH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    E, V = cfg.resolved_head_dim, cfg.padded_vocab
+    span = n // KVH                  # the slots that hold one kv head
+    red = 2 * (n - 1)
+    out = dict.fromkeys(("psum", "pmax", "all_gather", "ppermute",
+                         "gather"), 0)
+    if mode == "decode":
+        out["psum"] = red * 4 * (B * D + L * (B * H + B * H * E
+                                              + 2 * B * D))
+        out["pmax"] = red * 4 * L * B * H
+        out["all_gather"] = n * (n - 1) * 2 * L * (
+            B * H * E // n + 2 * B * KVH * E // n)
+        out["gather"] = (n - 1) * B * V // n * 4
+        counts = dict(psum=1 + 4 * L, pmax=L, all_gather=3 * L, gather=1)
+    else:
+        rows = B * seq
+        kv = KVH * span * (span - 1) * rows * (KVH * E // n) * 2
+        times = 2 if mode == "train" else 1
+        psums = 1 + 2 * L + (L if mode == "train" else 0)
+        out["psum"] = red * 4 * rows * D * psums
+        out["all_gather"] = 2 * L * times * kv
+        counts = dict(psum=psums, pmax=0, all_gather=2 * L * times,
+                      gather=0)
+        if mode == "train":        # the loss, then the replicas' grads
+            out["psum"] += red * 4 * (2 * rows + (2 * L + 1) * D)
+            out["pmax"] = red * 4 * rows
+            counts.update(psum=counts["psum"] + 2 + 2 * L + 1, pmax=1)
+        else:                      # the logits and the cache to slot 0
+            out["gather"] = (n - 1) * rows * V // n * 4 + \
+                2 * L * (KVH - 1) * rows * E * 2
+            counts["gather"] = 1 + 2 * L
+    out.update({f"n_{k}": counts.get(k, 0) for k in
+                ("psum", "pmax", "all_gather", "ppermute", "gather")})
+    return out
+
+
+def drive_mesh_tp(cfg, mesh_shape, results_paths, dev="cuda"):
+    """Phase 12's production-TP check: ``cfg`` on ``make_local_mesh(
+    *mesh_shape)``, its attention query-split (``models.sharded``'s
+    ``attn_form``), each pass's exchanges by kind equal to
+    ``query_split_exchanges``: (a) a 1 x ``PREFILL_SEQ`` prefill within
+    ``LLM_TOL`` of the unsharded kernel run, the shifted control
+    rejected; (b) ``generate`` of ``GEN_BATCH`` x (``GEN_PROMPT`` +
+    ``GEN_NEW``) through ``ServeBundle.jit_decode(mesh, ...)``, its cache
+    sequence-sharded, one replay a step, its tokens the unsharded
+    bundle's (or parted at a near tie), the logits at the last prompt
+    position within ``DECODE_TOL`` of the unsharded step's; (c) one
+    training step's loss and gathered gradients of a ``TRAIN_BATCH`` x
+    ``PREFILL_SEQ`` batch within ``max(TRAIN_MIN_TOL, 2 x spread)`` of the
+    unsharded step's, no logits gathered.  B5-B7 launches as
+    ``mesh_launches``.  Returns the launch counts of (a), (b) and (c)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.api import Session
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import greedy_generate, jit_decode_step
+    from repro_torch.launch.train import (TrainConfig, make_loss_fn,
+                                          make_mesh_loss_fn, value_and_grad)
+    from repro_torch.models import init_cache, init_params, sharded
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(*mesh_shape, device=dev)
+    K, tp = mesh.size, mesh.shape["model"]
+    compiled = Session(cfg, device=dev).default_plan(seq=PREFILL_SEQ)
+    plan = compiled.plan
+    bundle = compiled.serve()
+    params = init_params(cfg, seed=0, device=dev)
+    sp = shd.shard_tree(params, shd.params_for(cfg, mesh)[1])
+    walk = sharded._Walk(sp, cfg, plan)
+    forms = [walk.attn_form(L["attn"]) for L in sp["layers"]]
+    assert forms == ["query"] * cfg.n_layers, forms
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    out = dict(path=f"mesh {cfg.name} {cfg.n_layers} layers on "
+               f"{mesh_shape} (query-split attention)",
+               mesh=list(mesh_shape), layers=cfg.n_layers, forms=forms)
+    rng = np.random.default_rng(1)
+
+    def held(what, got, mode, batch, seq):
+        want = query_split_exchanges(cfg, tp, mode, batch, seq)
+        assert got == want, (what, got, want)
+        out[f"{what}_exchanged_bytes"] = dict(got)
+        return got
+
+    def launched(mode, per=1):
+        got = kernels.launches()
+        want = mesh_launches(cfg, K, mode)
+        assert {k: got[k] for k in want} == {
+            k: per * v for k, v in want.items()}, (mode, got, want)
+        for k, v in got.items():
+            counts[k] += v
+
+    # (a) prefill
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, PREFILL_SEQ))).to(dev)
+    ref = bundle.prefill_fn(params, prompt)
+    mesh.reset_exchanged()
+    kernels.reset_launches()
+    logits = sharded.forward(sp, cfg, plan, prompt)[0]
+    launched("prefill")
+    pre_x = held("prefill", dict(mesh.exchanged), "prefill", 1,
+                 PREFILL_SEQ)
+    rel = _rel_to(logits, ref)
+    control = max_err(logits[:, 1:], ref[:, :-1]) / float(ref.abs().max())
+    assert rel <= LLM_TOL and control > LLM_TOL, (rel, control)
+    out.update(prefill_rel_err=rel, prefill_shifted_rel_err=control)
+    del logits, ref
+
+    # (b) generate through the bundle's mesh step
+    z = GEN_PROMPT + GEN_NEW
+    steps = z - 1
+    gen_prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT))).to(dev)
+    step = bundle.jit_decode(mesh, GEN_BATCH, z)
+    c_sh = shd.cache_for(cfg, mesh, GEN_BATCH, z)[1]
+    scache = shd.shard_tree(init_cache(cfg, GEN_BATCH, z, device=dev), c_sh)
+    k_spec = scache["layers"][0]["k"].sharding.spec
+    assert k_spec[1] == "model" and \
+        scache["layers"][0]["k"].parts[0].shape[1] == z // tp, k_spec
+    kernels.reset_launches()
+    toks = greedy_generate(sp, cfg, plan, gen_prompt, GEN_NEW,
+                           step_fn=step, cache=scache)
+    launched("decode", steps)
+    assert step.stats == {"traces": 1, "dispatches": steps}, step.stats
+    dec_x = held("decode_step", dict(step.exchanged), "decode", GEN_BATCH,
+                 z)
+    toks_ref = bundle.generate(params, gen_prompt, GEN_NEW)
+    split = _first_split(toks, toks_ref, lambda col: _unsharded_logits_at(
+        bundle, params, cfg, toks_ref, col, dev))
+    dstep = jit_decode_step(cfg, plan, None, GEN_BATCH, z)
+    c_ref = init_cache(cfg, GEN_BATCH, z, device=dev)
+    c_mesh = shd.shard_tree(init_cache(cfg, GEN_BATCH, z, device=dev), c_sh)
+    last = []
+    for t in range(GEN_PROMPT):
+        a, _ = step(sp, c_mesh, gen_prompt[:, t:t + 1], t)
+        b, _ = dstep(params, c_ref, gen_prompt[:, t:t + 1], t)
+        last = (last + [(a.clone(), b.clone())])[-2:]
+    dec_rel = _rel_to(last[-1][0], last[-1][1])
+    dec_control = (max_err(last[-1][0], last[-2][1])
+                   / float(last[-1][1].abs().max()))
+    assert dec_rel <= DECODE_TOL and dec_control > DECODE_TOL, (
+        dec_rel, dec_control)
+    out.update(decode_rel_err=dec_rel, decode_previous_rel_err=dec_control,
+               cache_k_spec=list(k_spec), **split)
+    del scache, c_mesh, c_ref, step, dstep
+    bundle._steps.clear()
+    bundle._caches.clear()
+    gc.collect()
+
+    # (c) one step's loss and gradients against the unsharded step's
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=PREFILL_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    x, y = data.batch_at(0)
+    batch = {"tokens": torch.from_numpy(x).to(dev),
+             "labels": torch.from_numpy(y).to(dev)}
+    tc = TrainConfig()
+    loss_u, g_u = value_and_grad(make_loss_fn(cfg, plan, tc))(params, batch)
+    off = dataclasses.replace(plan, use_flash_attention=False,
+                              use_fused_mlp=False, use_fused_rmsnorm=False)
+    loss_o, g_o = value_and_grad(make_loss_fn(cfg, off, tc))(params, batch)
+    spread = _leaf_rel(g_o, g_u)
+    loss_spread = abs(float(loss_o) - float(loss_u)) / abs(float(loss_u))
+    del g_o
+    gc.collect()
+    mesh.reset_exchanged()
+    kernels.reset_launches()
+    loss_s, g_s = sharded.value_and_grad(make_mesh_loss_fn(cfg, plan, tc))(
+        sp, batch)
+    launched("train")
+    train_x = held("train", dict(mesh.exchanged), "train", TRAIN_BATCH,
+                   PREFILL_SEQ)
+    err = 0.0
+    for s_, g in zip(shd.tree_leaves(g_s, lambda v: isinstance(
+            v, shd.Sharded)), _leaves(g_u)):
+        full = s_.gather()
+        err = max(err, float(torch.linalg.vector_norm(full - g)
+                             / torch.linalg.vector_norm(g)))
+        del full
+    tol = max(TRAIN_MIN_TOL, 2 * spread)
+    loss_tol = max(TRAIN_MIN_TOL, 2 * loss_spread)
+    loss_err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+    assert loss_err <= loss_tol and err <= tol, (loss_err, loss_tol, err,
+                                                 tol)
+    out.update(train_loss=float(loss_s), unsharded_train_loss=float(loss_u),
+               train_loss_rel_err=loss_err, train_loss_tol=loss_tol,
+               grad_rel_err=err, grad_tol=tol, grad_spread=spread,
+               seconds=time.perf_counter() - t0)
+    results_paths.append(out)
+    log(f"  {cfg.name} ({cfg.n_layers} layers) on {mesh_shape}, attention "
+        f"{forms}: prefill 1x{PREFILL_SEQ} vs unsharded rel err {rel:.3e} "
+        f"(tol {LLM_TOL:g}; shifted {control:.3e}, must exceed it); "
+        f"generate {GEN_BATCH}x({GEN_PROMPT}+{GEN_NEW}), cache "
+        f"{list(k_spec)}, {steps} replays: tokens {split}; decode logits "
+        f"at the last prompt position rel err {dec_rel:.3e} (tol "
+        f"{DECODE_TOL:g}; the position before {dec_control:.3e}, must "
+        f"exceed it); one training step {TRAIN_BATCH}x{PREFILL_SEQ}: loss "
+        f"{float(loss_s):.6f} (unsharded {float(loss_u):.6f}, rel "
+        f"{loss_err:.2e}, limit {loss_tol:.2e}), gradients max leaf rel err "
+        f"{err:.3e} (limit {tol:.3e}); exchanged bytes equal to the "
+        f"formula's: prefill {pre_x}; decode step {dec_x}; train step "
+        f"{train_x}; {out['seconds']:.1f} s")
+    del params, sp, g_s, g_u
+    gc.collect()
+    if str(dev).startswith("cuda"):
+        torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------------
 # phase 13: the dry run against the card
 # --------------------------------------------------------------------------
@@ -5431,13 +5680,21 @@ def main(argv=None) -> int:
                "prefill, generate through ServeBundle.jit_decode(mesh, ...), "
                "jit_train_step with ZeRO-1")
     runs = [lambda: drive_llm_mesh(dataclasses.replace(
-        get_config(LLM_ARCH), n_layers=TRAIN_LAYERS), MESH_LLM, paths)]
+        get_config(LLM_ARCH), n_layers=TRAIN_LAYERS), MESH_LLM, paths),
+            lambda: drive_mesh_tp(dataclasses.replace(
+                get_config(LLM_ARCH), n_layers=MESH_TP_LAYERS), MESH_TP,
+                paths)]
     runs += [functools.partial(drive_mesh_family, arch, layers, shape, dec,
                                paths) for arch, layers, shape, dec
              in MESH_FAMILIES]
     for i, run in enumerate(runs):
-        if i:
-            arch, layers, shape, dec = MESH_FAMILIES[i - 1]
+        if i == 1:
+            card_phase(f"12: {LLM_ARCH} at the production TP, "
+                       f"{MESH_TP_LAYERS} of its layers on make_local_mesh"
+                       f"{MESH_TP}: query-split attention, the decode cache "
+                       "sequence-sharded, the loss vocab-parallel")
+        elif i:
+            arch, layers, shape, dec = MESH_FAMILIES[i - 2]
             card_phase(f"12: the {arch} mesh check, {layers} of its layers "
                        f"on make_local_mesh{shape}")
         counts = run()

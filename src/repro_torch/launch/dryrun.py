@@ -60,9 +60,10 @@ axes.  The walk counts that: it takes each slot's block of the logits
 (``gather_logits=False``) and all-gathers it over the data axes where the
 batch is split, an all-gather in ``collectives`` as in the reference's
 HLO.  ``models.sharded``'s own gather of the logits to slot 0 is not run
-for these cells; the train step's loss does gather them to slot 0 (that
-is the port's step), and ``collectives`` reports that under ``gather``,
-outside ``total``.
+for these cells.  The train step's loss is vocab-parallel on each slot's
+block (``launch.train.vocab_parallel_cross_entropy``), as the reference's
+loss runs on its sharded logits, so it gathers nothing either: a max, two
+sums and the data groups' sum, all-reduces in ``collectives``.
 
 The reference's prefill cell returns the logits alone (the cache entries
 are dead code to XLA), so the walk runs the forward without building

@@ -132,7 +132,7 @@ class NamedSharding:
 
 
 #: the kinds of exchange a :class:`DeviceMesh` counts
-EXCHANGES = ("psum", "all_gather", "ppermute", "gather")
+EXCHANGES = ("psum", "pmax", "all_gather", "ppermute", "gather")
 
 
 def _named_devices(device) -> torch.device:
@@ -153,14 +153,15 @@ class DeviceMesh:
     explicit copy or sum (``models.sharded``).
 
     ``exchanged`` counts the bytes that the exchanges moved between
-    slots, by kind: ``psum`` (a fold to the group's first slot and a copy
-    back, ``2·(n−1)·b`` for n parts of b bytes), ``all_gather`` (every
-    slot receives the n−1 parts it does not hold, ``n·(n−1)·b``),
-    ``ppermute`` (every slot of a group receives one part, ``n·b``) and
-    ``gather`` (parts put together on slot 0, the bytes of every part held
-    elsewhere); ``n_<kind>`` counts the exchanges of each kind, one a
-    call that moves bytes, whatever its groups.  :meth:`reset_exchanged`
-    zeroes them."""
+    slots, by kind: ``psum`` and ``pmax`` (a fold to the group's first
+    slot and a copy back, ``2·(n−1)·b`` for n parts of b bytes; both are
+    the reference's all-reduce, with ``add`` and ``max``),
+    ``all_gather`` (every slot receives the n−1 parts it does not hold,
+    ``n·(n−1)·b``), ``ppermute`` (every slot of a group receives one
+    part, ``n·b``) and ``gather`` (parts put together on slot 0, the
+    bytes of every part held elsewhere); ``n_<kind>`` counts the
+    exchanges of each kind, one a call that moves bytes, whatever its
+    groups.  :meth:`reset_exchanged` zeroes them."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence):
@@ -219,9 +220,12 @@ class DeviceMesh:
             i = i * self.shape[a] + c[a]
         return i
 
-    def groups(self, axes: Sequence[str]) -> List[List[int]]:
+    def groups(self, axes: Sequence[str], span: Optional[int] = None
+               ) -> List[List[int]]:
         """The slots in groups that differ only along ``axes`` (names not
-        in the mesh are ignored), each group in order along ``axes``."""
+        in the mesh are ignored), each group in order along ``axes``;
+        with ``span``, each group cut into runs of ``span`` consecutive
+        slots (XLA's replica groups of ``[n/span, span]``)."""
         axes = tuple(a for a in axes if a in self.shape)
         keyed: Dict[Tuple, List[int]] = {}
         for k in range(self.size):
@@ -230,7 +234,10 @@ class DeviceMesh:
             keyed.setdefault(key, []).append(k)
         for members in keyed.values():
             members.sort(key=lambda k: self.index(k, axes))
-        return list(keyed.values())
+        if span is None:
+            return list(keyed.values())
+        return [members[i:i + span] for members in keyed.values()
+                for i in range(0, len(members), span)]
 
     def reset_exchanged(self) -> None:
         for k in self.exchanged:
@@ -290,14 +297,41 @@ class DeviceMesh:
         self.record("psum", moved)
         return parts
 
-    def all_gather(self, parts: Sequence[torch.Tensor], axes: Sequence[str],
-                   dim: int) -> List[torch.Tensor]:
-        """For every group along ``axes``: its parts concatenated along
-        ``dim`` in group order, one whole tensor on each slot of the
-        group.  Differentiable."""
+    @torch.no_grad()
+    def pmax(self, parts: Sequence[torch.Tensor], axes: Sequence[str]
+             ) -> List[torch.Tensor]:
+        """For every group along ``axes``: the parts' elementwise maximum,
+        folded in group order on its first slot, then a copy on every other
+        slot of the group (an all-reduce with ``max``).  Not
+        differentiable: it takes the shift of a softmax, whose gradient
+        does not depend on it."""
+        if len(parts) != self.size:
+            raise ValueError(f"pmax: {len(parts)} parts for {self.size} "
+                             "slots")
         out: List[Optional[torch.Tensor]] = [None] * self.size
         moved = 0
         for members in self.groups(axes):
+            first = members[0]
+            total = parts[first]
+            for k in members[1:]:
+                total = torch.maximum(total, parts[k].to(self.devices[first]))
+            out[first] = total
+            for k in members[1:]:
+                out[k] = total.to(self.devices[k], copy=True)
+            moved += 2 * (len(members) - 1) * (
+                total.numel() * total.element_size())
+        self.record("pmax", moved)
+        return out
+
+    def all_gather(self, parts: Sequence[torch.Tensor], axes: Sequence[str],
+                   dim: int, span: Optional[int] = None
+                   ) -> List[torch.Tensor]:
+        """For every group along ``axes`` (runs of ``span`` slots of it,
+        where given): its parts concatenated along ``dim`` in group order,
+        one whole tensor on each slot of the group.  Differentiable."""
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        moved = 0
+        for members in self.groups(axes, span):
             n = len(members)
             for k in members:
                 out[k] = (torch.cat([parts[j].to(self.devices[k])

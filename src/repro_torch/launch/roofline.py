@@ -78,17 +78,18 @@ def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
     return 2.0 * n * shape.global_batch          # decode: one token per seq
 
 
-#: the reference's collective kinds, by the mesh exchange that is one
-_KINDS = {"all-gather": "all_gather", "all-reduce": "psum",
-          "reduce-scatter": None, "all-to-all": None,
-          "collective-permute": "ppermute"}
+#: the reference's collective kinds, by the mesh exchanges that are one
+_KINDS = {"all-gather": ("all_gather",), "all-reduce": ("psum", "pmax"),
+          "reduce-scatter": (), "all-to-all": (),
+          "collective-permute": ("ppermute",)}
 
 
 def collectives(mesh) -> Dict[str, float]:
     """Per-chip collective bytes by kind (+ ``total``, + ``n_<kind>``),
     the reference's ``parse_collectives`` keys, from ``mesh.exchanged``.
 
-    ``DeviceMesh.psum`` records 2·(n−1)·b a group of n parts of b bytes,
+    ``DeviceMesh.psum`` and ``pmax`` (the all-reduce with ``add`` and
+    with ``max``) record 2·(n−1)·b a group of n parts of b bytes,
     ``all_gather`` n·(n−1)·b (b a part: the result is n·b) and
     ``ppermute`` n·b; where the groups cover every slot, the sum over the
     groups divided by the slots is the reference's 2(n−1)/n × result,
@@ -96,17 +97,18 @@ def collectives(mesh) -> Dict[str, float]:
     reduce-scatter or all-to-all: those stay 0.
 
     ``gather`` (parts put together on slot 0: the mesh walk's global
-    logits and prefill caches) is none of the five kinds, since the
-    reference's cells keep those outputs sharded.  It stands beside them as
-    ``gather`` / ``n_gather``, outside ``total``: the bytes slot 0
-    receives, all of them, since one chip's link carries them."""
+    logits in serving and its prefill caches) is none of the five kinds,
+    since the reference's cells keep those outputs sharded.  It stands
+    beside them as ``gather`` / ``n_gather``, outside ``total``: the
+    bytes slot 0 receives, all of them, since one chip's link carries
+    them.  A train step gathers nothing: its loss is vocab-parallel."""
     x = mesh.exchanged
     out: Dict[str, float] = {}
     for kind, ours in _KINDS.items():
-        out[kind] = x[ours] / mesh.size if ours else 0.0
+        out[kind] = sum(x[k] for k in ours) / mesh.size
     out["total"] = sum(out[k] for k in _KINDS)
     for kind, ours in _KINDS.items():
-        out[f"n_{kind}"] = x[f"n_{ours}"] if ours else 0
+        out[f"n_{kind}"] = sum(x[f"n_{k}"] for k in ours)
     out["gather"] = float(x["gather"])
     out["n_gather"] = x["n_gather"]
     return out

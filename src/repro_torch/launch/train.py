@@ -305,19 +305,66 @@ def mesh_adamw_update(cfg: AdamWConfig, grads, state, params, *,
             info)
 
 
+def vocab_parallel_cross_entropy(parts, labels: torch.Tensor,
+                                 lm_head: shd.Sharded) -> torch.Tensor:
+    """``cross_entropy`` of the global logits, from the slots' blocks of
+    them (``models.sharded.forward(..., gather_logits=False)``: each slot
+    its data group's rows and, where ``lm_head`` splits, its block of the
+    padded vocab), with no logits gathered.  Over the model slots: each
+    row's max (``DeviceMesh.pmax``, a shift the gradient does not see),
+    the sum of the exponentials and the label's logit, given by the slot
+    that holds its column (psums); then the sum of the rows' losses over
+    the data groups (a psum) over the global rows.  The log-softmax runs
+    over all ``padded_vocab`` columns, as ``repro/launch/train.py:33-37``
+    does.  Returns the loss on slot 0 (``cross_entropy`` of its logits
+    where slot 0 holds them all)."""
+    mesh = lm_head.mesh
+    width = parts[0].shape[-1]
+    split_v = width != lm_head.shape[-1]
+    rows = parts[0].shape[0]
+    split_b = rows != labels.shape[0]
+    if not (split_v or split_b):          # slot 0 holds the global logits
+        return cross_entropy(parts[0], labels.to(parts[0].device))
+    model = ("model",) if split_v else ()
+    xs = [p.float() for p in parts]
+    tops = [x.detach().amax(-1, keepdim=True) for x in xs]
+    if split_v:
+        tops = mesh.pmax(tops, model)
+    sums, picked = [], []
+    for k, x in enumerate(xs):
+        g = mesh.index(k, mesh.data_axes or None) if split_b else 0
+        lab = labels[g * rows:(g + 1) * rows].to(x.device).long()
+        local = lab - mesh.index(k, "model") * width if split_v else lab
+        inside = (local >= 0) & (local < width)
+        at = torch.gather(x, -1, local.clamp(0, width - 1)[..., None])
+        picked.append(torch.where(inside, at[..., 0],
+                                  torch.zeros_like(at[..., 0])))
+        sums.append(torch.exp(x - tops[k]).sum(-1))
+    if split_v:
+        sums = mesh.psum(sums, model)
+        picked = mesh.psum(picked, model)
+    losses = [(torch.log(s) + t[..., 0] - ll).sum()
+              for s, t, ll in zip(sums, tops, picked)]
+    if split_b:
+        losses = mesh.psum(losses, mesh.data_axes)
+    return losses[0].to(mesh.devices[0]) / labels.numel()
+
+
 def make_mesh_loss_fn(cfg: ArchConfig, plan: CelloPlan,
                       train_cfg: TrainConfig):
-    """``make_loss_fn`` over the mesh: the per-slot forward's global
-    logits (slot 0) against the global labels."""
+    """``make_loss_fn`` over the mesh: the per-slot forward's blocks of
+    the logits against the global labels, by
+    :func:`vocab_parallel_cross_entropy` (no logits gathered)."""
     from ..models import sharded
     policy = plan.checkpoint_policy() if train_cfg.remat else None
 
     def loss_fn(params, batch):
-        logits, _ = sharded.forward(params, cfg, plan, batch["tokens"],
-                                    frames=batch.get("frames"),
-                                    img=batch.get("img"), mode="train",
-                                    remat_policy=policy)
-        return cross_entropy(logits, batch["labels"].to(logits.device))
+        parts, _ = sharded.forward(params, cfg, plan, batch["tokens"],
+                                   frames=batch.get("frames"),
+                                   img=batch.get("img"), mode="train",
+                                   remat_policy=policy, gather_logits=False)
+        return vocab_parallel_cross_entropy(parts, batch["labels"],
+                                            params["lm_head"])
 
     return loss_fn
 

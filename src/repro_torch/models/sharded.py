@@ -7,25 +7,69 @@ partitioner, so this module walks the mesh's slots itself (the design of
 ``launch/mesh.py``'s solver mesh): the parameters come in per-slot form
 (``launch.shardings.shard_tree`` of ``params_for``'s shardings), each
 slot computes on its own blocks, and every exchange is an explicit
-``DeviceMesh.psum`` / ``all_gather`` / ``gather`` in slot order.
+``DeviceMesh.psum`` / ``pmax`` / ``all_gather`` / ``gather`` in slot
+order.
 
 * **tensor parallel on "model"**, where a block's leaves split whole
-  heads, channels or experts: attention's ``wq``/``wk``/``wv`` by columns
-  (each slot B5 on H/TP query and KVH/TP kv heads) and ``wo`` by rows; the
-  MLP's ``w_gate``/``w_up`` by columns and ``w_down`` by rows (each slot
-  B6 on F/TP hidden columns); the RG-LRU's channels (B8 on D/TP); the
-  RWKV's heads (B9 on H/TP); the MoE's experts (each slot its experts'
-  share of the dispatch and the combine; the router is replicated, so
-  the routes are computed once a data group and every slot of it takes
-  them).  A row-parallel product leaves a partial output on every slot,
-  which is psummed over the model slots;
+  heads, channels or experts: the MLP's ``w_gate``/``w_up`` by columns
+  and ``w_down`` by rows (each slot B6 on F/TP hidden columns); the
+  RG-LRU's channels (B8 on D/TP); the RWKV's heads (B9 on H/TP); the
+  MoE's experts (each slot its experts' share of the dispatch and the
+  combine; the router is replicated, so the routes are computed once a
+  data group and every slot of it takes them).  A row-parallel product
+  leaves a partial output on every slot, which is psummed over the model
+  slots.  Attention takes one of three forms below;
 * **data parallel on "data"** (and "pod"): the batch splits over the data
   slots when they divide it (``launch.shardings.batch_sharding``), else
   every data slot computes all of it;
 * norms are replicated: every slot runs B7 on its own copy of the
   residual stream; ``embed`` is vocab-parallel (each slot looks up the
   tokens in its rows, zeros elsewhere, then a psum); ``lm_head`` is
-  column-parallel, its logits gathered to slot 0 as the global result.
+  column-parallel: serving gathers the logits to slot 0 as the global
+  result, training keeps each slot's block (``forward(...,
+  gather_logits=False)``) for the vocab-parallel loss of
+  ``launch.train.make_mesh_loss_fn``.
+
+**Attention's three forms** (:meth:`_Walk.attn_form`), the reference's
+``constrain(q, "batch", None, "model", None)`` and ``constrain(k / v,
+..., "model", ...)``, each dropped where TP does not divide the heads
+(``repro/models/transformer.py:186-188``, ``repro/models/common.py:67``):
+
+* **split**, where TP divides the kv heads (so the query heads too):
+  ``wq``/``wk``/``wv`` by columns and ``wo`` by rows, each slot B5 on
+  H/TP query and KVH/TP kv heads, then the psum;
+* **query-split**, where TP divides the query heads and KVH divides TP:
+  each slot computes ``q`` for its H/TP heads from its ``wq`` columns and
+  k / v from its ``wk`` / ``wv`` columns (KVH·E/TP of them, a part of
+  one kv head), all-gathered over each run of TP/KVH model slots that
+  together hold one kv head (the reference's compiled HLO gathers k and
+  v in those replica groups, and moves activations, not weights); then
+  B5 on its H/TP query heads against that one kv head, which is the one
+  they read under GQA (head h reads h // (H/KVH)), and ``wo`` by rows
+  with the psum.  The same in train mode (the all-gather is
+  differentiable) and in ``xattn`` (k and v from the image rows);
+* **gather** (the fallback), where TP does not divide the query heads
+  (recurrentgemma-2b's 10 at TP 4 and 16, the reduced configs' 4 at TP
+  8 and 16; the reference leaves q unconstrained there): each slot
+  all-gathers the block's leaves and computes it whole, with no psum.
+  An RWKV layer whose heads, or an MLP, RG-LRU or MoE whose width, TP
+  does not divide would take it too.
+
+**Decode** keeps the cache as ``cache_pspecs`` lays it out.  Split
+attention's cache is head-sharded and each slot attends its own heads.
+Where the kv heads do not split, the cache is sequence-sharded (its
+length Z divides TP) or else replicated.  A sequence-sharded cache is
+never gathered: each slot all-gathers the H query heads (query-split;
+the gather form has them whole) and the new k / v entry, only the slot
+whose block holds the ring position ``pos % Z`` writes the entry (the
+others write back what they hold), each slot takes its block's scores
+with the window and ring masks of ``repro/models/attention.py:126-150``,
+and the slots combine as the reference's HLO does: the scores' max over
+the model slots (``DeviceMesh.pmax``), the sum of their exponentials
+(psum), then the normalized probabilities, rounded to bf16 as the
+unsharded step rounds them, against the slot's block of v, psummed in
+fp32.  A replicated cache takes the whole new entry on every slot, and a
+query-split slot attends its H/TP heads against the kv head they read.
 
 **The sums.**  A row-parallel partial is the product's output in bf16,
 the dtype the reference's products yield (``bf16 @ bf16`` in
@@ -37,20 +81,6 @@ of the sum, and by nothing else.  The embedding's psum adds one nonzero
 row to zeros and is exact.  An MoE combine sums its (token, k) products in
 fp32 across the slots before the sum over k, as the unsharded combine
 does within one slot.
-
-**The gather fallback.**  Where the JAX resolution splits a leaf but not
-along whole heads or channels, each slot all-gathers the block's leaves
-and computes it replicated (no psum).  Among the registered archs at TP
-2 to 16 this is attention alone: in recurrentgemma-2b at every TP > 1
-(10 query heads of 256 and 1 kv head: its 2560 query columns split 4
-ways, its heads do not, and its single kv head never does) and, at TP
-16, in the archs of 8 kv heads (granite-3-8b, granite-moe-1b-a400m,
-h2o-danube-1.8b, llama-3.2-vision-11b, minitron-8b); the reduced
-configs' 2 kv heads take it at TP 4.  An RWKV layer whose heads, or an
-MLP, RG-LRU or MoE whose width, TP does not divide would take it too.
-Such an attention layer's KV cache is sequence-sharded (``cache_pspecs``'
-fallback) or replicated: a decode step gathers it, writes the new entry
-and copies each slot's block back into it.
 
 **MoE groups.**  Each data slot routes its own tokens as one group, the
 JAX package's grouping under a mesh whose data axes split the batch
@@ -76,7 +106,7 @@ from ..configs.base import ArchConfig
 from ..core.policy import CelloPlan
 from ..launch.shardings import Sharded, local_tree, map_tree, tree_leaves
 from . import moe as _moe
-from .common import COMPUTE_DTYPE, bf16, is_gated, tag
+from .common import COMPUTE_DTYPE, apply_rope, bf16, is_gated, tag
 from .recurrent import (apply_rglru_seq, apply_rglru_step, apply_rwkv_seq,
                         apply_rwkv_step)
 from .transformer import (_attend, _check_family, _decode_attend, _mlp,
@@ -149,14 +179,15 @@ class _Walk:
                  else t).to(self.devs[k]) for k in range(self.K)]
 
     def to_global(self, parts: Parts, model_dim: Optional[int],
-                  split: bool) -> torch.Tensor:
+                  split: bool, step: int = 1) -> torch.Tensor:
         """The slots' blocks as one global tensor on slot 0: the model
-        slots' along ``model_dim`` (None: they hold replicas), the data
+        slots' along ``model_dim`` (every ``step``-th of them, where runs
+        of ``step`` hold one block; None: they hold replicas), the data
         groups' along dim 0 (only group 0's where the batch is not
         split)."""
         rows = []
         for members in (self.groups if split else self.groups[:1]):
-            slots = members if model_dim is not None else members[:1]
+            slots = members[::step] if model_dim is not None else members[:1]
             rows.append(self.mesh.gather(parts, slots,
                                          model_dim if model_dim is not None
                                          else 0))
@@ -199,41 +230,75 @@ class _Walk:
 
     # -- blocks ---------------------------------------------------------------
 
-    def _attn_split(self, a: Dict[str, Sharded]) -> bool:
-        cfg = self.cfg
-        return (cfg.n_heads % self.tp == 0 and cfg.n_kv_heads % self.tp == 0
+    def attn_form(self, a: Dict[str, Sharded]) -> str:
+        """How the model slots split the attention layer ``a``: "split",
+        "query" (query-split) or "gather" (the module docstring)."""
+        cfg, tp = self.cfg, self.tp
+        if (cfg.n_heads % tp == 0
                 and all(_splits(a[n], 1) for n in ("wq", "wk", "wv"))
-                and _splits(a["wo"], 0))
+                and _splits(a["wo"], 0)):
+            if cfg.n_kv_heads % tp == 0:
+                return "split"
+            if tp % cfg.n_kv_heads == 0:
+                return "query"
+        return "gather"
 
-    def _local_cfg(self) -> ArchConfig:
+    def _local_cfg(self, form: str) -> ArchConfig:
+        """The heads one slot attends with in ``form``."""
         cfg = self.cfg
+        if form == "gather":
+            return cfg
         return dataclasses.replace(
             cfg, n_heads=cfg.n_heads // self.tp,
-            n_kv_heads=cfg.n_kv_heads // self.tp,
+            n_kv_heads=cfg.n_kv_heads // self.tp if form == "split" else 1,
             head_dim=cfg.resolved_head_dim)
 
     def _views(self, tree, split: bool) -> List[Any]:
         return ([local_tree(tree, k) for k in range(self.K)] if split
                 else self.whole(tree))
 
+    def kv_span(self) -> int:
+        """The model slots whose ``wk`` / ``wv`` columns make up one kv
+        head (query-split form)."""
+        return self.tp // self.cfg.n_kv_heads
+
+    def kv_columns(self, views, srcs: Parts, span: int
+                   ) -> Tuple[Parts, Parts]:
+        """Each slot's ``wk`` and ``wv`` columns on its ``srcs`` rows,
+        all-gathered over runs of ``span`` model slots: (k, v) per slot,
+        (B, T, heads, E) with the heads those runs hold."""
+        E = self.cfg.resolved_head_dim
+        out = []
+        for name in ("wk", "wv"):
+            cols = [srcs[k].to(COMPUTE_DTYPE) @ bf16(views[k][name])
+                    for k in range(self.K)]
+            whole = self.mesh.all_gather(cols, ("model",), -1, span)
+            out.append([t.reshape(*t.shape[:-1], -1, E) for t in whole])
+        return out[0], out[1]
+
     def attend(self, a, hs: Parts, kind: str, positions: Parts,
-               imgs: List) -> Tuple[Parts, List, bool]:
+               imgs: List) -> Tuple[Parts, List, str]:
         cfg = self.cfg
-        split = self._attn_split(a)
-        lcfg = self._local_cfg() if split else cfg
-        views = self._views(a, split)
+        form = self.attn_form(a)
+        lcfg = self._local_cfg(form)
+        views = self._views(a, form != "gather")
+        kvs: List = [None] * self.K
+        if form == "query":
+            ks, vs = self.kv_columns(
+                views, imgs if kind == "xattn" else hs, self.kv_span())
+            kvs = list(zip(ks, vs))
         ys, entries = [], []
         for k in range(self.K):
             y, kv = _attend(views[k], hs[k], cfg=lcfg, plan=self.plan,
                             causal=(not cfg.encoder_only) and kind == "attn",
                             img=imgs[k] if kind == "xattn" else None,
                             rope=not cfg.encoder_only,
-                            positions=positions[k])
+                            positions=positions[k], kv=kvs[k])
             ys.append(y)
             entries.append(kv)
-        if split:
+        if form != "gather":
             ys = self.psum(ys, hs[0].dtype)
-        return ys, entries, split
+        return ys, entries, form
 
     def _rec_split(self, p: Dict[str, Sharded], kind: str) -> bool:
         if kind == "rglru":
@@ -326,13 +391,14 @@ class _Walk:
 
         def mixer(hs):
             if kind in ("attn", "xattn"):
-                ys, entries, split = self.attend(L["attn"], hs, kind,
-                                                 positions, imgs)
+                ys, entries, form = self.attend(L["attn"], hs, kind,
+                                                positions, imgs)
                 if not want_cache:
                     return ys, None
-                dim = 2 if split else None
+                dim = None if form == "gather" else 2
+                step = self.kv_span() if form == "query" else 1
                 return ys, tuple(self.to_global([e[j] for e in entries],
-                                                dim, split_batch)
+                                                dim, split_batch, step)
                                  for j in (0, 1))
             if kind in ("rglru", "rwkv"):
                 ys, entries, split = self.recurrent(L[kind], hs, kind)
@@ -347,31 +413,97 @@ class _Walk:
 
     def decode_attend(self, a, C, hs: Parts, pos: Parts) -> Parts:
         """One query token a sequence against every slot's cache block,
-        written in place; a sequence-sharded cache is gathered, updated and
-        each slot's block copied back."""
-        cfg = self.cfg
-        split = self._attn_split(a)
-        lcfg = self._local_cfg() if split else cfg
-        views = self._views(a, split)
-        kv = {n: C[n] for n in ("k", "v")}
-        seq = not split and _splits(kv["k"], 1)
-        full = ({n: self.mesh.all_gather(kv[n].parts, ("model",), 1)
-                 for n in kv} if seq else
-                {n: kv[n].parts for n in kv})
+        written in place (the module docstring's decode)."""
+        form = self.attn_form(a)
+        views = self._views(a, form != "gather")
+        if form != "split":
+            return self._decode_heads(views, form, C, hs, pos)
+        lcfg = self._local_cfg(form)
         ys = []
         for k in range(self.K):
-            entry = {"k": full["k"][k], "v": full["v"][k],
-                     "pos_idx": C["pos_idx"].parts[k]}
+            entry = {n: C[n].parts[k] for n in ("k", "v", "pos_idx")}
             y, _ = _decode_attend(views[k], entry, hs[k], pos[k],
                                   cfg=lcfg, plan=self.plan, donate=True)
             ys.append(y)
-        if seq:              # each slot's block of the updated cache, back
-            for n in kv:
-                for k in range(self.K):
-                    z = kv[n].parts[k].shape[1]
-                    j = self.slot_m[k]
-                    kv[n].parts[k].copy_(full[n][k][:, j * z:(j + 1) * z])
-        return self.psum(ys, hs[0].dtype) if split else ys
+        return self.psum(ys, hs[0].dtype)
+
+    def _decode_heads(self, views, form: str, C, hs: Parts,
+                      pos: Parts) -> Parts:
+        """``transformer._decode_attend`` for a cache whose kv heads do
+        not split, sequence-sharded or replicated, in the query-split or
+        gather form."""
+        cfg, mesh = self.cfg, self.mesh
+        seq = _splits(C["k"], 1)
+        H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        query = form == "query"
+        qs = [h.to(COMPUTE_DTYPE) @ bf16(views[k]["wq"])
+              for k, h in enumerate(hs)]
+        if query and seq:            # every query head, for the block
+            qs = mesh.all_gather(qs, ("model",), -1)
+        # the new entry's every kv head, for the slot that writes it
+        k_new, v_new = self.kv_columns(views, hs,
+                                       self.tp if query else 1)
+        heads = qs[0].shape[-1] // E
+        scores, blocks = [], []
+        for k in range(self.K):
+            B, p = hs[k].shape[0], pos[k]
+            q = apply_rope(qs[k].reshape(B, 1, heads, E), p[None],
+                           cfg.rope_theta)
+            kn = apply_rope(k_new[k], p[None], cfg.rope_theta)
+            kc, vc, pi = (C[n].parts[k] for n in ("k", "v", "pos_idx"))
+            Zl = kc.shape[1]
+            ring = (p % pi.shape[0]).long()[None]   # index_copy takes int64
+            pi.index_copy_(0, ring, p[None])
+            if seq:
+                # only the block that holds the ring position takes the
+                # entry; the others write back what they hold there
+                j = self.slot_m[k]
+                at = ring - j * Zl
+                mine = (at >= 0) & (at < Zl)
+                at = at.clamp(0, Zl - 1)
+                for c, new in ((kc, kn), (vc, v_new[k])):
+                    c.index_copy_(1, at, torch.where(
+                        mine, new.to(c.dtype), c.index_select(1, at)))
+                pi = pi[j * Zl:(j + 1) * Zl]
+            else:
+                kc.index_copy_(1, ring, kn.to(kc.dtype))
+                vc.index_copy_(1, ring, v_new[k].to(vc.dtype))
+            if heads < H:            # a query-split slot's heads read one
+                h0 = self.slot_m[k] // self.kv_span()
+                kc, vc = kc[:, :, h0:h0 + 1], vc[:, :, h0:h0 + 1]
+            valid = (pi >= 0) & (pi <= p)
+            if cfg.window:
+                valid &= pi > p - cfg.window
+            kvh = kc.shape[2]
+            qg = (q * torch.tensor(E ** -0.5, dtype=q.dtype)).reshape(
+                B, kvh, heads // kvh, E)
+            s = torch.einsum("bkge,btke->bkgt", qg.float(), kc.float())
+            scores.append(torch.where(valid[None, None, None, :], s,
+                                      torch.full_like(s, -1e30)))
+            blocks.append(vc)
+        if seq:                      # the softmax over the model slots
+            top = mesh.pmax([s.amax(-1, keepdim=True) for s in scores],
+                            ("model",))
+            ex = [torch.exp(s - m) for s, m in zip(scores, top)]
+            tot = mesh.psum([e.sum(-1, keepdim=True) for e in ex],
+                            ("model",))
+            prs = [e / t for e, t in zip(ex, tot)]
+        else:
+            prs = [torch.softmax(s, dim=-1) for s in scores]
+        ctx = [torch.einsum("bkgt,btke->bkge", pr.to(vc.dtype).float(),
+                            vc.float()) for pr, vc in zip(prs, blocks)]
+        if seq:
+            ctx = mesh.psum(ctx, ("model",))
+        ys = []
+        for k in range(self.K):
+            B = hs[k].shape[0]
+            c = ctx[k].reshape(B, 1, heads * E)
+            if query and seq:        # the slot's own heads, for wo's rows
+                w = H // self.tp * E
+                c = c[..., self.slot_m[k] * w:(self.slot_m[k] + 1) * w]
+            ys.append((c.to(COMPUTE_DTYPE) @ bf16(views[k]["wo"])
+                       ).to(hs[k].dtype))
+        return self.psum(ys, hs[0].dtype) if query else ys
 
     def decode_recurrent(self, p, state: Sharded, hs: Parts,
                          kind: str) -> Parts:

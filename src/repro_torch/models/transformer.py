@@ -217,18 +217,24 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 def _attend(p_attn, x, *, cfg: ArchConfig, plan: CelloPlan, causal: bool,
             img: Optional[torch.Tensor], rope: bool,
-            positions: torch.Tensor
+            positions: torch.Tensor, kv=None
             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention, or with ``img`` cross-attention: K/V from the
-    ``vision_seq`` image rows, without rope or window."""
+    ``vision_seq`` image rows, without rope or window.  ``kv`` is (k, v)
+    before rope, (B, T, KVH, E) each, made by the caller in place of the
+    products with ``wk`` / ``wv`` (the mesh's query-split form gathers
+    them)."""
     B, S, D = x.shape
     H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
     q = (xc @ bf16(p_attn["wq"])).reshape(B, S, H, E)
-    src = xc if img is None else img.to(COMPUTE_DTYPE)
-    T = src.shape[1]
-    k = (src @ bf16(p_attn["wk"])).reshape(B, T, KVH, E)
-    v = (src @ bf16(p_attn["wv"])).reshape(B, T, KVH, E)
+    if kv is None:
+        src = xc if img is None else img.to(COMPUTE_DTYPE)
+        T = src.shape[1]
+        k = (src @ bf16(p_attn["wk"])).reshape(B, T, KVH, E)
+        v = (src @ bf16(p_attn["wv"])).reshape(B, T, KVH, E)
+    else:
+        k, v = kv
     if rope and img is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

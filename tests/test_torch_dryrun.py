@@ -98,16 +98,21 @@ def test_reduced_prefill_cell_against_the_jax_dry_run(jax_cell):
     and output bytes equal XLA's exactly.  The counts are another
     program's, so they agree within stated ratios:
 
-    * FLOPs within [1, 3] of XLA's: at TP 4 the reduced config's 2 kv
-      heads take the gather fallback, so its attention (projections,
-      B5, output product) runs whole on each of 4 model slots where
-      GSPMD splits it (the port counts ~1.7x);
+    * FLOPs within [0.7, 0.91] of XLA's (a band 1.3 wide): at TP 4 the
+      reduced config's attention is query-split, one query head a slot
+      as GSPMD splits it, so both count the same products; but the port
+      counts no elementwise op where XLA adds about one an element, and
+      B5 counts the causal pairs it keeps where XLA's CPU attention
+      computes the masked half too (the port counts ~0.77x; with the
+      masked pairs ~0.85x);
     * bytes within [1/3, 3]: eager ops are unfused (every intermediate
       written and read again), while XLA fuses them but counts each
       fusion's operands, and its attention re-reads K/V per query block;
-    * collective bytes within [1/3, 3]: the fallback all-gathers the
-      attention weights where GSPMD psums partial scores (the port moves
-      ~0.7x); and 0 on an (8, 1) mesh, where nothing is exchanged."""
+    * collective bytes within [1/3, 3]: the query-split form all-gathers
+      the k and v columns in runs of TP/KVH = 2 slots, as GSPMD's replica
+      groups do, but applies rope after the gather where GSPMD exchanges
+      halves of heads for it (the port moves ~0.8x); and 0 on an (8, 1)
+      mesh, where nothing is exchanged."""
     got = _reduced_cell((2, 4), logits_batch_split=True)
     mem = got["memory"]
     assert mem["arguments"] == {"params": 126720, "batch": 512}
@@ -117,7 +122,7 @@ def test_reduced_prefill_cell_against_the_jax_dry_run(jax_cell):
     flops = got["cost"]["flops_per_chip"] / jax_cell["flops"]
     nbytes = got["cost"]["bytes_per_chip"] / jax_cell["bytes"]
     coll = got["collectives"]["total"] / jax_cell["coll_total"]
-    assert 1.0 <= flops <= 3.0, (flops, got["cost"], jax_cell)
+    assert 0.7 <= flops <= 0.91, (flops, got["cost"], jax_cell)
     assert 1 / 3 <= nbytes <= 3.0, (nbytes, got["cost"], jax_cell)
     assert 1 / 3 <= coll <= 3.0, (coll, got["collectives"], jax_cell)
     assert got["collectives"]["gather"] == 0.0
@@ -197,12 +202,16 @@ def test_every_reduced_cell_walks_on_meta(arch, shape):
 def test_remat_train_step_runs_on_meta():
     """The repaired ``repro_torch::tag`` fake: the reduced granite mesh
     train step on a (2, 4) meta mesh with ``TrainConfig(remat=True)``;
-    remat runs each layer's kernels twice."""
+    remat runs each layer's kernels twice and lowers the peak.  At 64
+    tokens a row the activations held at the loss set the peak; at 16,
+    with the loss vocab-parallel (no global logits on slot 0), the peak
+    is layer 0's backward, where every parameter gradient is live and
+    remat holds its recomputed layer besides (640 bytes a slot more)."""
     torch.set_num_threads(1)
     cfg = get_config("granite-3-8b").reduced()
     mesh = make_local_mesh(2, 4, device="meta")
-    plan = default_plan(cfg, seq=16)
-    spec = ShapeSpec("cell", 16, 4, "train")
+    plan = default_plan(cfg, seq=64)
+    spec = ShapeSpec("cell", 64, 4, "train")
     on = dryrun.walk_cell(cfg, spec, mesh, plan, remat=True)
     off = dryrun.walk_cell(cfg, spec, mesh, plan, remat=False)
     n = 8 * cfg.n_layers

@@ -7,9 +7,9 @@ Reduced configs of one arch a family (granite-3-8b, granite-moe-1b-a400m,
 recurrentgemma-2b, rwkv6-7b, hubert-xlarge, llama-3.2-vision-11b), weights
 from JAX ``init_params`` through ``params_from_numpy``, on meshes of 4
 slots: (2, 2) (data and model) and (1, 4) (TP 4: the reduced configs' 2 kv
-heads do not split 4 ways, so attention takes the gather fallback and the
-cache is sequence-sharded).  Logits and caches are held to ``ULPS`` bf16
-ulps at the tensor's largest magnitude, the standard of
+heads do not split 4 ways, so attention is query-split, one query head a
+slot, and the cache is sequence-sharded).  Logits and caches are held to
+``ULPS`` bf16 ulps at the tensor's largest magnitude, the standard of
 ``tests/test_torch_models.py``: the sharded model sums its row-parallel
 partials in another order and rounds each partial to bf16.  Against the
 port, the plans' kernel flags are on (the kernels' plain versions on the
@@ -275,8 +275,8 @@ def test_mesh_of_one_slot_is_the_unsharded_step_bitwise():
         got, c2 = step(sp, c2, tok[:, t:t + 1], t)
         assert torch.equal(got, want)
     assert step.exchanged == dict.fromkeys(
-        ("psum", "all_gather", "ppermute", "gather", "n_psum", "n_all_gather",
-         "n_ppermute", "n_gather"), 0)
+        ("psum", "pmax", "all_gather", "ppermute", "gather", "n_psum",
+         "n_pmax", "n_all_gather", "n_ppermute", "n_gather"), 0)
     # the returned cache is the per-slot one, so the step traced once
     assert step.stats == {"traces": 1, "dispatches": 4}
     for a, b in zip(shd.tree_leaves(shd.gather_tree(c2)),
