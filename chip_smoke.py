@@ -49,7 +49,12 @@ Phases, each of which raises (exit code 1) on failure:
    queries over 6404 image keys and its causal self-attention; the MoE
    archs' causal GQA; B6: hubert's ungated gelu, D 1280, F 5120, and the
    vlm's gated silu, D 4096, F 14336, at 1024 and 4 rows; B7 at d 1024,
-   1280 and 2048); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D
+   1280, 2048, 2560 and 3072 (``B7_WIDTHS``): each case also bitwise from
+   call to call, its time with the L2 warm and, from 1024 rows, emptied
+   (the share of its bound taken on the latter), at 4 rows an empty
+   kernel's time beside it; the same rows bitwise at
+   1, 4, 1024 and 4096 rows; the general path on a view that is not
+   16-byte aligned (bitwise the aligned call) and at d 1001); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D
    2560, also phase 11's hybrid training batch) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
    layout; also at phase 11's batch 4), in bf16 and fp32, each with and without an initial state (B8
@@ -516,14 +521,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, inner: int = 10, reps: int = 5) -> float:
-    """Device milliseconds per call: ``inner`` calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events, so host launch
-    overhead drops out."""
+def _captured(fn, inner):
+    """``inner`` calls of ``fn`` captured in one CUDA graph (after two
+    warm-up calls off-graph, which compile), replayed once."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):            # warm-up (compiles) off-graph
+    with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
@@ -533,6 +537,15 @@ def graph_ms(fn, inner: int = 10, reps: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, inner: int = 10, reps: int = 5) -> float:
+    """Device milliseconds per call: ``inner`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so host launch
+    overhead drops out."""
+    import torch
+    graph = _captured(fn, inner)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -609,10 +622,13 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-#: the B5/B6 kernels that must not spill (mangled names contain these):
-#: B6's tensor-core and rows kernels, each an up and a down kernel
+#: the kernels that must not spill (mangled names contain these): B5's
+#: bf16 kernel, B6's tensor-core and rows kernels, each an up and a down
+#: kernel, and every instantiation of B7's vector and general kernels (the
+#: row held in registers)
 NO_SPILL = ("flash_bf16_kernel", "mlp_tc_up_kernel", "mlp_tc_down_kernel",
-            "mlp_rows_up_kernel", "mlp_rows_down_kernel")
+            "mlp_rows_up_kernel", "mlp_rows_down_kernel", "rmsnorm_kernel",
+            "rmsnorm_general_kernel")
 
 
 def ptxas_usage(log_text, names):
@@ -908,11 +924,28 @@ def check_spmv(csr, results, dtypes):
                flops=2 * nnz, times=times)
 
 
-def cold_ms(fn, flush, inner: int = 10, reps: int = 3) -> float:
-    """Device milliseconds per call of ``fn`` with the L2 flushed before
-    each call (a 256 MB write), the flush's own time taken off."""
-    both = graph_ms(lambda: (flush.fill_(1.0), fn()), inner, reps)
-    return both - graph_ms(lambda: flush.fill_(1.0), inner, reps)
+def cold_ms(fn, flush, inner: int = 10, reps: int = 15) -> float:
+    """Device milliseconds per call of ``fn`` with the L2 emptied before
+    each call by ``flush()`` (a 256 MB write or read), the flush's own time
+    taken off: the graphs of ``inner`` x (``flush()``, ``fn()``) and of
+    ``inner`` x ``flush()`` replayed in turns ``reps`` times each, and the
+    difference of their medians, a call (a call of a few microseconds is
+    of the size of the flush's own jitter)."""
+    import statistics
+    import torch
+    graphs = (_captured(lambda: (flush(), fn()), inner), _captured(flush,
+                                                                  inner))
+    times = ([], [])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        for graph, out in zip(graphs, times):
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+    return (statistics.median(times[0]) - statistics.median(times[1])) / inner
 
 
 def check_spmv_sliced(csr, prefix_rows, results, dtypes):
@@ -935,6 +968,9 @@ def check_spmv_sliced(csr, prefix_rows, results, dtypes):
     indptr = torch.from_numpy(indptr_np).cuda()
     indices = torch.from_numpy(indices_np).cuda()
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def fill():                  # empties the L2 by a 256 MB write
+        return flush.fill_(1.0)
     l2 = l2_state()
     for dt in dtypes:
         tdt = getattr(torch, dt)
@@ -974,9 +1010,9 @@ def check_spmv_sliced(csr, prefix_rows, results, dtypes):
         # B3 with the prefix hinted (``ms``), with no hint (prefix 0), and
         # B2, back to back in turns
         extra = dict(spmv_b2_ms=graph_ms(b2), unhinted_ms=graph_ms(
-            lambda: b3(0)), cold_ms=cold_ms(b3, flush),
-            unhinted_cold_ms=cold_ms(lambda: b3(0), flush),
-            spmv_b2_cold_ms=cold_ms(b2, flush))
+            lambda: b3(0)), cold_ms=cold_ms(b3, fill),
+            unhinted_cold_ms=cold_ms(lambda: b3(0), fill),
+            spmv_b2_cold_ms=cold_ms(b2, fill))
         extra.update(hinted_again_ms=graph_ms(b3),
                      unhinted_again_ms=graph_ms(lambda: b3(0)),
                      spmv_b2_again_ms=graph_ms(b2))
@@ -1282,15 +1318,95 @@ def _hold(label, got, want, dt):
     return err, excess
 
 
-def check_rmsnorm(results, d=4096, eps=1e-6):
+#: B7's widths in phase 3: granite-3-8b, rwkv6-7b, minitron-8b and
+#: llama-3.2-vision-11b 4096, granite-moe-1b-a400m 1024, hubert-xlarge
+#: 1280, moonshot-v1-16b-a3b 2048, recurrentgemma-2b and h2o-danube-1.8b
+#: 2560, gemma-7b 3072
+B7_WIDTHS = (4096, 1024, 1280, 2048, 2560, 3072)
+#: B7's targets on the cold-L2 time, as shares of its bytes bound: every
+#: case of 1024 rows or more, and the training case (4096 x 4096 bf16,
+#: 67 MB, beyond the L2)
+B7_COLD_SHARE, B7_TRAIN_COLD_SHARE = 0.5, 0.85
+#: an empty kernel: the floor of one launch in ``graph_ms``
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void cello_empty_kernel() {}
+extern "C" int cello_empty(void* stream) {
+  cello_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_b7_floor():
+    """``nvcc``, started beside phase 2's build, for B7's floor: the empty
+    kernel, into a library under the build directory.  The process is
+    stopped at exit if it still runs."""
+    import atexit
+    from repro_torch.kernels import build
+    out = build.build_dir() / "b7_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_CU)
+    lib = out / "libb7_floor.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS[:-2],
+                             "-shared", str(out / "empty.cu"), "-o",
+                             str(lib)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, lib
+
+
+def b7_floor(started):
+    """The library of ``start_b7_floor``, built and loaded: the empty
+    kernel's launcher."""
+    import ctypes
+    import torch
+    proc, path = started
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for B7's empty kernel:\n{text}")
+    lib = ctypes.CDLL(str(path))
+    lib.cello_empty.argtypes = [ctypes.c_void_p]
+    lib.cello_empty.restype = ctypes.c_int
+
+    def empty():
+        err = lib.cello_empty(torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("empty kernel", err)
+    return empty
+
+
+def _turns(new, old, timer):
+    """(new, old) by ``timer``, read old, new, new, old: each the mean of
+    its two readings, so that a drift of the card's speed cancels."""
+    o1, n1, n2, o2 = timer(old), timer(new), timer(new), timer(old)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+#: B7's device time: 200 calls a reading (a call is 2-30 us)
+b7_ms = functools.partial(graph_ms, inner=20, reps=10)
+
+
+def check_rmsnorm(results, empty, flush, d=4096, eps=1e-6):
     """B7 at the prefill's 1024 rows and a decode step's 4 rows, at width
-    ``d`` (4096: granite-3-8b; 1024, 1280 and 2048: granite-moe-1b-a400m,
-    hubert-xlarge and moonshot-v1-16b-a3b); at d 4096 also at the training
-    step's 4096 rows (bf16, phase 11)."""
+    ``d`` (``B7_WIDTHS``), in fp32 and bf16; at d 4096 also at the
+    training step's 4096 rows (bf16, phase 11).  Each case within one bf16
+    rounding / ``KERNEL_TOL`` of the plain version and bitwise from call
+    to call; its warm time (``b7_ms``: the model's case, x just written)
+    beside ``F.rms_norm``'s.  From 1024 rows also its cold time
+    (``cold_ms`` with ``flush``, a 256 MB read that empties the L2,
+    so that x comes from HBM and y's lines go back to it), the share of
+    the bytes bound on it (above 1: a fault of the measurement, said so),
+    and warm and cold the time of ``y.copy_(x)``: the same bytes with no
+    arithmetic, what the harness lets any kernel reach.  At 4 rows the
+    empty kernel's time (``empty``), the floor.  Then per dtype
+    the same rows bitwise at 1, 4, 1024 and 4096 rows and at an offset,
+    and the general path on a view that is not 16-byte aligned, bitwise
+    the aligned call."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import (launch_shape, rmsnorm,
+                                             rmsnorm_plain)
     from repro_torch.kernels.rmsnorm import work as rmsnorm_work
     rng = np.random.default_rng(21)
     w = _rand(rng, (d,), torch.float32, 0.1)
@@ -1302,19 +1418,121 @@ def check_rmsnorm(results, d=4096, eps=1e-6):
         for dt in dts:
             x = _rand(rng, (rows, d), getattr(torch, dt))
             got = rmsnorm(x, w, eps=eps)
+            again = rmsnorm(x, w, eps=eps)
             torch.cuda.synchronize()
+            assert torch.equal(got, again), ("B7 run to run", rows, d, dt)
             want = rmsnorm_plain(x, w, eps=eps)
             err, rel = _hold("rmsnorm", got, want, dt)
             w1 = (1.0 + w).to(x.dtype)
-            times = measure(lambda: rmsnorm(x, w, eps=eps),
-                            lambda: rmsnorm_plain(x, w, eps=eps),
-                            lambda: F.rms_norm(x, (d,), w1, eps))
+
+            def new():
+                return rmsnorm(x, w, eps=eps)
+
+            def library():
+                return F.rms_norm(x, (d,), w1, eps)
+            y_copy = torch.empty_like(x)
+
+            def copy():
+                return y_copy.copy_(x)
+            cold = rows >= PREFILL_SEQ
+            extra = dict(launch_shape=launch_shape(d, x.dtype)._asdict())
+            times = dict(call_ms=cuda_ms(new),
+                         plain_ms=graph_ms(lambda: rmsnorm_plain(x, w,
+                                                                 eps=eps)))
+            times["ms"], times["library_ms"] = _turns(new, library, b7_ms)
+            if cold:
+                extra["cold_ms"], extra["library_cold_ms"] = _turns(
+                    new, library, lambda f: cold_ms(f, flush))
+                extra["copy_ms"] = _turns(new, copy, b7_ms)[1]
+                extra["copy_cold_ms"] = _turns(
+                    new, copy, lambda f: cold_ms(f, flush))[1]
+            else:
+                extra["floor_ms"] = _turns(new, empty, b7_ms)[1]
             flops, nbytes = rmsnorm_work(x, w)
+            b_ms = bound_ms(nbytes, flops, "float32")[0]
+            notes = [f"shape {tuple(extra['launch_shape'].values())}"]
+            if cold:
+                share = b_ms / extra["cold_ms"]
+                target = (B7_TRAIN_COLD_SHARE if rows > PREFILL_SEQ
+                          else B7_COLD_SHARE)
+                extra.update(cold_share=share, cold_share_target=target,
+                             cold_share_met=share >= target,
+                             cold_share_fault=share > 1.0)
+                notes.append(f"cold {extra['cold_ms']:.5f} ms ("
+                             f"F.rms_norm {extra['library_cold_ms']:.5f}, "
+                             f"a copy of x {extra['copy_cold_ms']:.5f}; "
+                             f"warm {extra['copy_ms']:.5f}), "
+                             f"{share:.1%} of the bound (target "
+                             f"{target:.0%}: "
+                             f"{'met' if share >= target else 'MISSED'})")
+                if share > 1.0:
+                    notes.append("MEASUREMENT FAULT: the cold time is "
+                                 "below the bytes bound")
+            else:
+                notes.append(f"launch-bound: empty kernel "
+                             f"{extra['floor_ms']:.5f} ms")
             record(results, "B7 rmsnorm", kernel="rmsnorm",
                    case=f"rows={rows} d={d}", dtype=dt, err=err,
                    rel_err=rel, tol=KERNEL_TOL["float32"] if dt == "float32"
                    else "1 bf16 rounding", nbytes=nbytes,
-                   flops=flops, times=times, peak="float32")
+                   flops=flops, times=times, peak="float32", **extra)
+            log(f"    rows={rows} d={d} {dt}: " + "; ".join(notes))
+    for dt in both:
+        X = _rand(rng, (TRAIN_BATCH * TRAIN_SEQ, d), getattr(torch, dt))
+        full = rmsnorm(X, w, eps=eps)
+        for lo, hi in ((0, 1), (0, 4), (0, PREFILL_SEQ), (5, 9)):
+            assert torch.equal(rmsnorm(X[lo:hi], w, eps=eps), full[lo:hi]), \
+                ("B7 rows", lo, hi, d, dt)
+        buf = torch.empty(PREFILL_SEQ * d + 1, dtype=X.dtype, device="cuda")
+        view = buf[1:].view(PREFILL_SEQ, d)
+        view.copy_(X[:PREFILL_SEQ])
+        assert view.data_ptr() % 16, "the view should not be aligned"
+        got = rmsnorm(view, w, eps=eps)
+        _hold("rmsnorm unaligned", got, rmsnorm_plain(view, w, eps=eps), dt)
+        assert torch.equal(got, full[:PREFILL_SEQ]), ("B7 unaligned", d, dt)
+    log(f"  B7 d={d}: bitwise at 1, 4, {PREFILL_SEQ} and "
+        f"{TRAIN_BATCH * TRAIN_SEQ} rows and at rows 5-8; the general path "
+        "on an unaligned view bitwise the aligned call")
+
+
+def check_rmsnorm_odd(results, d=1001, eps=1e-6):
+    """B7's general path at a width that is no multiple of the 16-byte
+    vector: 1024 rows within one bf16 rounding / ``KERNEL_TOL`` of the
+    plain version, bitwise from call to call, the same rows bitwise at 1
+    and 4 rows; timed beside the plain version and, in turns with it,
+    ``F.rms_norm``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import (launch_shape, rmsnorm,
+                                             rmsnorm_plain)
+    from repro_torch.kernels.rmsnorm import work as rmsnorm_work
+    rng = np.random.default_rng(22)
+    w = _rand(rng, (d,), torch.float32, 0.1)
+    for dt in ("float32", "bfloat16"):
+        assert not launch_shape(d, getattr(torch, dt)).vector, (d, dt)
+        x = _rand(rng, (PREFILL_SEQ, d), getattr(torch, dt))
+        full = rmsnorm(x, w, eps=eps)
+        assert torch.equal(full, rmsnorm(x, w, eps=eps)), ("B7", d, dt)
+        for rows in (1, GEN_BATCH):
+            assert torch.equal(rmsnorm(x[:rows], w, eps=eps), full[:rows])
+        err, rel = _hold("rmsnorm odd", full, rmsnorm_plain(x, w, eps=eps),
+                         dt)
+        flops, nbytes = rmsnorm_work(x, w)
+        w1 = (1.0 + w).to(x.dtype)
+        times = dict(call_ms=cuda_ms(lambda: rmsnorm(x, w, eps=eps)),
+                     plain_ms=graph_ms(lambda: rmsnorm_plain(x, w, eps=eps)))
+        times["ms"], times["library_ms"] = _turns(
+            lambda: rmsnorm(x, w, eps=eps),
+            lambda: F.rms_norm(x, (d,), w1, eps), b7_ms)
+        log(f"    rows={PREFILL_SEQ} d={d} {dt} (general path): "
+            f"{times['ms']:.5f} ms, F.rms_norm {times['library_ms']:.5f} "
+            "ms")
+        record(results, "B7 general", kernel="rmsnorm",
+               case=f"rows={PREFILL_SEQ} d={d} (general path)", dtype=dt,
+               err=err, rel_err=rel, tol=KERNEL_TOL["float32"]
+               if dt == "float32" else "1 bf16 rounding", nbytes=nbytes,
+               flops=flops, times=times, peak="float32")
 
 
 #: B5's arithmetic per operand type, and the peak that bounds it: bf16 on
@@ -5448,6 +5666,7 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build
     card_phase("2: build")
+    b7_started = start_b7_floor()
     build.cuda_library()
     log(f"  CUDA C++ kernels built in {build.build_seconds:.2f} s "
         f"({build.build_dir()})")
@@ -5457,9 +5676,9 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
     spills = {e: u["spill_bytes"] for e, u in ptxas_usage(
         build.build_log(), NO_SPILL).items()}
-    log(f"  spill bytes (stores + loads) of the tensor-core and rows "
+    log(f"  spill bytes (stores + loads) of the tensor-core, rows and B7 "
         f"kernels: {spills}")
-    assert spills and not any(spills.values()), ("B5/B6 spill", spills)
+    assert spills and not any(spills.values()), ("B5/B6/B7 spill", spills)
 
     dtypes = ("float32", "float64")
     results, paths = [], []
@@ -5508,9 +5727,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     check_off_path(dtypes)
     log(f"  off-path checks took {time.perf_counter() - t0:.1f} s")
-    check_rmsnorm(results)
-    for d in (1024, 1280, 2048):
-        check_rmsnorm(results, d=d)
+    b7_empty = b7_floor(b7_started)
+    b7_flush = torch.ones(64 << 20, device="cuda")      # 256 MB, read
+    b7_sum = torch.empty((), device="cuda")
+    for d in B7_WIDTHS:
+        check_rmsnorm(results, b7_empty,
+                      lambda: torch.sum(b7_flush, 0, out=b7_sum), d=d)
+    check_rmsnorm_odd(results)
+    del b7_flush
     check_flash(results)
     check_flash_hybrid(results)
     check_flash_families(results)

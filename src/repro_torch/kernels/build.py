@@ -132,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     for name in ("cello_rmsnorm_bf16", "cello_rmsnorm_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, i32, i32, f64, vp]
+        fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, f64, vp]
         fn.restype = i32
     for name in ("cello_flash_attention_bf16", "cello_flash_attention_f32"):
         fn = getattr(lib, name)
