@@ -54,8 +54,16 @@ Phases, each of which raises (exit code 1) on failure:
    (the share of its bound taken on the latter), at 4 rows an empty
    kernel's time beside it; the same rows bitwise at
    1, 4, 1024 and 4096 rows; the general path on a view that is not
-   16-byte aligned (bitwise the aligned call) and at d 1001); B8 (RG-LRU scan, recurrentgemma-2b: B 1, S 4096, D
-   2560, also phase 11's hybrid training batch) and B9
+   16-byte aligned (bitwise the aligned call), at d 1001, and past one
+   CTA's registers, walked in chunks, at d 12288 fp32 and 20480 bf16
+   (16-byte vectors, 4 and 1024 rows, an unaligned view's scalars
+   bitwise) and d 16390 bf16 (scalars), ``B7_GENERAL``); B5 and B6 at
+   the shapes of the dense archs that phase 5 serves (B5: gemma-7b's 16
+   heads of E 256 at 1x1024 and h2o-danube-1.8b's 32 over 8 heads of E 80
+   with its 4096 window at 1x8192, SDPA with a band mask beside it; B6: gemma-7b's gated
+   gelu, D 3072, F 24576, and minitron-8b's ungated relu², D 4096, F
+   16384, at 1024 and 4 rows); B8 (RG-LRU scan, recurrentgemma-2b: B 1,
+   S 4096, D 2560, also phase 11's hybrid training batch) and B9
    (WKV6, rwkv6-7b: B 1, H 64, S 1024, E 64, on the model's strided
    layout; also at phase 11's batch 4), in bf16 and fp32, each with and without an initial state (B8
    also with long memory, Λ over [-12, -7], and at sequences that are no
@@ -63,9 +71,15 @@ Phases, each of which raises (exit code 1) on failure:
    by the profiler and a second call repeating bitwise; B9 also with
    strong decays, w over [-8, 3]);
 4. the HPC path, ``Session(device="cuda") -> trace -> analyze -> codesign
-   -> lower(backend="cuda") -> run()``: cg(n=4096, iters=64),
-   cg_sparse(n=2^20, iters=64, laplacian5) in fp32 and fp64, and
-   jacobi2d(n=4096, sweeps=8); then the overbooked cells,
+   -> lower(backend="cuda") -> run()`` on every workload (``HPC_PATHS``):
+   cg(n=4096, iters=64), cg_sparse(n=2^20, iters=64, laplacian5) in fp32
+   and fp64, and jacobi2d(n=4096, sweeps=8); then, in fp32 and fp64,
+   bicgstab(n=4096, iters=16), gmres(n=4096, restart=6),
+   power_iteration(n=4096, iters=64), mttkrp(256^3, rank 64; two torch
+   einsums, no kernel of ours), bicgstab_sparse(n=2^20, iters=8,
+   laplacian5) and (n=131072, iters=16, random, density 1e-3) (deeper
+   gmres and Laplacian bicgstab part any two summation orders by more
+   than the limits: ``GMRES_RESTART``); then the overbooked cells,
    ``Session(device="cuda", capacity_bytes=40 << 20)`` with
    cg_sparse(n=131072, iters=64) and jacobi_sparse(n=131072, sweeps=64)
    on a banded operand (bandwidth 16), codesigned with ``overbook=0.25``
@@ -76,8 +90,11 @@ Phases, each of which raises (exit code 1) on failure:
    every lane bitwise equal to its unbatched run(), one graph replay a
    batch, timed beside 16 sequential run() and the twin's batch.
    Each is held against the port's
-   ``reference`` backend on the card and against numpy (relative residual
-   of the returned x, or a numpy replay of the sweeps); each Krylov path
+   ``reference`` backend on the card and against numpy by its witness
+   (``Witness``: the relative residual of the returned x; power
+   iteration's lam against the Rayleigh quotient of its x; gmres's
+   ‖v_m‖ = 1; mttkrp against ``numpy.einsum`` in fp64; or a numpy replay
+   of the sweeps); each Krylov path and mttkrp
    also holds its limits against a control, the reference computed with
    its products' operands cut to TF32 (fp32) or fp32 (fp64), which the
    limits must reject; the launch counts of B1, B2, B3, B4 and B3's lane
@@ -93,10 +110,13 @@ Phases, each of which raises (exit code 1) on failure:
    Then cg and jacobi2d run at once on two threads
    (``check_two_threads``): each program's ``stats`` must count its own
    runs, dispatches and launches only;
-5. the LLM serving path at full width, ``Session("granite-3-8b",
+5. the dense archs' serving paths at full width and depth, one model at
+   a time, ``Session("granite-3-8b",
    device="cuda").trace("prefill", batch=1, seq=1024) -> analyze ->
    codesign -> lower() -> serve()``, random fp32 weights from seed 0
-   (40 layers, 8.37 B parameters, ~34 GB of card memory): one prefill of a
+   (40 layers, 8.37 B parameters, ~34 GB of card memory), then gemma-7b
+   (28 layers), minitron-8b (32) and h2o-danube-1.8b (24; a 1x8192
+   prefill, twice its window): one prefill of a
    1x1024 prompt (B5, B6, B7) and ``generate`` of 4 prompts x 16 tokens +
    32 new tokens (decode: B6 at 4 rows, B7), the same again with every
    kernel entry point swapped for its plain version, and the agreements
@@ -269,6 +289,7 @@ import subprocess
 import sys
 import threading
 import time
+import typing
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -326,7 +347,8 @@ CU_DEVICE_ATTRIBUTE_MAX_PERSISTING_L2_CACHE_SIZE = 108
 #: to a few ulps of the sums' scale
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 #: main path vs the reference backend, max |err| <= TOL * scale, scale =
-#: max(max |reference|, max |b|): 64 Krylov iterations carry the reduction
+#: max(max |reference|, max |b|), for a solution x max |reference| alone
+#: (``_rel_err``): 64 Krylov iterations carry the reduction
 #: order's rounding from step to step.  Each Krylov path also runs a
 #: control (``tolerance_control``) that these limits must reject.
 PATH_TOL = {"float32": 1e-5, "float64": 1e-13}
@@ -380,6 +402,24 @@ RWKV_TOL = 1e-1
 #: run's logits against the fp32 plain run's are its control and must
 #: fail it.  Beside it, the bf16 readings at a second prompt seed
 FP32_WITNESS_TOL = 1e-4
+#: the dense archs served at full width beside granite-3-8b, at all their
+#: layers: gemma-7b (MHA of E 256, gated gelu F 24576, vocab 256 000),
+#: minitron-8b (GQA 32/8, ungated relu² F 16384, vocab 256 000) and
+#: h2o-danube-1.8b, whose prefill of 8192 tokens is twice its 4096-token
+#: window, so that the window bites (as recurrentgemma-2b's 4096 against
+#: 2048)
+GEMMA_ARCH, MINITRON_ARCH, DANUBE_ARCH = ("gemma-7b", "minitron-8b",
+                                          "h2o-danube-1.8b")
+DANUBE_SEQ = 8192
+
+
+def dense_launches(layers):
+    """A dense arch's launches per prefill: B5 and B6 once a layer, B7
+    twice a layer and once for the final norm."""
+    return {"flash_attention": layers, "fused_mlp": layers,
+            "rmsnorm": 2 * layers + 1, "rglru": 0, "wkv6": 0}
+
+
 #: the serving paths, in order: (arch, prefill length, the trace's
 #: ``layer_kind``, launches per prefill, (LLM limit, decode limit),
 #: layers (None: all)).  A
@@ -388,8 +428,13 @@ FP32_WITNESS_TOL = 1e-4
 #: default trace is an rglru layer, which has no scores/pv group, and
 #: lowers to flash attention off
 SERVE_PATHS = (
-    (LLM_ARCH, PREFILL_SEQ, None, {"flash_attention": 40, "fused_mlp": 40,
-                                   "rmsnorm": 81, "rglru": 0, "wkv6": 0},
+    (LLM_ARCH, PREFILL_SEQ, None, dense_launches(40),
+     (LLM_TOL, DECODE_TOL), None),
+    (GEMMA_ARCH, PREFILL_SEQ, None, dense_launches(28),
+     (LLM_TOL, DECODE_TOL), None),
+    (MINITRON_ARCH, PREFILL_SEQ, None, dense_launches(32),
+     (LLM_TOL, DECODE_TOL), None),
+    (DANUBE_ARCH, DANUBE_SEQ, None, dense_launches(24),
      (LLM_TOL, DECODE_TOL), None),
     (HYBRID_ARCH, HYBRID_SEQ, "attn", {"flash_attention": 8,
                                        "fused_mlp": 26, "rmsnorm": 53,
@@ -890,38 +935,43 @@ def check_stream_deferred(mesh_prog, A_np, results, dtypes):
                    bitwise_vs_pass=True)
 
 
-def check_spmv(csr, results, dtypes):
-    """B2 on the 5-point Laplacian at n = 2^20."""
+def check_spmv(cases, results, dtypes):
+    """B2 on each (label, CSR triple) of ``cases``: the 5-point Laplacian
+    at n = 2^20 (cg_sparse's operand) and bicgstab_sparse's random,
+    nonsymmetric pattern at n = 131072 (~131 nonzeros a row); cuSPARSE
+    beside it."""
     import numpy as np
     import torch
     from repro_torch.kernels.spmv import spmv, spmv_plain
-    indptr_np, indices_np, data_np = csr
-    n = indptr_np.shape[0] - 1
-    indptr = torch.from_numpy(indptr_np).cuda()
-    indices = torch.from_numpy(indices_np).cuda()
-    for dt in dtypes:
-        tdt = getattr(torch, dt)
-        data = torch.from_numpy(data_np).to("cuda", tdt)
-        x = torch.from_numpy(np.random.default_rng(5).standard_normal(n)
-                             ).to("cuda", tdt)
-        got = spmv(indptr, indices, data, x, n)
-        torch.cuda.synchronize()
-        want = spmv_plain(indptr, indices, data, x, n)
-        err = max_err(got, want)
-        scale = float(want.double().abs().max())
-        assert err <= KERNEL_TOL[dt] * scale, ("spmv", dt, err, scale)
-        with warnings.catch_warnings():      # beta-state notices
-            warnings.simplefilter("ignore")
-            A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
-        nnz = data.numel()
-        times = measure(lambda: spmv(indptr, indices, data, x, n),
-                        lambda: spmv_plain(indptr, indices, data, x, n),
-                        lambda: torch.mv(A, x))
-        record(results, "B2 spmv   ", kernel="spmv",
-               case=f"laplacian5 n={n} nnz={nnz}", dtype=dt, err=err,
-               rel_err=err / scale, tol=KERNEL_TOL[dt], nbytes=(4 * (n + 1) + 4 * nnz + data.element_size() * nnz
-                       + 2 * x.element_size() * n),
-               flops=2 * nnz, times=times)
+    for label, (indptr_np, indices_np, data_np) in cases:
+        n = indptr_np.shape[0] - 1
+        indptr = torch.from_numpy(indptr_np).cuda()
+        indices = torch.from_numpy(indices_np).cuda()
+        for dt in dtypes:
+            tdt = getattr(torch, dt)
+            data = torch.from_numpy(data_np).to("cuda", tdt)
+            x = torch.from_numpy(np.random.default_rng(5).standard_normal(n)
+                                 ).to("cuda", tdt)
+            got = spmv(indptr, indices, data, x, n)
+            torch.cuda.synchronize()
+            want = spmv_plain(indptr, indices, data, x, n)
+            err = max_err(got, want)
+            scale = float(want.double().abs().max())
+            assert err <= KERNEL_TOL[dt] * scale, ("spmv", label, dt, err,
+                                                   scale)
+            with warnings.catch_warnings():      # beta-state notices
+                warnings.simplefilter("ignore")
+                A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
+            nnz = data.numel()
+            times = measure(lambda: spmv(indptr, indices, data, x, n),
+                            lambda: spmv_plain(indptr, indices, data, x, n),
+                            lambda: torch.mv(A, x))
+            record(results, "B2 spmv   ", kernel="spmv",
+                   case=f"{label} n={n} nnz={nnz}", dtype=dt, err=err,
+                   rel_err=err / scale, tol=KERNEL_TOL[dt],
+                   nbytes=(4 * (n + 1) + 4 * nnz + data.element_size() * nnz
+                           + 2 * x.element_size() * n),
+                   flops=2 * nnz, times=times)
 
 
 def cold_ms(fn, flush, inner: int = 10, reps: int = 15) -> float:
@@ -1495,44 +1545,82 @@ def check_rmsnorm(results, empty, flush, d=4096, eps=1e-6):
         "on an unaligned view bitwise the aligned call")
 
 
-def check_rmsnorm_odd(results, d=1001, eps=1e-6):
-    """B7's general path at a width that is no multiple of the 16-byte
-    vector: 1024 rows within one bf16 rounding / ``KERNEL_TOL`` of the
-    plain version, bitwise from call to call, the same rows bitwise at 1
-    and 4 rows; timed beside the plain version and, in turns with it,
+#: B7 off the vector path's row groups, (d, dtype, rows timed): d 1001, no
+#: multiple of the 16-byte vector (the general path), and rows past one
+#: CTA's registers (above 8192 in fp32, 16384 in bf16), walked in chunks on
+#: 16-byte vectors (d 12288, 20480) or on scalars (d 16390); no registered
+#: arch is that wide
+B7_GENERAL = ((1001, "float32", (PREFILL_SEQ,)),
+              (1001, "bfloat16", (PREFILL_SEQ,)),
+              (12288, "float32", (GEN_BATCH, PREFILL_SEQ)),
+              (20480, "bfloat16", (GEN_BATCH, PREFILL_SEQ)),
+              (16390, "bfloat16", (PREFILL_SEQ,)))
+
+
+def check_rmsnorm_general(results, eps=1e-6):
+    """B7 at each case of ``B7_GENERAL``: within one bf16 rounding /
+    ``KERNEL_TOL`` of the plain version, bitwise from call to call, the
+    first 1 and 4 rows of a 1024-row call bitwise the same rows alone, and
+    where the vector path walks the row in chunks, the general path's
+    scalar walk of an unaligned view bitwise the vector walk; timed at each
+    row count beside the plain version and, in turns with it,
     ``F.rms_norm``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import (launch_shape, rmsnorm,
-                                             rmsnorm_plain)
+    from repro_torch.kernels.rmsnorm import (MAX_THREADS, launch_shape,
+                                             rmsnorm, rmsnorm_plain)
     from repro_torch.kernels.rmsnorm import work as rmsnorm_work
     rng = np.random.default_rng(22)
-    w = _rand(rng, (d,), torch.float32, 0.1)
-    for dt in ("float32", "bfloat16"):
-        assert not launch_shape(d, getattr(torch, dt)).vector, (d, dt)
-        x = _rand(rng, (PREFILL_SEQ, d), getattr(torch, dt))
-        full = rmsnorm(x, w, eps=eps)
-        assert torch.equal(full, rmsnorm(x, w, eps=eps)), ("B7", d, dt)
+    for d, dt, timed in B7_GENERAL:
+        tdt = getattr(torch, dt)
+        shape = launch_shape(d, tdt)
+        per = 16 // tdt.itemsize
+        chunked = shape.threads * shape.vectors * per < d
+        assert shape.vector == (chunked and d % per == 0), (d, dt, shape)
+        kind = ("general path" if not chunked else
+                f"chunked, {'16-byte vectors' if shape.vector else 'scalars'}")
+        w = _rand(rng, (d,), torch.float32, 0.1)
+        w1 = (1.0 + w).to(tdt)
+        X = _rand(rng, (PREFILL_SEQ, d), tdt)
+        full = rmsnorm(X, w, eps=eps)
         for rows in (1, GEN_BATCH):
-            assert torch.equal(rmsnorm(x[:rows], w, eps=eps), full[:rows])
-        err, rel = _hold("rmsnorm odd", full, rmsnorm_plain(x, w, eps=eps),
-                         dt)
-        flops, nbytes = rmsnorm_work(x, w)
-        w1 = (1.0 + w).to(x.dtype)
-        times = dict(call_ms=cuda_ms(lambda: rmsnorm(x, w, eps=eps)),
-                     plain_ms=graph_ms(lambda: rmsnorm_plain(x, w, eps=eps)))
-        times["ms"], times["library_ms"] = _turns(
-            lambda: rmsnorm(x, w, eps=eps),
-            lambda: F.rms_norm(x, (d,), w1, eps), b7_ms)
-        log(f"    rows={PREFILL_SEQ} d={d} {dt} (general path): "
-            f"{times['ms']:.5f} ms, F.rms_norm {times['library_ms']:.5f} "
-            "ms")
-        record(results, "B7 general", kernel="rmsnorm",
-               case=f"rows={PREFILL_SEQ} d={d} (general path)", dtype=dt,
-               err=err, rel_err=rel, tol=KERNEL_TOL["float32"]
-               if dt == "float32" else "1 bf16 rounding", nbytes=nbytes,
-               flops=flops, times=times, peak="float32")
+            assert torch.equal(rmsnorm(X[:rows], w, eps=eps), full[:rows]), \
+                ("B7 rows", rows, d, dt)
+        if shape.vector:
+            buf = torch.empty(PREFILL_SEQ * d + 1, dtype=tdt, device="cuda")
+            view = buf[1:].view(PREFILL_SEQ, d)
+            view.copy_(X)
+            assert view.data_ptr() % 16, "the view should not be aligned"
+            assert torch.equal(rmsnorm(view, w, eps=eps), full), (
+                "B7 unaligned", d, dt)
+        for rows in timed:
+            x = X[:rows].contiguous()
+            got = rmsnorm(x, w, eps=eps)
+            again = rmsnorm(x, w, eps=eps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), ("B7 run to run", rows, d, dt)
+            err, rel = _hold("rmsnorm general", got,
+                             rmsnorm_plain(x, w, eps=eps), dt)
+            flops, nbytes = rmsnorm_work(x, w)
+            times = dict(call_ms=cuda_ms(lambda: rmsnorm(x, w, eps=eps)),
+                         plain_ms=graph_ms(lambda: rmsnorm_plain(x, w,
+                                                                 eps=eps)))
+            times["ms"], times["library_ms"] = _turns(
+                lambda: rmsnorm(x, w, eps=eps),
+                lambda: F.rms_norm(x, (d,), w1, eps), b7_ms)
+            log(f"    rows={rows} d={d} {dt} ({kind}): {times['ms']:.5f} "
+                f"ms, F.rms_norm {times['library_ms']:.5f} ms")
+            record(results, "B7 general", kernel="rmsnorm",
+                   case=f"rows={rows} d={d} ({kind})", dtype=dt, err=err,
+                   rel_err=rel, tol=KERNEL_TOL["float32"]
+                   if dt == "float32" else "1 bf16 rounding",
+                   nbytes=nbytes, flops=flops, times=times, peak="float32",
+                   launch_shape=shape._asdict())
+    log(f"  B7 off the row groups {[c[:2] for c in B7_GENERAL]}: bitwise "
+        f"at 1, 4 and {PREFILL_SEQ} rows; past {MAX_THREADS} threads' "
+        "registers the unaligned views' scalar walks bitwise the vector "
+        "walks")
 
 
 #: B5's arithmetic per operand type, and the peak that bounds it: bf16 on
@@ -1780,7 +1868,7 @@ def check_mlp_recurrent(results):
                    **b6_math(m, D, F_, gated, dt))
 
 
-def _flash_into(q, k, v, out, *, causal):
+def _flash_into(q, k, v, out, *, causal, window=None):
     """B5 through its C entry point into a caller's ``out`` (any strides
     over (B, H, S), unit stride over E), as the wrapper launches it; not
     counted: a comparison launch."""
@@ -1796,11 +1884,11 @@ def _flash_into(q, k, v, out, *, causal):
           else cuda_library().cello_flash_attention_f32)
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              ctypes.addressof(strides), B, H, KVH, S, T, E, float(E ** -0.5),
-             int(causal), 0, torch.cuda.current_stream().cuda_stream),
-          "flash_attention")
+             int(causal), int(window or 0),
+             torch.cuda.current_stream().cuda_stream), "flash_attention")
 
 
-def check_flash_edges(rng, H, KVH, S, T, E, causal, dt):
+def check_flash_edges(rng, H, KVH, S, T, E, causal, dt, window=None):
     """B5 at a head dim below its instantiation (E 80 runs in the E 128
     one) on operands whose columns E..127 hold NaN (views of wider rows),
     into an output whose columns E..127 hold a sentinel: the staged
@@ -1819,11 +1907,11 @@ def check_flash_edges(rng, H, KVH, S, T, E, causal, dt):
     q, k, v = padded(H, S), padded(KVH, T), padded(KVH, T)
     out_big = torch.full((1, H, S, pad), 7.0, device="cuda", dtype=tdt)
     out = out_big[..., :E]
-    _flash_into(q, k, v, out, causal=causal)
+    _flash_into(q, k, v, out, causal=causal, window=window)
     torch.cuda.synchronize()
     assert bool((out_big[..., E:] == 7.0).all()), "B5 wrote past E"
     want = flash_attention_plain(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=causal)
+                                 v.contiguous(), causal=causal, window=window)
     return _hold(f"flash E={E} NaN-padded", out.contiguous(), want, dt)
 
 
@@ -1837,8 +1925,12 @@ def check_flash_families(results):
     tile, and q_offset = T - S = 5380 must stay out of a mask that is
     neither causal nor windowed) and causal self-attention (granite-3-8b's
     shape), and the MoE archs' causal GQA (granite-moe-1b-a400m 16 over 8
-    heads of 64, moonshot-v1-16b-a3b 16 over 16 of 128).  SDPA gets the
-    kv heads expanded."""
+    heads of 64, moonshot-v1-16b-a3b 16 over 16 of 128); then the dense
+    archs that phase 5 serves: gemma-7b's MHA of E 256 (16 heads,
+    1 x 1024, causal) and h2o-danube-1.8b's GQA of E 80 (32 over 8 heads)
+    with its 4096-token window at 1 x 8192, twice the window, so that it
+    bites (its E 80 also on padded operands).  SDPA gets the kv heads
+    expanded, and a window as a boolean band mask."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1847,18 +1939,27 @@ def check_flash_families(results):
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention import work as flash_work
     rng = np.random.default_rng(28)
-    B, S = 1, PREFILL_SEQ
-    for arch, causal, cross in ((AUDIO_ARCH, False, False),
-                                (VLM_ARCH, False, True),
-                                (VLM_ARCH, True, False),
-                                (MOE_ARCH, True, False),
-                                (MOE_WIDE_ARCH, True, False)):
+    B = 1
+    for arch, causal, cross, S in ((AUDIO_ARCH, False, False, PREFILL_SEQ),
+                                   (VLM_ARCH, False, True, PREFILL_SEQ),
+                                   (VLM_ARCH, True, False, PREFILL_SEQ),
+                                   (MOE_ARCH, True, False, PREFILL_SEQ),
+                                   (MOE_WIDE_ARCH, True, False, PREFILL_SEQ),
+                                   (GEMMA_ARCH, True, False, PREFILL_SEQ),
+                                   (DANUBE_ARCH, True, False, DANUBE_SEQ)):
         cfg = get_config(arch)
         H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         T = cfg.vision_seq if cross else S
+        W = None if cross else cfg.window
+        keep = None
+        if W is not None:
+            pos = torch.arange(S, device="cuda")
+            keep = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - W))
         what = (f"{arch} {'cross-attention ' if cross else ''}B={B} H={H} "
                 f"KVH={KVH} S={S} T={T} E={E} "
-                f"{'causal' if causal else 'non-causal'}")
+                f"{'causal' if causal else 'non-causal'}"
+                + (f" window={W}" if W else ""))
         for dt in ("float32", "bfloat16"):
             tdt = getattr(torch, dt)
             q = _rand(rng, (B, H, S, E), tdt)
@@ -1866,10 +1967,18 @@ def check_flash_families(results):
             v = _rand(rng, (B, KVH, T, E), tdt)
 
             def kernel():
-                return flash_attention(q, k, v, causal=causal)
+                return flash_attention(q, k, v, causal=causal, window=W)
 
             def plain():
-                return flash_attention_plain(q, k, v, causal=causal)
+                return flash_attention_plain(q, k, v, causal=causal,
+                                             window=W)
+
+            def library():
+                if keep is not None:
+                    return F.scaled_dot_product_attention(q, kx, vx,
+                                                          attn_mask=keep)
+                return F.scaled_dot_product_attention(q, kx, vx,
+                                                      is_causal=causal)
             kx = k.repeat_interleave(H // KVH, dim=1)
             vx = v.repeat_interleave(H // KVH, dim=1)
             got = kernel()
@@ -1878,7 +1987,7 @@ def check_flash_families(results):
             extra = {}
             if E % 64:
                 e_err, e_rel = check_flash_edges(rng, H, KVH, S, T, E,
-                                                 causal, dt)
+                                                 causal, dt, window=W)
                 extra = dict(nan_padded_max_abs_err=e_err,
                              nan_padded_rel_err=e_rel)
                 log(f"  B5 E={E} on NaN-padded operands into a "
@@ -1888,10 +1997,8 @@ def check_flash_families(results):
                 log(f"  B5 {what} {dt}: max|err| {err:.3e} (rel "
                     f"{rel:.3e})")
                 continue
-            times = measure(kernel, plain,
-                            lambda: F.scaled_dot_product_attention(
-                                q, kx, vx, is_causal=causal))
-            flops, nbytes = flash_work(q, k, v, causal=causal)
+            times = measure(kernel, plain, library)
+            flops, nbytes = flash_work(q, k, v, causal=causal, window=W)
             record(results, "B5 flash  ", kernel="flash_attention",
                    case=what, dtype=dt, err=err, rel_err=rel,
                    tol=KERNEL_TOL["float32"] if dt == "float32"
@@ -1904,7 +2011,10 @@ def check_mlp_families(results):
     """B6 at the audio and vlm paths' shapes, fp32 weights: hubert-xlarge's
     plain (ungated) tanh-gelu, D 1280, F 5120, at the prefill's 1024 rows,
     and llama-3.2-vision-11b's gated silu, D 4096, F 14336, at 1024 rows
-    and a decode step's 4 rows (the rows kernel)."""
+    and a decode step's 4 rows (the rows kernel); then, at 1024 and 4 rows,
+    the dense archs that phase 5 serves: gemma-7b's gated tanh-gelu,
+    D 3072, F 24576, and minitron-8b's ungated relu², D 4096, F 16384.
+    Beside each, the fp32 ``matmul`` + activation."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1914,11 +2024,14 @@ def check_mlp_families(results):
     from repro_torch.models.common import is_gated
     rng = np.random.default_rng(29)
     for arch, rows_list in ((AUDIO_ARCH, (PREFILL_SEQ,)),
-                            (VLM_ARCH, (PREFILL_SEQ, GEN_BATCH))):
+                            (VLM_ARCH, (PREFILL_SEQ, GEN_BATCH)),
+                            (GEMMA_ARCH, (PREFILL_SEQ, GEN_BATCH)),
+                            (MINITRON_ARCH, (PREFILL_SEQ, GEN_BATCH))):
         cfg = get_config(arch)
         D, F_ = cfg.d_model, cfg.d_ff
         gated = is_gated(cfg.activation)
-        act = {"swiglu": "silu", "gelu": "gelu"}[cfg.activation]
+        act = {"swiglu": "silu", "gelu": "gelu", "geglu": "gelu",
+               "relu2": "relu2"}[cfg.activation]
         wg = _rand(rng, (D, F_), torch.float32, D ** -0.5) if gated else None
         wu = _rand(rng, (D, F_), torch.float32, D ** -0.5)
         wd = _rand(rng, (F_, D), torch.float32, F_ ** -0.5)
@@ -1935,14 +2048,14 @@ def check_mlp_families(results):
                 def library():
                     xf = x.float()
                     up = torch.matmul(xf, wu)
-                    if gated:
-                        h = F.silu(torch.matmul(xf, wg)) * up
-                    else:
-                        h = F.gelu(up, approximate="tanh")
-                    return torch.matmul(h, wd)
+                    a = torch.matmul(xf, wg) if gated else up
+                    a = (F.silu(a) if act == "silu"
+                         else torch.relu(a).square() if act == "relu2"
+                         else F.gelu(a, approximate="tanh"))
+                    return torch.matmul(a * up if gated else a, wd)
                 got = kernel()
                 torch.cuda.synchronize()
-                err, rel = _hold(f"fused_mlp {arch}", got, plain(), dt)
+                err, rel = _hold(f"fused_mlp {arch} M={m}", got, plain(), dt)
                 if dt != "bfloat16":      # timed at the paths' dtype
                     log(f"  B6 {arch} M={m} {dt}: max|err| {err:.3e} (rel "
                         f"{rel:.3e})")
@@ -2121,9 +2234,16 @@ def check_wkv6(results):
 
 def _rel_err(out, ref, scale_extra):
     """max over outputs of max |out - ref| / scale, scale = max(max |ref|,
-    ``scale_extra``)."""
+    ``scale_extra``), but for a solution ``x<k>`` max |ref| alone: the
+    floor (max |b|) serves outputs that a solver drives toward 0 (the
+    residual) or that sit far below b by construction (a normalized
+    vector); on a solution it would hide the error of an x much smaller
+    than b, as a strongly diagonal system's is."""
+    import re
     return max(max_err(out[k], ref[k])
-               / max(float(ref[k].double().abs().max()), scale_extra, 1e-30)
+               / max(float(ref[k].double().abs().max()),
+                     0.0 if re.fullmatch(r"x\d+", k) else scale_extra,
+                     1e-30)
                for k in ref)
 
 
@@ -2147,11 +2267,19 @@ def _cut(t):
     return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _sync_device(outs):
+    """Wait for the card where any of ``outs`` (a dict of tensors) is on
+    it."""
+    import torch
+    if any(v.is_cuda for v in outs.values()):
+        torch.cuda.synchronize()
+
+
 def lowered_reference(plan, feeds):
     """The reference backend's rules in the plan's order, with the float
-    operands of every product (``matmul``, ``spmv``) cut by ``_cut``: what
-    the path would compute with TF32 products in fp32, or fp32 products in
-    fp64."""
+    operands of every product (``matmul``, ``spmv``, ``einsum``) cut by
+    ``_cut``: what the path would compute with TF32 products in fp32, or
+    fp32 products in fp64."""
     from repro_torch.exec.base import plan_order, plan_program
     from repro_torch.exec.reference import eval_node
     program = plan_program(plan)
@@ -2159,26 +2287,44 @@ def lowered_reference(plan, feeds):
     for name in plan_order(plan):
         nd = program.nodes[name]
         ins = [vals[t] for t in nd.inputs]
-        if nd.op in ("matmul", "spmv"):
+        if nd.op in ("matmul", "spmv", "einsum"):
             ins = [_cut(v) if v.is_floating_point() else v for v in ins]
         vals[name] = eval_node(nd, ins)
     return {o: vals[o] for o in program.outputs}
 
 
-def tolerance_control(plan, feeds, feeds_np, ref, scale_extra, dt, residual,
-                      res_reference):
+def tolerance_control(plan, feeds, feeds_np, ref, scale_extra, dt, witness,
+                      ref_value):
     """Hold the path's limits against a run known to compute in lower
     precision (``lowered_reference``): ``PATH_TOL`` must reject it; whether
-    the residual gap rejects it too is reported."""
-    import torch
+    the path's witness (``ref_value``: the reference run's reading of it)
+    rejects it too is reported."""
     low = lowered_reference(plan, feeds)
-    torch.cuda.synchronize()
+    _sync_device(low)
     err = _rel_err(low, ref, scale_extra)
     assert err > PATH_TOL[dt], ("PATH_TOL passes a lower-precision run",
                                 dt, err, PATH_TOL[dt])
-    gap = abs(residual(_solution(low), feeds_np) - res_reference)
-    return {"control_rel_err": err, "control_residual_gap": gap,
-            "control_rejected_by_residual_gap": gap > RESIDUAL_GAP}
+    value = witness.value(low, feeds_np)
+    try:
+        witness.check({"cuda": value, "reference": ref_value}, dt)
+        rejected = False
+    except AssertionError:
+        rejected = True
+    return {"control_rel_err": err, f"control_{witness.name}": value,
+            "control_rejected_by_witness": rejected}
+
+
+def hold_witness(plan, feeds, feeds_np, out, ref, scale_extra, dt,
+                 witness):
+    """The path's witness on its run and on the reference run, then
+    ``tolerance_control``: the fields of the path's record."""
+    rec = witness.check({tag: witness.value(o, feeds_np)
+                         for tag, o in (("cuda", out), ("reference", ref))},
+                        dt)
+    rec.update(tolerance_control(plan, feeds, feeds_np, ref, scale_extra,
+                                 dt, witness,
+                                 rec[f"{witness.name}_reference"]))
+    return rec
 
 
 def run_timing(run, reps=RUN_REPS):
@@ -2227,11 +2373,13 @@ def profile_fn(fn, top=4):
                             for k, (n, t) in ranked]}
 
 
-def drive_path(name, plan, feeds_np, dt, paths, seen, *, residual=None,
-               replay=None, profile=False):
-    """One main path.  A Krylov path gives ``residual``, the relative
-    residual of a returned x, and runs ``tolerance_control``; a sweep path
-    gives ``replay``, a check of the outputs against a numpy replay.  Then
+def drive_path(name, plan, feeds_np, dt, paths, seen, *, witness=None,
+               replay=None, profile=False, walk_torch_ops=False):
+    """One main path.  A Krylov path (and mttkrp) gives its ``witness``
+    (``Witness``: the relative residual of a returned x, ...) and runs
+    ``tolerance_control``; a sweep path gives ``replay``, a check of the
+    outputs against a numpy replay.  ``walk_torch_ops``: the plan runs
+    torch ops of its own beside the port's kernels (mttkrp's einsums).  Then
     ``check_dispatch`` holds run()'s one graph replay (``seen`` maps each
     plan to the float dtypes it has run in, one capture each).  Timed side
     by side: run() (one replay, feed copies and output clones included),
@@ -2253,17 +2401,13 @@ def drive_path(name, plan, feeds_np, dt, paths, seen, *, residual=None,
     b = feeds_np.get("b")
     scale_b = float(np.abs(b).max()) if b is not None else 0.0
     rel = _compare(out, ref, scale_b, dt, name)
-    if residual is not None:
-        extra = _residual_check({tag: residual(_solution(o), feeds_np)
-                                 for tag, o in (("cuda", out),
-                                                ("reference", ref))})
-        extra.update(tolerance_control(plan, feeds, feeds_np, ref, scale_b,
-                                       dt, residual,
-                                       extra["rel_residual_reference"]))
+    if witness is not None:
+        extra = hold_witness(plan, feeds, feeds_np, out, ref, scale_b, dt,
+                             witness)
     else:
         extra = replay(out, feeds_np)
     extra["dispatch"] = check_dispatch(name, plan, feeds, dt,
-                                       len(seen[id(plan)]))
+                                       len(seen[id(plan)]), walk_torch_ops)
     prog = plan.compiled()
     perunit = plan.compiled("cuda-perunit")
     mean_s, min_s = run_timing(lambda: plan.run(feeds))
@@ -2459,8 +2603,22 @@ def check_two_threads(cases, reps=4):
     return records
 
 
+def _f64(v):
+    """An output as an fp64 numpy array: a torch tensor on any device, or
+    an array of the JAX package's."""
+    import numpy as np
+    if hasattr(v, "detach"):
+        return v.detach().double().cpu().numpy()
+    return np.asarray(v, dtype=np.float64)
+
+
+def _output(out, prefix):
+    """The output whose name starts with ``prefix`` (x, v, lam, ...)."""
+    return _f64(out[next(k for k in out if k.startswith(prefix))])
+
+
 def _solution(out):
-    return out[next(k for k in out if k.startswith("x"))].double().cpu()
+    return _output(out, "x")
 
 
 def dense_residual(x, feeds_np):
@@ -2468,7 +2626,8 @@ def dense_residual(x, feeds_np):
     import numpy as np
     A = feeds_np["A"].astype(np.float64)
     b = feeds_np["b"].astype(np.float64)
-    return float(np.linalg.norm(b - A @ x.numpy()) / np.linalg.norm(b))
+    return float(np.linalg.norm(b - A @ np.asarray(x, np.float64))
+                 / np.linalg.norm(b))
 
 
 def sparse_residual(x, feeds_np):
@@ -2480,18 +2639,153 @@ def sparse_residual(x, feeds_np):
                         feeds_np["A.indices"], feeds_np["A.indptr"]),
                        shape=(n, n))
     b = feeds_np["b"].astype(np.float64)
-    return float(np.linalg.norm(b - A @ x.numpy()) / np.linalg.norm(b))
+    return float(np.linalg.norm(b - A @ np.asarray(x, np.float64))
+                 / np.linalg.norm(b))
 
 
-def _residual_check(res):
-    """The cuda backend's x solves the system as well as the reference's:
-    both relative residuals finite, below 1, and within ``RESIDUAL_GAP``
-    of each other."""
+def rayleigh_gap(out, feeds_np):
+    """Power iteration's returned x and lam = ‖A x_prev‖: (xᵀ A x − lam) /
+    lam in numpy fp64.  For an SPD A it is at least 0 (the moments of x_prev
+    under A are log-convex) and falls toward 0 as the iteration converges:
+    9.06e-5 at n 4096 after 64 iterations (seed 0, numpy fp64)."""
+    import numpy as np
+    x = _solution(out)
+    lam = float(_output(out, "lam"))
+    A = feeds_np["A"].astype(np.float64)
+    return float((x @ (A @ x) - lam) / lam)
+
+
+def unit_norm_err(out, feeds_np):
+    """GMRES's last Arnoldi vector v_m: |‖v_m‖₂ − 1| in numpy fp64."""
+    import numpy as np
+    return float(abs(np.linalg.norm(_output(out, "v")) - 1.0))
+
+
+def einsum_rel_err(out, feeds_np):
+    """MTTKRP's M1 and M2 against ``numpy.einsum`` in fp64 on the same
+    feeds (M2 from numpy's M1): the larger of max |M − M_np| / max |M_np|
+    over the two."""
+    import numpy as np
+    X, B, C = (feeds_np[k].astype(np.float64) for k in ("X", "B", "C"))
+    m1 = np.einsum("ijk,jr,kr->ir", X, B, C, optimize=True)
+    m2 = np.einsum("ijk,ir,kr->jr", X, m1, C, optimize=True)
+    return max(float(np.abs(_f64(out[k]) - m).max() / np.abs(m).max())
+               for k, m in (("M1", m1), ("M2", m2)))
+
+
+def _residual_check(res, name="rel_residual"):
+    """The cuda backend's run does as well as the reference's by the
+    reading ``name``: both finite, below 1 in magnitude, and within
+    ``RESIDUAL_GAP`` of each other."""
     import math
-    assert all(math.isfinite(v) and v < 1.0 for v in res.values()), res
-    assert abs(res["cuda"] - res["reference"]) <= RESIDUAL_GAP, res
-    return {"rel_residual": res["cuda"],
-            "rel_residual_reference": res["reference"]}
+    assert all(math.isfinite(v) and abs(v) < 1.0 for v in res.values()), (
+        name, res)
+    assert abs(res["cuda"] - res["reference"]) <= RESIDUAL_GAP, (name, res)
+    return {name: res["cuda"], f"{name}_reference": res["reference"]}
+
+
+def _path_tol_check(name):
+    """Both runs' reading ``name`` (an error) finite and within
+    ``PATH_TOL`` at the path's dtype."""
+    def check(res, dt):
+        import math
+        assert all(math.isfinite(v) and v <= PATH_TOL[dt]
+                   for v in res.values()), (name, res, PATH_TOL[dt])
+        return {name: res["cuda"], f"{name}_reference": res["reference"],
+                f"{name}_tol": PATH_TOL[dt]}
+    return check
+
+
+class Witness(typing.NamedTuple):
+    """A path's check beside ``PATH_TOL``: ``value(outputs, numpy feeds)``
+    reads a run (outputs as torch tensors or numpy arrays), ``check({"cuda":
+    value, "reference": value}, dtype)`` asserts and returns the record's
+    fields, among them ``<name>_reference``."""
+    name: str
+    value: typing.Callable
+    check: typing.Callable
+
+
+def _gap(name):
+    return lambda res, dt: _residual_check(res, name)
+
+
+#: the relative residual of the solution x, within ``RESIDUAL_GAP`` of the
+#: reference run's (cg, bicgstab; the sparse operators through scipy)
+DENSE_RESIDUAL = Witness("rel_residual",
+                         lambda out, f: dense_residual(_solution(out), f),
+                         _gap("rel_residual"))
+SPARSE_RESIDUAL = Witness("rel_residual",
+                          lambda out, f: sparse_residual(_solution(out), f),
+                          _gap("rel_residual"))
+#: power iteration: lam against the Rayleigh quotient of the returned x,
+#: the gap within ``RESIDUAL_GAP`` of the reference run's
+RAYLEIGH = Witness("rayleigh_gap", rayleigh_gap, _gap("rayleigh_gap"))
+#: gmres: ‖v_m‖ = 1 within ``PATH_TOL`` (h_{m,m-1} is held to the reference
+#: run's by ``PATH_TOL`` itself)
+UNIT_NORM = Witness("unit_norm_err", unit_norm_err,
+                    _path_tol_check("unit_norm_err"))
+#: mttkrp: M1, M2 against numpy's fp64 einsum within ``PATH_TOL``
+NUMPY_EINSUM = Witness("numpy_einsum_rel_err", einsum_rel_err,
+                       _path_tol_check("numpy_einsum_rel_err"))
+
+
+#: the Krylov depths on the card where a longer one parts any two summation
+#: orders (``scripts/krylov_sensitivity.py``: the CPU's plain versions
+#: against the reference; the JAX package's reference against the port's
+#: alike, ``tests/test_torch_full_paths.py``).  gmres's Arnoldi basis
+#: amplifies a rounding difference about 2.6x a step: past ~8 steps no two
+#: orders agree to ``PATH_TOL``, and at restart 32 the run is further from
+#: the reference (fp32 1.5e-3, fp64 1.0e-4 of scale) than the TF32 /
+#: fp32-cut control is (1.2e-3, 4.7e-5).  bicgstab_sparse on the 5-point
+#: Laplacian, far from converged at n 2^20, parts them past ~12 iterations
+#: (16: 3.5e-5 / 1.2e-13).  At the depths kept the plain versions read at
+#: most a tenth of the limit, the control 4x the limit or more
+GMRES_RESTART = 6
+BICGSTAB_LAPLACIAN_ITERS = 8
+#: phase 4's paths, in order: (workload, params, dtypes, witness; None: a
+#: sweep path, held to a numpy replay).  The first three are also phase 3's
+#: and phase 8's operands.  bicgstab, gmres (``GMRES_RESTART`` Arnoldi
+#: steps, captured unrolled), power_iteration and
+#: bicgstab_sparse (laplacian5 at phase 4's cg_sparse size; and the random,
+#: nonsymmetric pattern it exists for, ~131 nonzeros a row) on B1 and B2,
+#: the Laplacian's at ``BICGSTAB_LAPLACIAN_ITERS``;
+#: mttkrp on no kernel of ours (two torch einsums, as the JAX package's
+#: ``jnp`` units)
+HPC_PATHS = (
+    ("cg", dict(n=4096, iters=64), ("float32",), DENSE_RESIDUAL),
+    ("cg_sparse", dict(n=1 << 20, iters=64, pattern="laplacian5"),
+     ("float32", "float64"), SPARSE_RESIDUAL),
+    ("jacobi2d", dict(n=4096, sweeps=8), ("float32",), None),
+    ("bicgstab", dict(n=4096, iters=16), ("float32", "float64"),
+     DENSE_RESIDUAL),
+    ("gmres", dict(n=4096, restart=GMRES_RESTART), ("float32", "float64"),
+     UNIT_NORM),
+    ("power_iteration", dict(n=4096, iters=64), ("float32", "float64"),
+     RAYLEIGH),
+    ("mttkrp", dict(i=256, j=256, k=256, rank=64), ("float32", "float64"),
+     NUMPY_EINSUM),
+    ("bicgstab_sparse", dict(n=1 << 20, iters=BICGSTAB_LAPLACIAN_ITERS,
+                             pattern="laplacian5"),
+     ("float32", "float64"), SPARSE_RESIDUAL),
+    ("bicgstab_sparse", dict(n=131072, iters=16, pattern="random",
+                             density=1e-3), ("float32", "float64"),
+     SPARSE_RESIDUAL),
+)
+#: the paths whose walk launches torch kernels of its own beside the
+#: port's (``check_dispatch``'s ``walk_torch_ops``): mttkrp's two einsums,
+#: and power_iteration's rolled loop, which seeds its output-only carry
+#: (lam) with zeros (``exec/cuda.py``), one fill a walk
+WALK_TORCH_OPS = ("mttkrp", "power_iteration")
+#: the overbooked pair's workloads (phase 4, ``drive_overbooked``)
+OB_WORKLOADS = ("cg_sparse", "jacobi_sparse")
+
+
+def path_name(wl, params):
+    """``cg_sparse(n=1048576, iters=64, laplacian5)``: a path's name in
+    the records."""
+    return f"{wl}(" + ", ".join(str(v) if k == "pattern" else f"{k}={v}"
+                                for k, v in params.items()) + ")"
 
 
 def jacobi_numpy(sweeps):
@@ -2561,7 +2855,7 @@ def drive_overbooked(plans, feeds, dtypes, paths, seen, profile=False):
     from repro_torch.frontends import feeds_from_numpy
     totals = {}
     l2_before = l2_state()
-    for wl in ("cg_sparse", "jacobi_sparse"):
+    for wl in OB_WORKLOADS:
         for dt in dtypes:
             cg = wl == "cg_sparse"
             steps = OB_CG_ITERS[dt] if cg else OB_SWEEPS
@@ -2577,7 +2871,7 @@ def drive_overbooked(plans, feeds, dtypes, paths, seen, profile=False):
                         f"capacity 40 MiB overbook {overbook}")
                 counts = drive_path(name, plans[wl, overbook, dt],
                                     feeds[wl, dt], dt, paths, seen,
-                                    residual=sparse_residual,
+                                    witness=SPARSE_RESIDUAL,
                                     profile=profile)
                 want = ({"spmv_sliced": n_spmv, "spmv": 0} if overbook
                         else {"spmv_sliced": 0, "spmv": n_spmv})
@@ -2746,7 +3040,7 @@ def mesh_plans(sess, designs):
 
 
 def drive_mesh(name, plan, single, feeds_np, dt, paths, seen, *,
-               residual=None, replay=None):
+               witness=None, replay=None):
     """One mesh path: run() against the port's ``ShardedReference`` on the
     card (``PATH_TOL``) and numpy (the residual of x within
     ``RESIDUAL_GAP`` of the oracle's, with the lower-precision control, or
@@ -2778,13 +3072,9 @@ def drive_mesh(name, plan, single, feeds_np, dt, paths, seen, *,
     b = feeds_np.get("b")
     scale_b = float(np.abs(b).max()) if b is not None else 0.0
     rel = _compare(out, ref, scale_b, dt, name)
-    if residual is not None:
-        extra = _residual_check({tag: residual(_solution(o), feeds_np)
-                                 for tag, o in (("cuda", out),
-                                                ("reference", ref))})
-        extra.update(tolerance_control(plan, feeds, feeds_np, ref, scale_b,
-                                       dt, residual,
-                                       extra["rel_residual_reference"]))
+    if witness is not None:
+        extra = hold_witness(plan, feeds, feeds_np, out, ref, scale_b, dt,
+                             witness)
     else:
         extra = replay(out, feeds_np)
     extra["dispatch"] = check_dispatch(name, plan, feeds, dt,
@@ -5641,6 +5931,7 @@ def main(argv=None) -> int:
     import repro_torch
     from repro_torch import kernels
     from repro_torch.api import Session
+    from repro_torch.configs import get_config
     from repro_torch.frontends import make_feeds
     from repro_torch.kernels import build
 
@@ -5687,25 +5978,25 @@ def main(argv=None) -> int:
     card_phase("3: kernels vs their plain versions on the card")
     t0 = time.perf_counter()
     sess = Session(device="cuda")
-    cg_traced = sess.trace(workload="cg", n=4096, iters=64)
-    cg_cd = cg_traced.analyze().codesign()
-    cg_plan = cg_cd.lower(backend="cuda")
-    cg_feeds = {dt: make_feeds(cg_traced.program, seed=0,
-                               dtype=getattr(np, dt)) for dt in dtypes}
-    sp_traced = sess.trace(workload="cg_sparse", n=1 << 20, iters=64,
-                           pattern="laplacian5")
-    sp_cd = sp_traced.analyze().codesign()
-    sp_plan = sp_cd.lower(backend="cuda")
-    sp_feeds = {dt: make_feeds(sp_traced.program, seed=0,
-                               dtype=getattr(np, dt)) for dt in dtypes}
-    jc_traced = sess.trace(workload="jacobi2d", n=4096, sweeps=8)
-    jc_cd = jc_traced.analyze().codesign()
-    jc_plan = jc_cd.lower(backend="cuda")
-    jc_feeds = make_feeds(jc_traced.program, seed=0)
+    # phase 4's paths: traced, codesigned, lowered, and feeds at both dtypes
+    hpc = {}
+    for wl, params, _dts, _check in HPC_PATHS:
+        traced = sess.trace(workload=wl, **params)
+        cd = traced.analyze().codesign()
+        hpc[path_name(wl, params)] = (
+            traced, cd, cd.lower(backend="cuda"),
+            {dt: make_feeds(traced.program, seed=0, dtype=getattr(np, dt))
+             for dt in dtypes})
+    # cg, cg_sparse and jacobi2d are phase 3's and phase 8's operands too;
+    # the random operand is B2's second case in phase 3
+    cg_name, sp_name, jc_name = (path_name(wl, params) for wl, params, _d, _w
+                                 in HPC_PATHS[:3])
+    rnd_name = path_name(*HPC_PATHS[-1][:2])
+    _, cg_cd, cg_plan, cg_feeds = hpc[cg_name]
+    _, sp_cd, sp_plan, sp_feeds = hpc[sp_name]
+    _, jc_cd, jc_plan, jc_feeds = hpc[jc_name]
+    jc_feeds = jc_feeds["float32"]
     ob_plans, ob_feeds = overbooked_plans(dtypes)
-    cg_name = "cg(n=4096, iters=64)"
-    sp_name = "cg_sparse(n=1048576, iters=64, laplacian5)"
-    jc_name = "jacobi2d(n=4096, sweeps=8)"
     mesh = mesh_plans(sess, {cg_name: (cg_cd, cg_plan),
                              sp_name: (sp_cd, sp_plan),
                              jc_name: (jc_cd, jc_plan)})
@@ -5716,7 +6007,10 @@ def main(argv=None) -> int:
                           cg_feeds["float64"]["A"], results, dtypes)
     csr = tuple(sp_feeds["float64"][f"A.{c}"]
                 for c in ("indptr", "indices", "data"))
-    check_spmv(csr, results, dtypes)
+    rnd_csr = tuple(hpc[rnd_name][3]["float64"][f"A.{c}"]
+                    for c in ("indptr", "indices", "data"))
+    check_spmv((("laplacian5", csr), ("random density=0.001", rnd_csr)),
+               results, dtypes)
     ob_csr = tuple(ob_feeds["cg_sparse", "float64"][f"A.{c}"]
                    for c in ("indptr", "indices", "data"))
     ob_prefix = prefix_rows(ob_plans["cg_sparse", 0.25, "float64"])
@@ -5733,7 +6027,7 @@ def main(argv=None) -> int:
     for d in B7_WIDTHS:
         check_rmsnorm(results, b7_empty,
                       lambda: torch.sum(b7_flush, 0, out=b7_sum), d=d)
-    check_rmsnorm_odd(results)
+    check_rmsnorm_general(results)
     del b7_flush
     check_flash(results)
     check_flash_hybrid(results)
@@ -5749,19 +6043,20 @@ def main(argv=None) -> int:
     card_phase("4: the HPC path, Session(device='cuda') "
                "-> lower(backend='cuda') -> run()")
     seen = {}
-    for name, plan, feeds, dt, check in (
-            ("cg(n=4096, iters=64)", cg_plan, cg_feeds["float32"],
-             "float32", dict(residual=dense_residual)),
-            ("cg_sparse(n=1048576, iters=64, laplacian5)", sp_plan,
-             sp_feeds["float32"], "float32", dict(residual=sparse_residual)),
-            ("cg_sparse(n=1048576, iters=64, laplacian5)", sp_plan,
-             sp_feeds["float64"], "float64", dict(residual=sparse_residual)),
-            ("jacobi2d(n=4096, sweeps=8)", jc_plan, jc_feeds, "float32",
-             dict(replay=jacobi_numpy(8)))):
-        counts = drive_path(name, plan, feeds, dt, paths, seen,
-                            profile=args.profile, **check)
-        for k, v in counts.items():
-            totals[k] += v
+    for wl, params, dts, witness in HPC_PATHS:
+        name = path_name(wl, params)
+        _, _, plan, feeds = hpc[name]
+        check = (dict(witness=witness) if witness is not None
+                 else dict(replay=jacobi_numpy(params["sweeps"])))
+        for dt in dts:
+            t0 = time.perf_counter()
+            counts = drive_path(name, plan, feeds[dt], dt, paths, seen,
+                                profile=args.profile,
+                                walk_torch_ops=wl in WALK_TORCH_OPS,
+                                **check)
+            for k, v in counts.items():
+                totals[k] += v
+            log(f"  {name} {dt} took {time.perf_counter() - t0:.1f} s")
     counts = drive_overbooked(ob_plans, ob_feeds, dtypes, paths, seen,
                               profile=args.profile)
     for k, v in counts.items():
@@ -5783,17 +6078,22 @@ def main(argv=None) -> int:
 
     # ---- phases 5 and 6: the LLM serving paths
     for arch, seq, layer_kind, want, tols, layers in SERVE_PATHS:
-        phase = ("5: the LLM serving path" if arch == LLM_ARCH else
+        phase = ("5: a dense arch's serving path"
+                 if get_config(arch).family == "dense" else
                  "6: a recurrent family's serving path")
         card_phase(f"{phase}, Session({arch!r}, device='cuda') -> "
                    f"trace('prefill', seq={seq}, layer_kind={layer_kind!r}) "
                    "-> codesign -> lower -> serve()"
                    + (f", {layers} of its layers" if layers else ""))
+        t0 = time.perf_counter()
         counts = drive_serving(arch, seq, layer_kind, want, tols, paths,
                                profile=args.profile, n_layers=layers)
         for k, v in counts.items():
             totals[k] += v
-        log(f"  {arch} done at {time.perf_counter() - t_start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
     for k in ("flash_attention", "fused_mlp", "rmsnorm", "rglru", "wkv6"):
         assert totals[k] > 0, f"kernel {k} was never launched on the path"
 
@@ -5823,14 +6123,14 @@ def main(argv=None) -> int:
     crossover = (f"{cg_name} crossover {CROSSOVER_CAPACITY >> 20} MiB")
     for name, feeds, dt, check in (
             (cg_name, cg_feeds["float32"], "float32",
-             dict(residual=dense_residual)),
+             dict(witness=DENSE_RESIDUAL)),
             (sp_name, sp_feeds["float32"], "float32",
-             dict(residual=sparse_residual)),
+             dict(witness=SPARSE_RESIDUAL)),
             (sp_name, sp_feeds["float64"], "float64",
-             dict(residual=sparse_residual)),
+             dict(witness=SPARSE_RESIDUAL)),
             (jc_name, jc_feeds, "float32", dict(replay=jacobi_numpy(8))),
             (crossover, cg_feeds["float32"], "float32",
-             dict(residual=dense_residual))):
+             dict(witness=DENSE_RESIDUAL))):
         plan, single = mesh[name]
         counts = drive_mesh(f"{name} mesh={MESH_K}", plan, single, feeds, dt,
                             paths, seen, **check)
@@ -5896,7 +6196,6 @@ def main(argv=None) -> int:
     log(f"  phase 11 took {time.perf_counter() - t_train:.1f} s")
 
     # ---- phase 12: the LLM mesh
-    from repro_torch.configs import get_config
     mesh_totals = dict.fromkeys(kernels.LAUNCHES, 0)
     t_mesh = time.perf_counter()
     card_phase(f"12: the LLM mesh, {LLM_ARCH} ({TRAIN_LAYERS} of its "

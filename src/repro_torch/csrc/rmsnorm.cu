@@ -37,6 +37,15 @@
 //   loads, masked past D: for a width that is no multiple of E, or an operand
 //   that is not 16-byte aligned (a view).  It keeps the thread-to-element map
 //   and the fold, so on an unaligned view it gives the vector path's bits.
+// - A row wider than one CTA's registers hold (G · V · E < D, past
+//   kMaxThreads threads of the largest V) is walked in chunks of G · V · E
+//   elements, twice, by the largest-V instantiation of either kernel (16-byte
+//   vectors where D is a multiple of E and the operands aligned, else
+//   scalars): a first walk adds the squares in (chunk, v, element) order
+//   into the thread's one sum, the fold above follows, and a second walk
+//   reads the chunks again (from L2: one CTA a row) and scales them with
+//   (1 + w) read as it goes.  No register array grows with D, the order
+//   still depends only on (D, dtype), and both loads give the same bits.
 // w stays fp32; the product is cast to the input type once, at the store.
 //
 // Tried on the card (H100 80GB HBM3, 700 W) as throwaway builds and not
@@ -213,19 +222,130 @@ __device__ __forceinline__ void rmsnorm_rows(const T* __restrict__ x, const floa
   }
 }
 
+// a row wider than g · V · E elements, one row a CTA of g threads: the
+// general path's element map and fold, the row walked in chunks twice.
+// kVec: 16-byte loads and stores, a vector wholly in the row or wholly past
+// it (D a multiple of E); else masked scalar ones.  A vector past D adds
+// nothing where the scalar walk adds fmaf(0, 0, ss) = ss, so both give the
+// same bits
+template <typename T, int V, bool kVec>
+__device__ __forceinline__ void rmsnorm_chunked_rows(const T* __restrict__ x,
+                                                     const float* __restrict__ w,
+                                                     T* __restrict__ y, int rows, int d, int g,
+                                                     float eps) {
+  constexpr int E = Pack<T>::kElems;
+  __shared__ float warp_sums[2][kMaxWarps];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int nw = g / 32;
+  const int span = g * V * E;
+  int parity = 0;
+  // one row a CTA: the trip count is the CTA's, so all reach the barrier
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    float ss = 0.f;
+    for (int c0 = 0; c0 < d; c0 += span) {
+      Pack<T> p[V];
+      float xs[V][E];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int base = c0 + (v * g + t) * E;
+        if constexpr (kVec) {
+          if (base < d) p[v].raw = __ldg(reinterpret_cast<const decltype(p[v].raw)*>(xr + base));
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) xs[v][e] = base + e < d ? to_f32(xr[base + e]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if constexpr (kVec) {
+          if (c0 + (v * g + t) * E < d) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) ss = __fmaf_rn(p[v].get(e), p[v].get(e), ss);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) ss = __fmaf_rn(xs[v][e], xs[v][e], ss);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, off));
+    if (lane == 0) warp_sums[parity][t / 32] = ss;
+    __syncthreads();                        // alternating buffers, as rmsnorm_rows
+    float total = warp_sums[parity][0];
+    for (int i = 1; i < nw; ++i) total = __fadd_rn(total, warp_sums[parity][i]);
+    parity ^= 1;
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(total, static_cast<float>(d)), eps));
+    T* yr = y + static_cast<size_t>(row) * d;
+    for (int c0 = 0; c0 < d; c0 += span) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int base = c0 + (v * g + t) * E;
+        if constexpr (kVec) {
+          if (base < d) {
+            Pack<T> in, out;
+            in.raw = __ldg(reinterpret_cast<const decltype(in.raw)*>(xr + base));
+            float o[E];
+#pragma unroll
+            for (int q = 0; q < E / 4; ++q) {
+              const float4 f = __ldg(reinterpret_cast<const float4*>(w + base) + q);
+              const float wq[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                o[4 * q + i] = __fmul_rn(__fmul_rn(in.get(4 * q + i), rs), __fadd_rn(1.f, wq[i]));
+            }
+            out.set(o);
+            *reinterpret_cast<decltype(out.raw)*>(yr + base) = out.raw;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            if (base + e < d) {
+              const float wp = __fadd_rn(1.f, __ldg(w + base + e));
+              yr[base + e] = from_f32<T>(__fmul_rn(__fmul_rn(to_f32(xr[base + e]), rs), wp));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// the largest V that dispatch instantiates: the only one whose kernels walk
+// a row wider than a CTA's registers, in chunks (kernels/rmsnorm.py gives
+// such a row MAX_THREADS threads of max(VECTORS) vectors)
+constexpr int kWideV = 8;
+
+// the vector path; with V = kWideV also a row past g · V · E elements, in
+// chunks (the branch is uniform across the grid)
 template <typename T, int V>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y, int rows,
                int d, int g, int r, float eps) {
+  if constexpr (V == kWideV) {
+    if (static_cast<long long>(g) * V * Pack<T>::kElems < d) {
+      rmsnorm_chunked_rows<T, V, true>(x, w, y, rows, d, g, eps);
+      return;
+    }
+  }
   rmsnorm_rows<T, V, true>(x, w, y, rows, d, g, r, eps);
 }
 
 // the general path; its bound of one CTA an SM keeps ptxas from spilling
-// (it spilled one register of the bf16, V = 2 instantiation without it)
+// (it spilled one register of the bf16, V = 2 instantiation without it).
+// With V = kWideV also a row past g · V · E elements, in chunks
 template <typename T, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 rmsnorm_general_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
                        int rows, int d, int g, int r, float eps) {
+  if constexpr (V == kWideV) {
+    if (static_cast<long long>(g) * V * Pack<T>::kElems < d) {
+      rmsnorm_chunked_rows<T, V, false>(x, w, y, rows, d, g, eps);
+      return;
+    }
+  }
   rmsnorm_rows<T, V, false>(x, w, y, rows, d, g, r, eps);
 }
 
@@ -251,9 +371,14 @@ int launch(const void* x, const void* w, void* y, int rows, int d, int g, int r,
   static const Sms sms = read_sms();
   static int ctas_per_sm[kMaxWarps + 1][kMaxWarps + 1];   // [G / 32][R]; 0: not read yet
   if (sms.err != cudaSuccess) return static_cast<int>(sms.err);
+  // each path covers the row (the vector path exactly), or, with V =
+  // kWideV, walks a wider one in chunks, one row a CTA (the vector path
+  // then needs D a multiple of E)
+  const long long span = static_cast<long long>(g) * V * Pack<T>::kElems;
+  const bool chunked = span < d;
   if (g < 32 || g % 32 || r < 1 || g * r > kMaxThreads ||
-      static_cast<long long>(g) * V * Pack<T>::kElems < d ||
-      (kVec && static_cast<long long>(g) * V * Pack<T>::kElems != d))
+      (chunked && (V != kWideV || r != 1 || (kVec && d % Pack<T>::kElems))) ||
+      (kVec && !chunked && span != d))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows < sms.count * r) r = max(1, (rows + sms.count - 1) / sms.count);
   int& per_sm = ctas_per_sm[g / 32][r];

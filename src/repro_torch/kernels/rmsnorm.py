@@ -7,7 +7,8 @@ cast back to the input type.  The kernel gives each row a group of
 threads sized by the width (:func:`launch_shape`), reads the row once
 from 16-byte vectors held in registers, keeps ``1 + w`` in registers for
 every row its CTA covers, and folds the row's sum of squares in an order
-fixed by (D, dtype) (see the source for the design and its bound).  The
+fixed by (D, dtype) (see the source for the design and its bound).  A row
+wider than a CTA's registers hold is walked in chunks: any width runs.  The
 model's ``rms_norm`` launches it when the plan has ``use_fused_rmsnorm``.
 """
 from __future__ import annotations
@@ -53,7 +54,9 @@ def launch_shape(d: int, dtype: torch.dtype) -> LaunchShape:
     multiple of the 16-byte vector) the general path: one row a CTA of
     ``MAX_THREADS`` threads, each with the least V that covers the row
     (G near the row's vectors was up to 1.5x slower in bf16,
-    ``scripts/b7_shapes.py``).  On the vector path R row groups make a
+    ``scripts/b7_shapes.py``), or the largest V where none does: the
+    kernel then walks the row in chunks of ``MAX_THREADS`` x V vectors,
+    on 16-byte loads where ``d`` is a multiple of the vector (``vector``).  On the vector path R row groups make a
     CTA of ``GROUP_THREADS`` or, with G above it, one row group.  Cached:
     the wrapper asks at every launch."""
     per = 16 // dtype.itemsize
@@ -66,11 +69,11 @@ def launch_shape(d: int, dtype: torch.dtype) -> LaunchShape:
         g, v = min(pool, key=lambda s: (abs(s[0] - GROUP_THREADS), -s[0]))
         return LaunchShape(g, v, max(1, GROUP_THREADS // g), True)
     fits = [v for v in VECTORS if v * MAX_THREADS >= slots]
-    if not fits:
-        raise ValueError(f"rmsnorm kernel takes d up to "
-                         f"{MAX_THREADS * max(VECTORS) * per} in {dtype}, "
-                         f"got {d}")
-    return LaunchShape(MAX_THREADS, fits[0], 1, False)
+    if fits:
+        return LaunchShape(MAX_THREADS, fits[0], 1, False)
+    # past a CTA's registers: walked in chunks, on 16-byte vectors where
+    # the width is a multiple of one
+    return LaunchShape(MAX_THREADS, max(VECTORS), 1, d % per == 0)
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *,

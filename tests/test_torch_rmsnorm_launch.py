@@ -9,7 +9,11 @@
   ``csrc/rmsnorm.cu::dispatch``, parsed from the source;
 * ``rmsnorm_plain`` against the JAX package's ``rmsnorm`` (Pallas in
   interpret mode) at each registered width and at 1, 4 and 5 rows: fp32
-  within 1e-5 of the output's scale, bf16 within one rounding.
+  within 1e-5 of the output's scale, bf16 within one rounding;
+* widths past one CTA's registers (above 8192 in fp32, 16384 in bf16):
+  walked in chunks of the largest V, with no refusal; every width up to
+  that cap keeps the shape of the rule before chunks existed (a frozen
+  copy below); the plain version against JAX there too.
 
 The kernel itself runs only on the card (``chip_smoke.py``, phase 3).
 """
@@ -77,10 +81,14 @@ def test_widths_no_vector_covers_take_the_general_path(d, dt):
 
 
 def test_launch_shape_refuses_a_row_too_wide_for_a_cta():
-    assert launch_shape(MAX_THREADS * max(VECTORS) * 4,
-                        torch.float32).vector
-    with pytest.raises(ValueError, match="takes d up to"):
-        launch_shape(MAX_THREADS * max(VECTORS) * 4 + 1, torch.float32)
+    """A row too wide for one CTA's registers is no longer refused: past
+    ``MAX_THREADS`` x ``max(VECTORS)`` vectors the kernel walks it in
+    chunks, one row a CTA of every thread with the largest V (here, a width
+    no vector divides, on the general path's scalars)."""
+    cap = MAX_THREADS * max(VECTORS) * 4
+    assert launch_shape(cap, torch.float32).vector
+    assert launch_shape(cap + 1, torch.float32) == (
+        MAX_THREADS, max(VECTORS), 1, False)
 
 
 def test_every_vector_count_is_instantiated_in_the_source():
@@ -128,3 +136,98 @@ def test_plain_version_matches_pallas_at_the_registered_widths(d, dt, rows):
         want = np.asarray(want, np.float64)
         err = np.abs(got.double().numpy() - want).max()
         assert err <= TOL * np.abs(want).max(), err
+
+
+def _capped_launch_shape(d, dtype):
+    """The rule as it stood before the general path walked rows in chunks
+    (it refused wider rows): every width it took must keep its shape."""
+    per = 16 // dtype.itemsize
+    slots = -(-d // per)
+    exact = [(slots // v, v) for v in (1, 2, 3, 4, 5, 6, 8)
+             if d % per == 0 and slots % v == 0 and (slots // v) % 32 == 0
+             and slots // v <= 256]
+    if exact:
+        pool = [s for s in exact if s[1] in range(2, 7)] or exact
+        g, v = min(pool, key=lambda s: (abs(s[0] - 128), -s[0]))
+        return (g, v, max(1, 128 // g), True)
+    fits = [v for v in (1, 2, 3, 4, 5, 6, 8) if v * 256 >= slots]
+    if not fits:
+        raise ValueError(d)
+    return (256, fits[0], 1, False)
+
+
+#: the shapes at the registered widths, (bf16, fp32), as the rule gave
+#: them before the chunked walk: phase 3 holds these launches' bits
+REGISTERED_SHAPES = {
+    1024: ((64, 2, 2, True), (128, 2, 1, True)),
+    1280: ((32, 5, 4, True), (160, 2, 1, True)),
+    2048: ((128, 2, 1, True), (128, 4, 1, True)),
+    2560: ((160, 2, 1, True), (128, 5, 1, True)),
+    3072: ((128, 3, 1, True), (128, 6, 1, True)),
+    4096: ((128, 4, 1, True), (256, 4, 1, True)),
+}
+#: the widest row one CTA's registers cover: the cap the rule had
+CAP = {dt: MAX_THREADS * max(VECTORS) * _per_vector(DTYPES[dt])
+       for dt in DTYPES}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_registered_widths_keep_their_shape(d, dt):
+    want = REGISTERED_SHAPES[d][0 if dt == "bf16" else 1]
+    assert tuple(launch_shape(d, DTYPES[dt])) == want
+    assert _capped_launch_shape(d, DTYPES[dt]) == want
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_every_width_up_to_the_old_cap_keeps_its_shape(dt):
+    dtype = DTYPES[dt]
+    per = _per_vector(dtype)
+    widths = set(range(1, CAP[dt] + 1, 13)) | {CAP[dt], CAP[dt] - per}
+    widths |= {v * g * per for v in VECTORS for g in range(32, 257, 32)}
+    for d in sorted(widths):
+        assert tuple(launch_shape(d, dtype)) == _capped_launch_shape(
+            d, dtype), d
+
+
+@pytest.mark.parametrize("d, dt", [(8200, "fp32"), (16392, "bf16"),
+                                   (12288, "fp32"), (20480, "bf16"),
+                                   (8201, "fp32"), (16390, "bf16")])
+def test_a_row_past_the_cap_takes_the_chunked_path(d, dt):
+    """Every thread of one CTA, the largest V, on 16-byte vectors where the
+    width is a multiple of one (else the general path's scalars)."""
+    assert d > CAP[dt]
+    s = launch_shape(d, DTYPES[dt])
+    assert s == (MAX_THREADS, max(VECTORS), 1,
+                 d % _per_vector(DTYPES[dt]) == 0)
+    # the chunks: MAX_THREADS x max(VECTORS) vectors each, the last masked
+    span = MAX_THREADS * max(VECTORS) * _per_vector(DTYPES[dt])
+    assert -(-d // span) >= 2
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("d", [1 << k for k in range(0, 17)])
+def test_every_power_of_two_up_to_65536_has_a_shape(d, dt):
+    s = launch_shape(d, DTYPES[dt])
+    per = _per_vector(DTYPES[dt])
+    if d > CAP[dt]:
+        assert s == (MAX_THREADS, max(VECTORS), 1, True)
+    elif s.vector:
+        assert s.threads * s.vectors * per == d
+    else:
+        assert s.threads * s.vectors * per >= d
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5])
+@pytest.mark.parametrize("d, dt", [(12288, "fp32"), (20480, "bf16")])
+def test_plain_version_matches_pallas_past_the_cap(d, dt, rows):
+    """fp32 within 1e-5 of the output's scale, bf16 within one rounding,
+    as at the registered widths."""
+    test_plain_version_matches_pallas_at_the_registered_widths(d, dt, rows)
+
+
+def test_the_source_walks_wide_rows_with_the_largest_vector_count():
+    src = (pathlib.Path(rms_mod.__file__).resolve().parent.parent / "csrc"
+           / "rmsnorm.cu").read_text()
+    assert re.findall(r"^constexpr int kWideV = (\d+);", src,
+                      re.M) == [str(max(VECTORS))]
