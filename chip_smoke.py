@@ -935,25 +935,62 @@ def check_stream_deferred(mesh_prog, A_np, results, dtypes):
                    bitwise_vs_pass=True)
 
 
-def check_spmv(cases, results, dtypes):
-    """B2 on each (label, CSR triple) of ``cases``: the 5-point Laplacian
-    at n = 2^20 (cg_sparse's operand) and bicgstab_sparse's random,
-    nonsymmetric pattern at n = 131072 (~131 nonzeros a row); cuSPARSE
-    beside it."""
+def b2_cases(csr, rnd_csr, ob_csr, patterns):
+    """B2's operands in phase 3, ``[(label, (indptr, indices, data), cold)]``
+    (data float64; ``cold``: timed with the L2 flushed too): the 5-point
+    Laplacian at n = 2^20 (cg_sparse's), bicgstab_sparse's random,
+    nonsymmetric pattern at n = 131072 (~131 nonzeros a row), the
+    overbooked pair's banded operand (B2's at overbook 0; it fits the
+    L2, so cold too), and ``b3_patterns``' random pattern with empty rows
+    and skewed one (rows longer than a window, than E), their values from
+    a seeded generator."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    cases = [("laplacian5", csr, False),
+             ("random density=0.001", rnd_csr, False),
+             (f"banded bandwidth={OB_BANDWIDTH}", ob_csr, True)]
+    for name in ("random", "skewed"):
+        indptr, indices = patterns[name]
+        label = "random 0-39 a row" if name == "random" else name
+        cases.append((label, (indptr, indices, rng.standard_normal(
+            indices.shape[0])), False))
+    return cases
+
+
+def check_spmv(cases, results, dtypes, gather, flush):
+    """B2 on each case of ``b2_cases``: bitwise against the ordered plain
+    version (``spmv_sliced_plain`` at prefix 0, each row added in entry
+    order), within ``KERNEL_TOL`` of ``spmv_plain`` (``index_add_``, whose
+    time is the plain time); cuSPARSE beside it, cold where the case says
+    so (the L2 emptied by ``flush()``), the form B2 took
+    (``spmv_shape``) and the gather floor: the entries' x gathers alone
+    (``gather`` at hashed indices into x) and with the operand's indices
+    read (``gather`` at those indices).  Returns one summary a case."""
     import numpy as np
     import torch
-    from repro_torch.kernels.spmv import spmv, spmv_plain
-    for label, (indptr_np, indices_np, data_np) in cases:
+    from repro_torch.kernels.spmv import (spmv, spmv_plain, spmv_shape,
+                                          spmv_sliced_plain)
+    out = []
+    for label, (indptr_np, indices_np, data_np), cold in cases:
         n = indptr_np.shape[0] - 1
         indptr = torch.from_numpy(indptr_np).cuda()
         indices = torch.from_numpy(indices_np).cuda()
+        nnz = indices.numel()
+        shape = spmv_shape(n, nnz)
+        longest = int(np.diff(indptr_np).max())
         for dt in dtypes:
             tdt = getattr(torch, dt)
             data = torch.from_numpy(data_np).to("cuda", tdt)
             x = torch.from_numpy(np.random.default_rng(5).standard_normal(n)
                                  ).to("cuda", tdt)
-            got = spmv(indptr, indices, data, x, n)
+
+            def b2():
+                return spmv(indptr, indices, data, x, n)
+            got = b2()
             torch.cuda.synchronize()
+            ordered = spmv_sliced_plain(indptr, indices, data, x, n, 0)
+            assert torch.equal(got, ordered), ("spmv vs ordered plain", label,
+                                               dt, max_err(got, ordered))
             want = spmv_plain(indptr, indices, data, x, n)
             err = max_err(got, want)
             scale = float(want.double().abs().max())
@@ -962,16 +999,36 @@ def check_spmv(cases, results, dtypes):
             with warnings.catch_warnings():      # beta-state notices
                 warnings.simplefilter("ignore")
                 A = torch.sparse_csr_tensor(indptr, indices, data, (n, n))
-            nnz = data.numel()
-            times = measure(lambda: spmv(indptr, indices, data, x, n),
-                            lambda: spmv_plain(indptr, indices, data, x, n),
-                            lambda: torch.mv(A, x))
+
+            def library():
+                return torch.mv(A, x)
+            times = measure(b2, lambda: spmv_plain(indptr, indices, data, x,
+                                                   n), library)
+            extra = dict(form=shape, longest_row=longest,
+                         bitwise_vs_ordered_plain=True,
+                         gather_hashed_ms=graph_ms(lambda: gather(x, nnz)),
+                         gather_indices_ms=graph_ms(
+                             lambda: gather(x, nnz, indices)))
+            if cold:
+                extra.update(cold_ms=cold_ms(b2, flush),
+                             library_cold_ms=cold_ms(library, flush))
             record(results, "B2 spmv   ", kernel="spmv",
                    case=f"{label} n={n} nnz={nnz}", dtype=dt, err=err,
                    rel_err=err / scale, tol=KERNEL_TOL[dt],
                    nbytes=(4 * (n + 1) + 4 * nnz + data.element_size() * nnz
                            + 2 * x.element_size() * n),
-                   flops=2 * nnz, times=times)
+                   flops=2 * nnz, times=times, **extra)
+            log(f"    {label} {dt}: bitwise equal to the ordered plain "
+                f"version; form {shape['form']} ({shape['ctas']} CTAs of "
+                f"{shape['threads']}), longest row {longest}; gather floor "
+                f"{extra['gather_hashed_ms']:.4f} ms hashed, "
+                f"{extra['gather_indices_ms']:.4f} ms at its indices"
+                + (f"; cold B2 {extra['cold_ms']:.4f} ms, cuSPARSE "
+                   f"{extra['library_cold_ms']:.4f} ms" if cold else ""))
+            out.append(dict(case=label, n=n, nnz=nnz, dtype=dt, card=CARD,
+                            bitwise=True, **extra, ms=times["ms"],
+                            library_ms=times["library_ms"]))
+    return out
 
 
 def cold_ms(fn, flush, inner: int = 10, reps: int = 15) -> float:
@@ -1377,52 +1434,140 @@ B7_WIDTHS = (4096, 1024, 1280, 2048, 2560, 3072)
 #: case of 1024 rows or more, and the training case (4096 x 4096 bf16,
 #: 67 MB, beyond the L2)
 B7_COLD_SHARE, B7_TRAIN_COLD_SHARE = 0.5, 0.85
-#: an empty kernel: the floor of one launch in ``graph_ms``
-EMPTY_CU = r"""
+#: the floors that phase 3 reads beside kernels: an empty kernel (one
+#: launch in ``graph_ms``, B7's floor) and B2's gather floor, random reads
+#: x[i] from a table of n entries, ``count`` of them, summed by each thread
+#: (one write a thread): at hashed indices (``cello_gather_hash_*``, the
+#: gathers alone) or at an operand's own indices (``cello_gather_idx_*``,
+#: the gathers and the coalesced read of the indices)
+FLOOR_CU = r"""
 #include <cuda_runtime.h>
 __global__ void cello_empty_kernel() {}
 extern "C" int cello_empty(void* stream) {
   cello_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
+
+__device__ __forceinline__ unsigned cello_hash(unsigned j, unsigned seed) {
+  unsigned h = j * 2654435761u ^ seed;
+  h ^= h >> 16;
+  h *= 0x7feb352du;
+  h ^= h >> 15;
+  return h;
+}
+
+template <typename T, bool kHash>
+__global__ void __launch_bounds__(256) cello_gather_kernel(
+    const T* __restrict__ x, const int* __restrict__ idx, unsigned n, long long count,
+    unsigned seed, T* __restrict__ out) {
+  const long long t = blockIdx.x * 256ll + threadIdx.x;
+  const long long stride = gridDim.x * 256ll;
+  T acc = T(0);
+  for (long long i = t; i < count; i += 8 * stride) {
+    T v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const long long j = i + q * stride;
+      const unsigned c = kHash ? __umulhi(cello_hash(static_cast<unsigned>(j), seed), n)
+                               : (j < count ? static_cast<unsigned>(idx[j]) : 0u);
+      v[q] = j < count ? x[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc += v[q];
+  }
+  out[t] = acc;
+}
+
+template <typename T, bool kHash>
+int cello_gather(const void* x, const void* idx, int n, long long count, int seed, void* out,
+                 int blocks, void* stream) {
+  cello_gather_kernel<T, kHash><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const int*>(idx), static_cast<unsigned>(n), count,
+      static_cast<unsigned>(seed), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int cello_gather_hash_f32(const void* x, int n, long long count, int seed, void* out,
+                                     int blocks, void* stream) {
+  return cello_gather<float, true>(x, nullptr, n, count, seed, out, blocks, stream);
+}
+extern "C" int cello_gather_hash_f64(const void* x, int n, long long count, int seed, void* out,
+                                     int blocks, void* stream) {
+  return cello_gather<double, true>(x, nullptr, n, count, seed, out, blocks, stream);
+}
+extern "C" int cello_gather_idx_f32(const void* x, const void* idx, long long count, void* out,
+                                    int blocks, void* stream) {
+  return cello_gather<float, false>(x, idx, 0, count, 0, out, blocks, stream);
+}
+extern "C" int cello_gather_idx_f64(const void* x, const void* idx, long long count, void* out,
+                                    int blocks, void* stream) {
+  return cello_gather<double, false>(x, idx, 0, count, 0, out, blocks, stream);
+}
 """
+#: CTAs of 256 threads an SM in the gather floor (the SM's 2048 threads)
+GATHER_CTAS_PER_SM = 8
 
 
-def start_b7_floor():
-    """``nvcc``, started beside phase 2's build, for B7's floor: the empty
-    kernel, into a library under the build directory.  The process is
-    stopped at exit if it still runs."""
+def start_floors():
+    """``nvcc``, started beside phase 2's build, for the floors
+    (``FLOOR_CU``), into a library under the build directory.  The process
+    is stopped at exit if it still runs."""
     import atexit
     from repro_torch.kernels import build
-    out = build.build_dir() / "b7_floor"
+    out = build.build_dir() / "floors"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "empty.cu").write_text(EMPTY_CU)
-    lib = out / "libb7_floor.so"
+    (out / "floors.cu").write_text(FLOOR_CU)
+    lib = out / "libfloors.so"
     proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS[:-2],
-                             "-shared", str(out / "empty.cu"), "-o",
+                             "-shared", str(out / "floors.cu"), "-o",
                              str(lib)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, lib
 
 
-def b7_floor(started):
-    """The library of ``start_b7_floor``, built and loaded: the empty
-    kernel's launcher."""
+def floors(started):
+    """The library of ``start_floors``, built and loaded: ``(empty,
+    gather)``, the empty kernel's launcher and ``gather(x, count,
+    indices=None)``, which launches the gather floor over x (hashed
+    indices when ``indices`` is None) and returns its output."""
     import ctypes
     import torch
     proc, path = started
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for B7's empty kernel:\n{text}")
+        raise RuntimeError(f"nvcc failed for the floor kernels:\n{text}")
     lib = ctypes.CDLL(str(path))
-    lib.cello_empty.argtypes = [ctypes.c_void_p]
-    lib.cello_empty.restype = ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cello_empty.argtypes = [vp]
+    for sfx in ("f32", "f64"):
+        getattr(lib, f"cello_gather_hash_{sfx}").argtypes = [
+            vp, i32, i64, i32, vp, i32, vp]
+        getattr(lib, f"cello_gather_idx_{sfx}").argtypes = [
+            vp, vp, i64, vp, i32, vp]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = sms * GATHER_CTAS_PER_SM
+    outs = {}
 
     def empty():
         err = lib.cello_empty(torch.cuda.current_stream().cuda_stream)
         assert err == 0, ("empty kernel", err)
-    return empty
+
+    def gather(x, count, indices=None):
+        sfx = "f32" if x.dtype == torch.float32 else "f64"
+        out = outs.setdefault(x.dtype, torch.empty(
+            blocks * 256, dtype=x.dtype, device=x.device))
+        stream = torch.cuda.current_stream().cuda_stream
+        if indices is None:
+            err = getattr(lib, f"cello_gather_hash_{sfx}")(
+                x.data_ptr(), x.numel(), count, 31, out.data_ptr(), blocks,
+                stream)
+        else:
+            err = getattr(lib, f"cello_gather_idx_{sfx}")(
+                x.data_ptr(), indices.data_ptr(), count, out.data_ptr(),
+                blocks, stream)
+        assert err == 0, ("gather floor", err)
+        return out
+    return empty, gather
 
 
 def _turns(new, old, timer):
@@ -5957,7 +6102,7 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build
     card_phase("2: build")
-    b7_started = start_b7_floor()
+    floors_started = start_floors()
     build.cuda_library()
     log(f"  CUDA C++ kernels built in {build.build_seconds:.2f} s "
         f"({build.build_dir()})")
@@ -6009,23 +6154,25 @@ def main(argv=None) -> int:
                 for c in ("indptr", "indices", "data"))
     rnd_csr = tuple(hpc[rnd_name][3]["float64"][f"A.{c}"]
                     for c in ("indptr", "indices", "data"))
-    check_spmv((("laplacian5", csr), ("random density=0.001", rnd_csr)),
-               results, dtypes)
     ob_csr = tuple(ob_feeds["cg_sparse", "float64"][f"A.{c}"]
                    for c in ("indptr", "indices", "data"))
+    b3_pats = b3_patterns(csr)
+    floor_empty, floor_gather = floors(floors_started)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    b2_shapes = check_spmv(b2_cases(csr, rnd_csr, ob_csr, b3_pats), results,
+                           dtypes, floor_gather, lambda: flush.fill_(1.0))
+    del flush
     ob_prefix = prefix_rows(ob_plans["cg_sparse", 0.25, "float64"])
     check_spmv_sliced(ob_csr, ob_prefix, results, dtypes)
-    b3_pats = b3_patterns(csr)
     b3_shapes = check_spmv_sliced_shapes(b3_pats, dtypes)
     b4_shapes = check_stencil(results, dtypes)
     t0 = time.perf_counter()
     check_off_path(dtypes)
     log(f"  off-path checks took {time.perf_counter() - t0:.1f} s")
-    b7_empty = b7_floor(b7_started)
     b7_flush = torch.ones(64 << 20, device="cuda")      # 256 MB, read
     b7_sum = torch.empty((), device="cuda")
     for d in B7_WIDTHS:
-        check_rmsnorm(results, b7_empty,
+        check_rmsnorm(results, floor_empty,
                       lambda: torch.sum(b7_flush, 0, out=b7_sum), d=d)
     check_rmsnorm_general(results)
     del b7_flush
@@ -6305,6 +6452,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"nvidia_smi": smi, "kernels": table, "paths": paths,
+                       "b2_shapes": b2_shapes,
                        "b3_shapes": b3_shapes,
                        "b3_lane_shapes": b3_lane_shapes,
                        "b4_shapes": b4_shapes,

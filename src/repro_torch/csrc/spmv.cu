@@ -5,22 +5,65 @@
 // That kernel held the whole CSR triple in VMEM and, for every row tile, ran
 // a masked segment-sum over all nnz entries, so each grid step cost O(nnz).
 //
-// Here one thread owns one row: it reads indptr[i], indptr[i+1] directly and
-// adds that row's products in ascending entry order, starting from zero, with
-// no atomics.  That is the add order of the reference rule
-// (repro/exec/reference.py:67-75: products in entry order through a
-// sequential segment sum), so the result repeats bitwise from run to run.
+// B2 keeps the reference rule's add order (repro/exec/reference.py:67-75:
+// products in entry order through a sequential segment sum): each row's
+// products are rounded (__fmul_rn / __dmul_rn, so that nvcc cannot contract
+// them into fused multiply-adds) and added with __fadd_rn / __dadd_rn from
+// zero in ascending entry order, with no atomics.  The result repeats
+// bitwise from run to run; B3 and the two lane forms keep the same order
+// and equal it bitwise, as does B2's first kernel (scripts/b2_vs_parent.py).
+// Two forms, picked by b2_shape from the entries a row, data.numel() / rows:
 //
-// Rounding: the products and sums use __fmul_rn/__fadd_rn (__dmul_rn/__dadd_rn
-// for fp64) so that nvcc cannot contract them into fused multiply-adds; every
-// product is rounded before it is added, as in the reference.
+// * rows (`csr_spmv_kernel`, below kB2BlocksMinPerRow): one thread a row
+//   walks indptr[i]..indptr[i+1].  At a few entries a row a warp's 32 rows
+//   read neighbouring row segments, so its loads coalesce.
+// * blocks (`csr_spmv_blocks_kernel`): the entries are cut into ranges of
+//   E = kB2Entries.  CTA b owns the whole rows whose first entry lies in
+//   [b E, (b + 1) E), and each of its kB2Warps warps the rows that start in
+//   its share of E: a row never splits, so its adds stay in order.  Two
+//   warps find the CTA's rows by a 32-ary search of indptr, then each warp
+//   its own among them: no host sync, no scratch, so a CUDA graph captures
+//   it.  The grid is data.numel() / E + 1 CTAs, so that every row start up
+//   to data.numel() has one owner: empty rows, trailing empty rows, nnz ==
+//   0, and a mesh shard's padded window (indptr[rows] < data.numel(), the
+//   arrays at any alignment).  A warp takes its rows 32 at a time, a lane a
+//   row, and walks their entries in steps of 64 (128 below kB2LongRow
+//   entries a row): each lane reads 2 (4) entries of indices and data,
+//   coalesced, a step ahead and streamed past L1 (ld.global.cs), gathers
+//   x and rounds the products into the warp's buffer in shared memory;
+//   then each lane adds its row's products of the step to its sum in entry
+//   order.  Only the adds are serial, and no barrier spans warps.
 //
-// Bound on the H100: bytes.  Per call it reads indptr (4(n+1) B), indices and
-// data (4 + sizeof(T) B per entry) and x, and writes y; at the 5-point
-// Laplacian with n = 2^20 in fp32 that is about 54 MB, about 16 us at
-// 3.35 TB/s.  The gathers x[indices[e]] hit L2 (x is 4 MB), and a warp's 32
-// rows read 32 neighbouring row segments of indices/data, so loads coalesce
-// into a few cache lines per instruction at 5 entries a row.
+// Bound on the H100: bytes, indptr (4(n+1) B), indices and data
+// ((4 + sizeof(T)) B an entry) and x once, y written: the 5-point Laplacian
+// at n = 2^20, fp32, 54.5 MB (0.0163 ms at 3.35 TB/s); bicgstab_sparse's
+// random pattern (n 131072, 17.2 M entries), 139 MB (0.0415 ms).  Beneath
+// it lie the gathers x[indices[e]], one random 4- or 8-byte read an entry,
+// each a 32-byte sector from L1 or L2.  On an H100 80GB HBM3 (700 W;
+// chip_smoke.py's gather floor, PERF.md §6) the random operand's 17.2 M
+// gathers alone take 0.116 ms fp32 / 0.122 fp64, 0.124 / 0.129 with its
+// indices read: 2.8x / 2.0x the bytes bound, and the floor of every design.
+//
+// What the card said (scripts/b2_shapes.py, ms fp32 / fp64): on the random
+// operand the blocks form takes 0.153 / 0.164 (the rows form 0.199 / 0.263,
+// cuSPARSE 0.152 / 0.159); on the banded one (33 a row) 0.0165 / 0.0233
+// (rows 0.0205 / 0.0360); on a skewed one (rows of up to 16384) 0.167 /
+// 0.244 (rows 1.115 / 2.104).  The Laplacian (5 a row) and a random pattern
+// of 0-39 a row keep the rows form, the faster there in fp32.  Tried and
+// slower on the random operand (scripts/b2_variants.cu): CTA-wide windows
+// of 1024 entries staged by 16-byte cp.async in two buffers, the products
+// formed in place by all 256 threads and folded by each row's owner (the
+// design first proposed) 0.167 / 0.184, its staged windows taking shared
+// memory from the L1 that holds x; the same windows read into registers a
+// window ahead, only the products in shared memory, 0.156 / 0.171 (the
+// fastest on the skewed operand, 0.098 / 0.134: a long row's gathers spread
+// over the CTA); the blocks form with ld.global.nc.L1::no_allocate or
+// ld.global.nc for the stream, a 16-byte-vector fold (0.151 / 0.194), the
+// next step's gathers in flight during the fold (0.154 / 0.165), steps of
+// 32-256 entries, E of 4096-16384, 4-16 warps a CTA (all within 5% on the
+// random operand, steps of 64 the best there and of 128-256 on the banded
+// one); x held in a cluster's distributed shared memory, 4 or 8 CTAs of
+// 128 KB, 0.52-0.59 / 0.63-0.68.
 //
 // B3 (`spmv_tiled_kernel`) replaces repro/exec/pallas.py:616
 // `_spmv_sliced_tile` together with its arrangement, :300
@@ -153,6 +196,19 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// ---------------------------------------------------------------------------
+// B2
+// ---------------------------------------------------------------------------
+
+constexpr int kB2RowThreads = 256;     // threads a CTA of the rows form
+constexpr int kB2Warps = 8;            // warps a CTA of the blocks form (B2_WARPS)
+constexpr int kB2Entries = 8192;       // E: entries whose row starts a CTA owns (B2_BLOCK_ENTRIES)
+// the rule on entries a row, data.numel() / rows: the blocks form from
+// kB2BlocksMinPerRow on, in steps of 64 entries from kB2LongRow on, else 128
+constexpr int kB2BlocksMinPerRow = 24;
+constexpr int kB2LongRow = 64;
+
+// the rows form: one thread a row
 template <typename T>
 __global__ void csr_spmv_kernel(const int* __restrict__ indptr,
                                 const int* __restrict__ indices,
@@ -169,17 +225,178 @@ __global__ void csr_spmv_kernel(const int* __restrict__ indptr,
   y[i] = acc;
 }
 
-template <typename T>
-int launch_b2(const void* indptr, const void* indices, const void* data,
-              const void* x, void* y, int rows, void* stream) {
-  constexpr int kThreads = 256;
-  if (rows > 0) {
-    const int blocks = (rows + kThreads - 1) / kThreads;
-    csr_spmv_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows);
+// the first row r in [lo, hi) with indptr[r] >= key, hi if none, given that
+// no row before lo qualifies: a 32-ary search by one whole warp (lane l
+// probes lo + l * step)
+__device__ __forceinline__ int first_row_at(const int* __restrict__ indptr, int lo, int hi,
+                                            long long key, int lane) {
+  while (lo < hi) {                       // the answer lies in [lo, hi]
+    const int step = (hi - lo + 31) / 32;
+    const int q = lo + lane * step;
+    const unsigned below = __ballot_sync(0xffffffffu, q < hi && indptr[q] < key);
+    const int c = __popc(below);          // probes 0 .. c-1 lie below key
+    if (c == 0) break;                    // indptr[lo] >= key
+    hi = min(hi, lo + c * step);
+    lo += (c - 1) * step + 1;
   }
+  return lo;
+}
+
+// acc plus p[lo], p[lo + 1], ..., p[hi - 1], added in that order, the next
+// 4 products loaded while the current 4 are added
+template <typename T>
+__device__ __forceinline__ T fold_in_order(T acc, const T* p, int lo, int hi) {
+  constexpr int kAhead = 4;
+  int k = lo;
+  if (hi - k >= kAhead) {
+    T a[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) a[q] = p[k + q];
+    for (k += kAhead; k + kAhead <= hi; k += kAhead) {
+      T nx[kAhead];
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) nx[q] = p[k + q];
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        acc = add_rn(acc, a[q]);
+        a[q] = nx[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) acc = add_rn(acc, a[q]);
+  }
+  for (; k < hi; ++k) acc = add_rn(acc, p[k]);
+  return acc;
+}
+
+// the CTA's rows [bounds[0], bounds[1]): those whose first entry lies in
+// [e0, e0 + ent), found by warps 0 and 1 (every thread of the CTA calls it)
+__device__ __forceinline__ void b2_block_rows(const int* __restrict__ indptr, int rows,
+                                              long long e0, int ent, int* bounds, int tid) {
+  if (tid < 64) {
+    const int r = first_row_at(indptr, 0, rows, e0 + (tid >> 5) * static_cast<long long>(ent),
+                               tid & 31);
+    if ((tid & 31) == 0) bounds[tid >> 5] = r;
+  }
+  __syncthreads();
+}
+
+// the blocks form: CTA b owns the rows whose first entry lies in [b kEnt,
+// (b + 1) kEnt), and warp w of it those in its share of kEnt / kWarps.  A
+// warp walks its rows 32 at a time, a lane a row, and their entries in steps
+// of 32 kChunks: each lane reads kChunks entries (coalesced, a step ahead,
+// streamed past L1), gathers x and forms the products, which go to the
+// warp's buffer in shared memory; then each lane adds its row's products of
+// the step to its sum in entry order.  No barrier across warps after the
+// search.
+template <typename T, int kWarps, int kChunks, int kEnt>
+__global__ void __launch_bounds__(kWarps * 32)
+    csr_spmv_blocks_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                          const T* __restrict__ data, const T* __restrict__ x,
+                          T* __restrict__ y, int rows) {
+  static_assert(kEnt % kWarps == 0 && kWarps >= 2, "");
+  constexpr int kStep = 32 * kChunks;
+  constexpr int kWarpEnt = kEnt / kWarps;
+  __shared__ T prod[kWarps][kStep];
+  __shared__ int bounds[2];
+  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kEnt;
+  b2_block_rows(indptr, rows, b0, kEnt, bounds, tid);
+  if (bounds[0] == bounds[1]) return;
+  const long long w0 = b0 + static_cast<long long>(warp) * kWarpEnt;
+  const int ra = first_row_at(indptr, bounds[0], bounds[1], w0, lane);
+  const int rb = first_row_at(indptr, ra, bounds[1], w0 + kWarpEnt, lane);
+  T* buf = prod[warp];
+  for (int ga = ra; ga < rb; ga += 32) {
+    const int row = ga + lane;
+    const bool mine = row < rb;
+    const int rs = mine ? indptr[row] : 0;
+    const int re = mine ? indptr[row + 1] : 0;
+    const int start = __shfl_sync(0xffffffffu, rs, 0);
+    const int end = __shfl_sync(0xffffffffu, re, min(rb - ga, 32) - 1);
+    int c[kChunks];
+    T v[kChunks];
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const int e = start + q * 32 + lane;
+      c[q] = e < end ? __ldcs(indices + e) : 0;
+      v[q] = e < end ? __ldcs(data + e) : T(0);
+    }
+    T acc = T(0);
+    for (int base = start; base < end; base += kStep) {
+      int cn[kChunks];
+      T vn[kChunks];
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {     // the next step's entries
+        const int e = base + kStep + q * 32 + lane;
+        cn[q] = e < end ? __ldcs(indices + e) : 0;
+        vn[q] = e < end ? __ldcs(data + e) : T(0);
+      }
+      T xs[kChunks];
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) xs[q] = base + q * 32 + lane < end ? x[c[q]] : T(0);
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) buf[q * 32 + lane] = mul_rn(v[q], xs[q]);
+      __syncwarp();
+      acc = fold_in_order(acc, buf, max(rs, base) - base, min(re, base + kStep) - base);
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        c[q] = cn[q];
+        v[q] = vn[q];
+      }
+    }
+    if (mine) y[row] = acc;
+  }
+}
+
+template <typename T>
+int launch_b2_rows(const void* indptr, const void* indices, const void* data, const void* x,
+                   void* y, int rows, void* stream) {
+  const int blocks = (rows + kB2RowThreads - 1) / kB2RowThreads;
+  csr_spmv_kernel<T><<<blocks, kB2RowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(indices),
+      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// `entries` is data.numel(): the grid covers every row start up to it
+template <typename T, int kWarps, int kChunks, int kEnt>
+int launch_b2_blocks(const void* indptr, const void* indices, const void* data, const void* x,
+                    void* y, int rows, int entries, void* stream) {
+  csr_spmv_blocks_kernel<T, kWarps, kChunks, kEnt>
+      <<<entries / kEnt + 1, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(indptr), static_cast<const int*>(indices),
+          static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's launch for (rows, entries), the rule of kB2BlocksMinPerRow and
+// kB2LongRow: form (1 blocks, 0 rows), threads a CTA, CTAs, entries a step
+// and E (0 and 0 for the rows form)
+inline void b2_shape(int rows, int entries, int* out) {
+  const long long n = entries, r = rows > 0 ? rows : 1;
+  const bool blocks = n >= kB2BlocksMinPerRow * r;
+  const int step = n >= kB2LongRow * r ? 64 : 128;
+  const int shape[5] = {blocks ? 1 : 0, blocks ? kB2Warps * 32 : kB2RowThreads,
+                        blocks ? entries / kB2Entries + 1
+                               : (rows + kB2RowThreads - 1) / kB2RowThreads,
+                        blocks ? step : 0, blocks ? kB2Entries : 0};
+  for (int i = 0; i < 5; ++i) out[i] = shape[i];
+}
+
+template <typename T>
+int launch_b2(const void* indptr, const void* indices, const void* data, const void* x, void* y,
+              int rows, int entries, void* stream) {
+  if (rows <= 0 || entries < 0) return static_cast<int>(cudaGetLastError());
+  int shape[5];
+  b2_shape(rows, entries, shape);
+  if (shape[0] == 0) return launch_b2_rows<T>(indptr, indices, data, x, y, rows, stream);
+  if (shape[3] == 64)
+    return launch_b2_blocks<T, kB2Warps, 2, kB2Entries>(indptr, indices, data, x, y, rows,
+                                                        entries, stream);
+  return launch_b2_blocks<T, kB2Warps, 4, kB2Entries>(indptr, indices, data, x, y, rows, entries,
+                                                      stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,13 +841,18 @@ int launch_b3_lanes(const void* indptr, const void* indices, const void* data, c
 }  // namespace
 
 extern "C" int cello_spmv_f32(const void* indptr, const void* indices, const void* data,
-                              const void* x, void* y, int rows, void* stream) {
-  return launch_b2<float>(indptr, indices, data, x, y, rows, stream);
+                              const void* x, void* y, int rows, int entries, void* stream) {
+  return launch_b2<float>(indptr, indices, data, x, y, rows, entries, stream);
 }
 
 extern "C" int cello_spmv_f64(const void* indptr, const void* indices, const void* data,
-                              const void* x, void* y, int rows, void* stream) {
-  return launch_b2<double>(indptr, indices, data, x, y, rows, stream);
+                              const void* x, void* y, int rows, int entries, void* stream) {
+  return launch_b2<double>(indptr, indices, data, x, y, rows, entries, stream);
+}
+
+extern "C" int cello_spmv_shape(int rows, int entries, int* out) {
+  b2_shape(rows, entries, out);
+  return 0;
 }
 
 extern "C" int cello_spmv_sliced_f32(const void* indptr, const void* indices, const void* data,

@@ -102,8 +102,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("cello_spmv_f32", "cello_spmv_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, vp, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
         fn.restype = i32
+    lib.cello_spmv_shape.argtypes = [i32, i32, vp]
+    lib.cello_spmv_shape.restype = i32
     for name in ("cello_spmv_sliced_f32", "cello_spmv_sliced_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]

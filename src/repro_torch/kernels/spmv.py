@@ -1,10 +1,17 @@
 """B2 and B3 · CSR SpMV: the CUDA C++ kernels ``csrc/spmv.cu``, their plain
 versions, and B3's arrangement.
 
-B2 replaces ``repro/exec/pallas.py:595`` ``_spmv_row_tile``.  The kernel
-gives each row one thread that adds the row's products in ascending entry
-order (no atomics, no masked scan over all entries); see the source for the
-design and its bound.  The CUDA backend launches it on its own just before
+B2 replaces ``repro/exec/pallas.py:595`` ``_spmv_row_tile``.  Each row's
+products are added in ascending entry order from zero (no atomics, no
+masked scan over all entries), in one of two forms that the C launcher
+picks from the entries a row (:func:`spmv_shape` names the one it takes):
+one thread a row, or, from about two dozen entries a row, the blocks form
+(:func:`spmv_blocks_plain` repeats it in torch): a CTA owns the rows that
+start in its ``B2_BLOCK_ENTRIES`` entries and each of its ``B2_WARPS``
+warps those that start in its share; a warp reads its rows' entries
+coalesced, gathers and multiplies them, and each row's lane adds them in
+order.  See the source for the design, its bound, what the card measured
+and what was tried.  The CUDA backend launches B2 on its own just before
 the B1 pass that holds the spmv op, and the pass streams its output.
 
 B2's lane form (:func:`spmv_lanes`) serves a batch of requests against
@@ -41,6 +48,10 @@ import torch
 
 from . import count, on_cuda
 
+#: B2's blocks form: warps a CTA, and E, the entries whose row starts a CTA
+#: owns (``kB2Warps``, ``kB2Entries`` in ``csrc/spmv.cu``)
+B2_WARPS = 8
+B2_BLOCK_ENTRIES = 8192
 #: B3's rows a tile and entries a staged window (``kTileRows``, ``kWindow``
 #: in ``csrc/spmv.cu``); a row longer than a window spans several
 B3_TILE_ROWS = 128
@@ -69,6 +80,52 @@ def spmv_plain(indptr: torch.Tensor, indices: torch.Tensor,
     contrib = data * x.index_select(0, indices.long())
     out = torch.zeros(rows + 1, dtype=contrib.dtype, device=contrib.device)
     return out.index_add_(0, seg, contrib)[:rows]
+
+
+def b2_block_rows(indptr: torch.Tensor, rows: int, entries: int,
+                  share: int = B2_BLOCK_ENTRIES) -> torch.Tensor:
+    """The rows that each range of ``share`` entries owns in B2's blocks
+    form for ``entries`` (``data.numel()``) entries: the ``entries //
+    B2_BLOCK_ENTRIES + 1`` CTAs at ``share = B2_BLOCK_ENTRIES``, their
+    warps at ``B2_BLOCK_ENTRIES // B2_WARPS``.  Range ``b`` owns rows
+    ``[out[b], out[b + 1])``, those whose first entry ``indptr[r]`` lies in
+    ``[b share, (b + 1) share)`` (the kernel's searches of ``indptr``)."""
+    ranges = (entries // B2_BLOCK_ENTRIES + 1) * (B2_BLOCK_ENTRIES // share)
+    keys = torch.arange(ranges + 1, dtype=torch.int64,
+                        device=indptr.device) * share
+    return torch.searchsorted(indptr[:rows].long().contiguous(), keys)
+
+
+def spmv_blocks_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                      data: torch.Tensor, x: torch.Tensor, rows: int,
+                      step: int = 64) -> torch.Tensor:
+    """B2's blocks form in torch: for each warp's rows (:func:`b2_block_rows`
+    at its share), 32 rows at a time, their entries in steps of ``step``
+    (64 or 128, as the launcher picks), each step's products, then each
+    row's products of the step added to its sum in entry order; a row's
+    sum starts from zero.  Entries past ``indptr[rows]`` belong to no
+    row."""
+    out = torch.zeros(rows, dtype=data.dtype, device=data.device)
+    if rows == 0:
+        return out
+    owned = b2_block_rows(indptr, rows, data.shape[0],
+                          B2_BLOCK_ENTRIES // B2_WARPS).tolist()
+    ptr = indptr.long()
+    for ra, rb in zip(owned[:-1], owned[1:]):
+        for ga in range(ra, rb, 32):
+            gb = min(ga + 32, rb)
+            rs, re = ptr[ga:gb], ptr[ga + 1:gb + 1]
+            acc = torch.zeros(gb - ga, dtype=data.dtype, device=data.device)
+            for base in range(int(ptr[ga]), int(ptr[gb]), step):
+                top = min(int(ptr[gb]), base + step)
+                prod = data[base:top] * x[indices[base:top].long()]
+                lo = rs.clamp(min=base) - base
+                n = (re.clamp(max=top) - base - lo).clamp(min=0)
+                for k in range(int(n.max())):
+                    p = prod[(lo + k).clamp(max=top - base - 1)]
+                    acc = torch.where(n > k, acc + p, acc)
+            out[ga:gb] = acc
+    return out
 
 
 def spmv_sliced_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -148,8 +205,21 @@ def spmv(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
     count(name)
     check(fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
              x.data_ptr(), y.data_ptr(), rows,
-             *((prefix_rows,) if sliced else ()), stream), name)
+             prefix_rows if sliced else data.shape[0], stream), name)
     return y
+
+
+def spmv_shape(rows: int, entries: int) -> dict:
+    """The launch B2 takes for ``rows`` rows and ``entries``
+    (``data.numel()``) entries, as the library built it: its form
+    ("blocks" or "rows"), threads a CTA, CTAs, entries a warp's step and
+    the entry range E whose row starts a CTA owns (0 for the rows form)."""
+    import ctypes
+    from .build import check, cuda_library
+    out = (ctypes.c_int * 5)()
+    check(cuda_library().cello_spmv_shape(rows, entries, out), "spmv_shape")
+    return dict(form="blocks" if out[0] else "rows", threads=out[1],
+                ctas=out[2], step=out[3], block_entries=out[4])
 
 
 def spmv_lanes_plain(indptr: torch.Tensor, indices: torch.Tensor,
