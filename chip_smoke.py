@@ -268,7 +268,27 @@ Phases, each of which raises (exit code 1) on failure:
    every kernel's work, the exchanges by kind and the argument bytes
    equal, the card's launches the kernels' calls, the card's memory
    within ``MEMORY_BAND`` of the meta estimate, each step's time beside
-   its bound on one card.
+   its bound on one card;
+14. the user entry points (``EXAMPLES``, ``drive_examples``): each
+   ``examples/torch_*.py`` through its ``main(argv)`` once on the card at
+   its default size, the launch counts zeroed just before it and read
+   just after (each kernel its path runs launched), every B5-B9 call's
+   arguments at each distinct signature copied on the way
+   (``first_calls``) and the kernel held there against its plain
+   version; checked by each script's own means: hpc_cg's backends
+   against the natural-order oracle; quickstart's plan equal to the same
+   script's on the CPU; observe_cg's chrome trace loads with every
+   pipeline span; serve_cg's 65 answers within ``SERVE_TOL`` of the same
+   script's on the CPU (the lane forms' plain versions); serve_batch's
+   tokens; serve_chaos's outcomes (degraded exact, rejected typed, the
+   crash supervised; no kernel launched); train_lm's 300 steps lower the
+   loss by more than 0.5 and leave the last checkpoint.  Then
+   torch_elastic_restart (reduced granite-3-8b, batches of 8 x 32, 24
+   steps) failed at steps 7 and 15 (``ELASTIC_FAILS``) and twice
+   uninterrupted (``drive_elastic``): every restored leaf on ``cuda``
+   with the dtype its checkpoint recorded, at most ``keep`` steps kept,
+   and, the two uninterrupted runs being bitwise equal, every loss after
+   each restore and every final leaf bitwise the uninterrupted run's.
 
 Each phase's header, every kernel record and every path record carry the
 card's name and power limit as ``nvidia-smi`` gives them.  The last two
@@ -6048,6 +6068,335 @@ def drive_dryrun_vs_card(cfg, results_paths):
     return counts
 
 
+#: phase 14: the port's user entry points, ``examples/torch_*.py``, each run
+#: once on the card through its ``main(argv)``, at its own default size
+#: but for the paths that it takes as flags: (script, argv, the kernels
+#: its path must launch).  ``torch_serve_chaos`` launches none: its one
+#: request to the kernel backend meets an injected compile failure before
+#: any kernel is built, and its other requests take the reference
+#: backend, as the JAX example's do
+EXAMPLES = (
+    ("torch_hpc_cg", [], ("stream",)),
+    ("torch_quickstart", [], ()),
+    ("torch_observe_cg", ["--trace", "{dir}/cello.trace.json"], ("stream",)),
+    ("torch_serve_cg", [], ("stream_lanes", "spmv_lanes")),
+    ("torch_serve_batch", [], ("fused_mlp", "rmsnorm")),
+    ("torch_serve_chaos", [], ()),
+    ("torch_train_lm", ["--ckpt-dir", "{dir}/train_ckpt"],
+     ("flash_attention", "fused_mlp", "rmsnorm")),
+)
+#: ``torch_elastic_restart`` at the example's own size (reduced
+#: granite-3-8b, batches of 8 x 32, ``ELASTIC_STEPS`` steps) with its
+#: failures at ``ELASTIC_FAILS``, against the uninterrupted run from the
+#: same seed
+ELASTIC_STEPS, ELASTIC_FAILS = 24, (7, 15)
+ELASTIC_KERNELS = ("flash_attention", "fused_mlp", "rmsnorm")
+#: the LLM kernels' entry points (module, attribute, plain version)
+LLM_ENTRIES = (("flash_attention", "flash_attention", "flash_attention_plain"),
+               ("fused_mlp", "fused_mlp", "fused_mlp_plain"),
+               ("rmsnorm", "rmsnorm", "rmsnorm_plain"),
+               ("rglru", "rglru", "rglru_plain"),
+               ("rwkv6", "wkv6", "wkv6_plain"))
+
+
+class first_calls:
+    """Within the block, every LLM kernel entry point (B5-B9) keeps a copy
+    of the arguments of its first call at each distinct signature (shapes,
+    dtypes, keyword values), then calls the kernel as before.  The model
+    reads each wrapper from its module at call time (``plain_kernels``),
+    so the copies are the shapes the path gives the kernels.  ``hold()``
+    then runs each kernel again on its copy beside its plain version."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._saved = {}, []
+        for mod_name, attr, plain in LLM_ENTRIES:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(attr, fn, getattr(mod, plain)))
+        return self
+
+    def _wrap(self, name, fn, plain):
+        import torch
+
+        def sig(v):
+            if isinstance(v, torch.Tensor):
+                return (tuple(v.shape), str(v.dtype), v.stride())
+            return v if isinstance(v, (int, float, bool, str, type(None))) \
+                else type(v).__name__
+
+        def copy(v):
+            return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+        def wrapper(*args, **kw):
+            key = (name, tuple(sig(a) for a in args),
+                   tuple(sorted((k, sig(v)) for k, v in kw.items())))
+            # a call inside a CUDA graph's capture runs nothing: not copied
+            if key not in self.calls and any(
+                    isinstance(a, torch.Tensor) and a.is_cuda for a in args
+            ) and not torch.cuda.is_current_stream_capturing():
+                self.calls[key] = (fn, plain, [copy(a) for a in args],
+                                   {k: copy(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        return False
+
+    def hold(self, label):
+        """Each recorded call: the kernel's output against its plain
+        version's on the same copy (``_hold``: fp32 within ``KERNEL_TOL``,
+        bf16 within one rounding; every output of a tuple).  These
+        launches come after the path's counts were read."""
+        import torch
+        held = []
+        for (name, arg_sig, kw_sig), (fn, plain, args, kw) in \
+                self.calls.items():
+            got, want = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            outs = zip(got, want) if isinstance(got, tuple) else \
+                [(got, want)]
+            for i, (g, w) in enumerate(outs):
+                if g is None:
+                    continue
+                dt = "float32" if g.dtype == torch.float32 else "bfloat16"
+                err, rel = _hold(f"{label} {name}", g, w, dt)
+                held.append(dict(kernel=name, output=i, dtype=dt,
+                                 shapes=[s[0] for s in arg_sig
+                                         if isinstance(s, tuple)],
+                                 max_abs_err=err, rel_or_excess=rel))
+        for h in held:
+            log(f"  {label}: {h['kernel']} at {h['shapes']} {h['dtype']} "
+                f"against its plain version: max|err| {h['max_abs_err']:.3e}"
+                f" ({'rel' if h['dtype'] == 'float32' else 'bf16 excess'} "
+                f"{h['rel_or_excess']:.3e})")
+        return held
+
+
+def _import_example(name):
+    import importlib
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _run_example(name, argv, want):
+    """One script's ``main(argv)`` on the card: the launch counts zeroed
+    just before it and read just after, each kernel of ``want`` launched,
+    no other kernel's count checked; then its LLM kernels held at the
+    recorded calls.  Returns (its output, the counts, the record)."""
+    import torch
+    from repro_torch import kernels
+    mod = _import_example(name)
+    torch.cuda.synchronize()
+    with first_calls() as calls:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launches()
+    launched = {k: v for k, v in counts.items() if v}
+    for k in want:
+        assert counts[k] > 0, f"{name}: kernel {k} was never launched"
+    held = calls.hold(name)
+    log(f"  {name} {' '.join(argv)}: {seconds:.1f} s, launches {launched}")
+    return out, counts, dict(script=f"examples/{name}.py", argv=argv,
+                             card=CARD, seconds=seconds, launches=launched,
+                             held=held)
+
+
+def _same_tree(a, b):
+    """(bitwise equal, max |a - b| over the leaves) of two trees of
+    tensors of one structure."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    assert len(la) == len(lb)
+    worst, equal = 0.0, True
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        equal &= bool((x == y).all())
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return equal, worst
+
+
+def drive_elastic(results_paths, scratch):
+    """``torch_elastic_restart`` (a) failed at ``ELASTIC_FAILS`` and
+    restored from its checkpoints, (b) uninterrupted twice, from the same
+    seed.  The two uninterrupted runs show whether the path is
+    deterministic; if they are bitwise equal, the interrupted run must
+    equal them bitwise (every loss after each restore and every final
+    leaf), else within twice their spread.  Every restored leaf must be on
+    ``cuda`` with the dtype its checkpoint recorded, and the checkpointer
+    must keep at most its ``keep`` newest steps."""
+    import shutil
+    import torch
+    totals = {}
+    runs, recs = {}, []
+    for label, fails in (("failures", ELASTIC_FAILS), ("straight", ()),
+                         ("straight again", ())):
+        d = os.path.join(scratch, f"elastic_{label.replace(' ', '_')}")
+        shutil.rmtree(d, ignore_errors=True)
+        argv = ["--steps", str(ELASTIC_STEPS), "--ckpt-dir", d,
+                "--fail-at", *map(str, fails)]
+        out, counts, rec = _run_example("torch_elastic_restart", argv,
+                                        ELASTIC_KERNELS)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        runs[label], rec["label"] = out, label
+        recs.append(rec)
+        assert out["completed"] == ELASTIC_STEPS, out["completed"]
+        assert all(s["loss"] == s["loss"] and abs(s["loss"]) < 1e3
+                   for s in out["steps"]), "non-finite loss"
+        assert len(out["kept_steps"]) <= out["keep"], out["kept_steps"]
+        assert out["kept_steps"][-1] == ELASTIC_STEPS, out["kept_steps"]
+        rec["kept_steps"] = out["kept_steps"]
+    crashed, straight, again = (runs[k] for k in ("failures", "straight",
+                                                  "straight again"))
+    assert crashed["restarts"] == len(ELASTIC_FAILS)
+    assert [r["failed_step"] for r in crashed["restores"]] == \
+        list(ELASTIC_FAILS)
+    for r in crashed["restores"]:
+        assert r["step"] > 0, r
+        dev = {d for d, _ in r["leaves"]}
+        assert dev == {"cuda"}, ("restored leaves off the card", dev)
+        assert [dt for _, dt in r["leaves"]] == r["saved_dtypes"], \
+            "a restored leaf's dtype differs from its checkpoint's"
+    deterministic, spread_p = _same_tree(straight["state"], again["state"])
+    spread_l = max(abs(a["loss"] - b["loss"]) for a, b in
+                   zip(straight["steps"], again["steps"]))
+    deterministic &= spread_l == 0.0
+    want = {s["step"]: s["loss"] for s in straight["steps"]}
+    gap_l = max(abs(s["loss"] - want[s["step"]]) for s in crashed["steps"])
+    equal_p, gap_p = _same_tree(crashed["state"], straight["state"])
+    if deterministic:
+        assert gap_l == 0.0 and equal_p, ("not bitwise", gap_l, gap_p)
+    else:
+        assert gap_l <= 2 * spread_l and gap_p <= 2 * spread_p, \
+            (gap_l, spread_l, gap_p, spread_p)
+    replays = sum(1 for s in crashed["steps"]) - ELASTIC_STEPS
+    log(f"  elastic restart: {len(ELASTIC_FAILS)} restores (steps "
+        f"{[r['step'] for r in crashed['restores']]}), {replays} steps "
+        f"replayed; two straight runs "
+        f"{'bitwise equal' if deterministic else 'differ'} (loss spread "
+        f"{spread_l:.3e}, leaf spread {spread_p:.3e}); restored run against "
+        f"the straight one: every loss {'bitwise' if gap_l == 0 else gap_l}"
+        f", final leaves {'bitwise' if equal_p else gap_p}; every restored "
+        f"leaf on cuda with its saved dtype; kept steps "
+        f"{crashed['kept_steps']} (keep {crashed['keep']})")
+    results_paths.append(dict(
+        path="examples/torch_elastic_restart.py", card=CARD,
+        steps=ELASTIC_STEPS, fail_at=list(ELASTIC_FAILS),
+        restores=[{k: r[k] for k in ("failed_step", "step", "chips")}
+                  for r in crashed["restores"]],
+        deterministic=deterministic, loss_gap=gap_l, leaf_gap=gap_p,
+        loss_spread=spread_l, leaf_spread=spread_p,
+        losses=[s["loss"] for s in crashed["steps"]], runs=recs))
+    del runs, crashed, straight, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _served_tol(got, want):
+    """Max |got - want| over a served answer's outputs, held to
+    ``SERVE_TOL["float32"]`` (rel of the output's scale, abs floor)."""
+    rel, abs_ = SERVE_TOL["float32"]
+    worst = 0.0
+    for k in want:
+        g = got[k].astype("float64")
+        w = want[k].astype("float64")
+        err = float(abs(g - w).max())
+        assert err <= max(rel * float(abs(w).max()), abs_), (k, err)
+        worst = max(worst, err)
+    return worst
+
+
+def drive_examples(results_paths):
+    """Phase 14: every script of ``EXAMPLES`` once on the card, each
+    checked by its own means, then ``drive_elastic``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.kernels import build
+    scratch = str(build.build_dir() / "examples")
+    os.makedirs(scratch, exist_ok=True)
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, argv, want in EXAMPLES:
+        argv = [a.format(dir=scratch) for a in argv]
+        out, counts, rec = _run_example(name, argv, want)
+        for k, v in counts.items():
+            totals[k] += v
+        if name == "torch_hpc_cg":
+            scale = max(1.0, max(float(np.abs(v).max())
+                                 for v in out["outputs"].values()))
+            for backend, diff in out["max_abs_diff"].items():
+                assert diff <= PATH_TOL["float32"] * scale, (backend, diff)
+            assert np.isfinite(out["residual_norm"])
+            rec.update(max_abs_diff=out["max_abs_diff"],
+                       residual_norm=out["residual_norm"])
+        elif name == "torch_quickstart":
+            cpu = _import_example(name).main(argv + ["--device", "cpu"])
+            assert out["plan"] == cpu["plan"], "the card's plan differs"
+            rec["plan"] = out["plan"]
+        elif name == "torch_observe_cg":
+            with open(out["trace"]) as f:
+                names = {e["name"] for e in json.load(f)["traceEvents"]}
+            for s in ("session.trace", "session.analyze", "session.codesign",
+                      "session.lower", "codesign.search", "exec.compile",
+                      "exec.dispatch", "example.run"):
+                assert s in names, f"span {s} missing from the trace"
+            obs.disable()
+            obs.tracer().clear()
+            rec["span_names"] = sorted(names)
+        elif name == "torch_serve_cg":
+            cpu = _import_example(name).main(argv + ["--device", "cpu"])
+            worst = max(_served_tol(a["outputs"], b["outputs"])
+                        for a, b in zip(out["results"], cpu["results"]))
+            assert all(r["backend"] == "cuda" and not r["degraded"]
+                       for r in out["results"])
+            rec.update(vs_cpu_plain_max_abs=worst,
+                       batches=out["stats"]["batches"])
+            log(f"  torch_serve_cg: {len(out['results'])} answers within "
+                f"SERVE_TOL of the same script's on the CPU (plain lane "
+                f"forms), max|err| {worst:.3e}")
+        elif name == "torch_serve_batch":
+            toks = out["tokens"]
+            assert toks.shape == (4, 32) and (toks >= 0).all()
+            rec["tok_per_s"] = out["tok_per_s"]
+        elif name == "torch_serve_chaos":
+            i1, i2, i3 = (out[f"incident{i}"] for i in (1, 2, 3))
+            assert all(r["degraded"] and r["backend"] == "reference"
+                       for r in i1["requests"])
+            assert i1["fallbacks"] == len(i1["requests"])
+            assert i1["breaker"] == "open"
+            assert i2["rejected"] > 0 and i2["served"] > 0
+            assert i2["served"] + i2["rejected"] == i2["offered"]
+            assert i3["crashed"] == "WorkerCrashed"
+            assert i3["worker_restarts"] == 1
+            assert not any(counts.values()), ("chaos launched", counts)
+            rec["outcomes"] = out
+        elif name == "torch_train_lm":
+            losses = out["losses"]
+            assert all(np.isfinite(losses))
+            assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5, losses
+            assert out["latest_checkpoint"] == len(losses)
+            rec.update(first_loss=losses[0], last_loss=losses[-1],
+                       median_step_ms=out["median_step_s"] * 1e3)
+            del out["params"], out["opt_state"]
+        results_paths.append(rec)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = drive_elastic(results_paths, scratch)
+    for k, v in counts.items():
+        totals[k] += v
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6391,6 +6740,17 @@ def main(argv=None) -> int:
     for k in ("flash_attention", "fused_mlp", "rmsnorm"):
         assert counts[k] > 0, f"kernel {k} was never launched in phase 13"
     log(f"  phase 13 took {time.perf_counter() - t_dry:.1f} s")
+
+    # ---- phase 14: the user entry points
+    t_ex = time.perf_counter()
+    card_phase("14: the port's user entry points, examples/torch_*.py, "
+               "each main() once on the card; torch_elastic_restart "
+               f"failed at steps {list(ELASTIC_FAILS)} against two "
+               "uninterrupted runs")
+    counts = drive_examples(paths)
+    for k, v in counts.items():
+        totals[k] += v
+    log(f"  phase 14 took {time.perf_counter() - t_ex:.1f} s")
     log(f"  launches over the main paths: {totals}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

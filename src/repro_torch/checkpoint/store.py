@@ -7,6 +7,10 @@ latest checkpoint (restore only considers committed steps).  A leaf's flat
 key is its tree path as the JAX package writes it (``['layers']--[0]--
 ['attn']--['wq']`` with every character outside ``[A-Za-z0-9_.-]`` made
 ``_``).  ``meta.json`` records each leaf's shape, dtype and PartitionSpec.
+A leaf whose dtype numpy lacks (``bfloat16``, the float8 types) is stored
+as its raw bytes (a ``V2`` / ``V1`` array, the file numpy writes for the
+JAX package's ``ml_dtypes`` arrays) with its own dtype in ``meta.json``:
+it comes back bitwise.
 
 Elasticity, as in the JAX package: a leaf is stored in full (gathered)
 form.  A per-slot tree (``launch.shardings.shard_tree``'s ``Sharded``
@@ -56,18 +60,39 @@ def _spec_of(leaf):
     return None
 
 
-def _host(leaf) -> np.ndarray:
+#: torch dtypes numpy has no type for, by name: each is stored as its raw
+#: bytes and read back through the integer type of its width
+_AS_BITS = {name: getattr(torch, name) for name in (
+    "bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+    "float8_e5m2fnuz") if hasattr(torch, name)}
+_BITS_OF_WIDTH = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16)}
+
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """A copy of ``leaf`` in host memory (synchronous: the copy is taken
+    before any later in-place write to the tensor) and its dtype's name."""
     if _is_sharded(leaf):
         leaf = leaf.gather()
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf)
+    if not isinstance(leaf, torch.Tensor):
+        arr = np.array(leaf)
+        return arr, str(arr.dtype)
+    t = leaf.detach().to("cpu", copy=True)
+    name = str(t.dtype).removeprefix("torch.")
+    if name in _AS_BITS:
+        # raw bytes, as numpy writes the JAX package's ml_dtypes arrays
+        return (t.view(_BITS_OF_WIDTH[t.element_size()][0]).numpy()
+                .view(f"V{t.element_size()}"), name)
+    return t.numpy(), name
 
 
-def _flatten_with_paths(tree: Tree) -> Dict[str, Tuple[np.ndarray, Any]]:
-    """flat key -> (host array, recorded spec)."""
-    return {_key_of(path): (_host(leaf), _spec_of(leaf))
-            for path, leaf in pytree.tree_flatten_with_path(tree)[0]}
+def _flatten_with_paths(tree: Tree
+                        ) -> Dict[str, Tuple[np.ndarray, Any, str]]:
+    """flat key -> (host array, recorded spec, dtype name)."""
+    flat = {}
+    for path, leaf in pytree.tree_flatten_with_path(tree)[0]:
+        arr, dtype = _host(leaf)
+        flat[_key_of(path)] = (arr, _spec_of(leaf), dtype)
+    return flat
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree,
@@ -84,10 +109,10 @@ def _write_flat(directory: str, step: int, flat,
         shutil.rmtree(tmp)
     os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
     meta = {"step": step, "extra": extra or {},
-            "arrays": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
+            "arrays": {k: {"shape": list(v.shape), "dtype": dtype,
                            "pspec": spec}
-                       for k, (v, spec) in flat.items()}}
-    for k, (v, _) in flat.items():
+                       for k, (v, spec, dtype) in flat.items()}}
+    for k, (v, _, _) in flat.items():
         np.save(os.path.join(tmp, "arrays", k + ".npy"), v)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -144,15 +169,20 @@ def load_checkpoint(directory: str, step: int, target: Tree,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"target {tuple(leaf.shape)}")
+        saved = meta["arrays"][key]["dtype"]
+        if saved in _AS_BITS:
+            # raw bytes (or an ml_dtypes array where jax is loaded)
+            bits = _BITS_OF_WIDTH[arr.dtype.itemsize][1]
+            host = torch.from_numpy(arr.view(bits)).view(_AS_BITS[saved])
+        else:
+            host = torch.from_numpy(arr)
         if sharding is not None:
             from ..launch.shardings import shard_leaf
-            out.append(shard_leaf(torch.from_numpy(arr).to(
-                dtype=leaf.dtype), sharding))
+            out.append(shard_leaf(host.to(dtype=leaf.dtype), sharding))
         else:
             device = (leaf.parts[0].device if _is_sharded(leaf)
                       else leaf.device)
-            out.append(torch.from_numpy(arr).to(device=device,
-                                                dtype=leaf.dtype))
+            out.append(host.to(device=device, dtype=leaf.dtype))
     return pytree.tree_unflatten(out, spec), meta["extra"]
 
 

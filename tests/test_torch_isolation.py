@@ -11,7 +11,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -355,5 +355,54 @@ print("ok")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_every_jax_example_has_a_port_script():
+    jax_side = {p.name for p in (ROOT / "examples").glob("*.py")
+                if not p.name.startswith("torch_")}
+    port_side = {p.name[len("torch_"):]
+                 for p in (ROOT / "examples").glob("torch_*.py")}
+    assert port_side == jax_side and len(jax_side) == 8
+
+
+def test_example_scripts_run_with_jax_absent(tmp_path):
+    """Every ``examples/torch_*.py`` imports and runs its ``main`` on the
+    CPU, at a small size, with jax absent."""
+    code = f"""
+import importlib.util, io, contextlib, pathlib, sys
+sys.modules["jax"] = None          # any import of jax now fails
+tmp = pathlib.Path({str(tmp_path)!r})
+runs = {{
+    "hpc_cg": ["--n", "64", "--iters", "2"],
+    "quickstart": ["--phase", "decode", "--seq", "256", "--no-cache"],
+    "observe_cg": ["--n", "32", "--iters", "2", "--trace",
+                   str(tmp / "t.json")],
+    "serve_cg": ["--n", "64", "--requests", "2", "--max-batch", "2"],
+    "serve_batch": ["--batch", "1", "--prompt-len", "2", "--new-tokens",
+                    "2"],
+    "serve_chaos": ["--requests", "2"],
+    "train_lm": ["--steps", "2", "--ckpt-dir", str(tmp / "train")],
+    "elastic_restart": ["--steps", "6", "--fail-at", "5", "--ckpt-dir",
+                        str(tmp / "elastic")],
+}}
+for name, argv in runs.items():
+    path = pathlib.Path({str(ROOT / "examples")!r}) / f"torch_{{name}}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{{name}}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mod.main(argv + ["--device", "cpu"])
+    assert isinstance(out, dict) and out, name
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "repro") and sys.modules[m])
+assert not loaded, loaded
+print("ok")
+"""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CELLO_NO_CACHE": "1"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
