@@ -1,11 +1,13 @@
 """Trace one instrumented CG pipeline run end to end with ``repro_torch.obs``.
 
 The PyTorch/CUDA twin of ``examples/observe_cg.py``: the same flags and
-printed lines, and the same span names.  Runs the staged pipeline
-explicitly — ``trace → analyze → codesign → lower → run`` — with span
-tracing enabled, so the exported trace carries all four ``session.*``
-stage spans, the nested ``codesign.search`` span with its per-pass
-children, and the ``exec.compile`` / ``exec.dispatch`` spans.  Writes a
+printed lines, and the same span names, with the ``cuda`` backend's run
+stages beside them.  Runs the staged pipeline explicitly — ``trace →
+analyze → codesign → lower → run`` — with span tracing enabled, so the
+exported trace carries all four ``session.*`` stage spans, the nested
+``codesign.search`` span with its per-pass children, and the
+``exec.compile`` / ``exec.dispatch`` spans (under the latter, on the
+``cuda`` backend, ``exec.feed`` / ``exec.replay`` / ``exec.copy_out``).  Writes a
 Chrome ``trace_event`` file you can load directly in
 https://ui.perfetto.dev, then prints the span timeline and the
 metrics-registry table (the renderings of ``scripts/obs_report.py``).

@@ -39,6 +39,16 @@ on its own stream) take the program's lock in turn, and each waits on an
 event that the previous run recorded after its copy-out, so no run
 rewrites the buffers that an earlier replay still reads.
 
+A run's stages are spans under ``exec.dispatch``: ``exec.feed`` (the copy
+into the leaf buffers), ``exec.replay`` (the replay, after the capture when
+the signature is new) and ``exec.copy_out`` (the clones); like every span
+of the port they show in a ``torch.profiler`` trace whenever one is taken.
+Each run adds to the ``exec.stream_bytes`` counter the least bytes of the
+B1 launches it makes: the passes the captured walk ran (on the CPU, each
+walk's), each at :meth:`StreamKernel.least_bytes` of its shapes and dtype;
+:meth:`CudaProgram.passes` lists them with the names their kernels carry
+in a device trace.
+
 ``stats`` counts runs, ``traces`` (captures) and ``dispatches`` (replays),
 read from the ``exec.traces`` and ``exec.dispatches`` counters under the
 program's own ``obs`` scope, as the JAX package's ``stats`` are
@@ -85,7 +95,7 @@ from .. import kernels, obs
 from ..core.lowering import flatten_units
 from ..kernels.spmv import arrange, spmv, spmv_lanes, spmv_sliced_lanes
 from ..kernels.stencil import stencil2d, stencil2d_lanes
-from ..kernels.stream import LaneStreamKernel, StreamKernel
+from ..kernels.stream import LaneStreamKernel, StreamKernel, recorded_passes
 from ..testing import faults
 from .base import Executor, plan_device, plan_program, plan_shards
 from .reference import as_tensor, eval_node
@@ -101,6 +111,10 @@ _DONATED_B = obs.registry().counter(
     "exec.donated_bytes", "leaf feed bytes copied into a program's own "
     "leaf buffers (the counterpart of the JAX package's donation)",
     unit="B")
+_STREAM_B = obs.registry().counter(
+    "exec.stream_bytes", "least bytes of the B1 launches a run makes "
+    "(StreamKernel.least_bytes of each launch of its walk), per compiled "
+    "program (scope label)", unit="B")
 _UNITS = obs.registry().counter(
     "exec.units", "execution units built at compile, by kind "
     "(stream | block | jnp)")
@@ -421,18 +435,43 @@ def _converted(raw, dtype) -> Dict[str, torch.Tensor]:
             for n, v in raw.items()}
 
 
+def _pass_table(ran, unit_of) -> List[Dict[str, Any]]:
+    """The rows of :meth:`CudaProgram.passes` from the B1 calls a walk
+    made (``kernels.stream.recorded_passes``)."""
+    rows: Dict[int, Dict[str, Any]] = {}
+    for k, dtype, n_lanes in ran:           # one dtype and lane count a walk
+        row = rows.get(id(k))
+        if row is None:
+            main, fin = k.kernel_names(dtype)
+            row = rows[id(k)] = {
+                "kernel": main, "finalize": fin,
+                "unit": unit_of[k.nodes[0].name],
+                "ops": [nd.name for nd in k.nodes], "launches": 0,
+                "bytes": k.least_bytes(dtype, n_lanes)}
+        row["launches"] += 1
+    return list(rows.values())
+
+
+def _total_bytes(passes) -> int:
+    """The least bytes of every B1 launch in a pass table."""
+    return sum(row["bytes"] * row["launches"] for row in passes)
+
+
 class _Captured:
     """One signature's graph: the program-owned leaf buffers it reads (the
     lane program's operator excepted: bound, or in buffers per dtype), the
     output buffers it writes and the launches one replay makes."""
 
-    __slots__ = ("leaves", "graph", "outs", "counts")
+    __slots__ = ("leaves", "graph", "outs", "counts", "passes",
+                 "stream_bytes")
 
-    def __init__(self, leaves, graph, outs, counts):
+    def __init__(self, leaves, graph, outs, counts, passes):
         self.leaves = leaves
         self.graph = graph
         self.outs = outs
         self.counts = {k: v for k, v in counts.items() if v}
+        self.passes = passes
+        self.stream_bytes = _total_bytes(passes)
 
 
 class CudaProgram:
@@ -479,6 +518,10 @@ class CudaProgram:
         self._scope = obs.next_scope("cuda")
         for unit in units:
             _UNITS.inc(backend="cuda", kind=unit.kind, scope=self._scope)
+        # the plan unit of each op, for the pass table
+        self._unit_of = {o: i for i, u in enumerate(self.exec_plan.units)
+                         for o in u.ops}
+        self._passes: List[Dict[str, Any]] = []    # the last run's B1 passes
         self._runs = 0
         self._launches = dict.fromkeys(kernels.LAUNCHES, 0)
         self._stats_lock = threading.Lock()
@@ -505,6 +548,18 @@ class CudaProgram:
                                                     scope=self._scope)),
                 "launches": dict(self._launches)}
 
+    def passes(self) -> List[Dict[str, Any]]:
+        """The B1 passes of the last run as its walk ran them (on a card,
+        the walk its graph captured), one row a pass in the order of their
+        first launch: the ``kernel`` and ``finalize`` names a device trace
+        shows (``finalize`` None where the pass has no finalize launch),
+        the plan ``unit`` (its index in the exec plan's units), the pass's
+        ``ops``, its ``launches`` in the run (a rolled loop's template once
+        an iteration, a mesh shard's pass once a shard) and its least
+        ``bytes`` a launch (:meth:`StreamKernel.least_bytes`).  Empty
+        before the first run."""
+        return [dict(row) for row in self._passes]
+
     def __call__(self, feeds) -> Dict[str, torch.Tensor]:
         raw, dtype = _leaf_tensors(self.leaf_names, feeds, self.device)
         sig = (dtype, tuple((tuple(v.shape), v.dtype)
@@ -513,7 +568,16 @@ class CudaProgram:
             if self.device.type == "cuda":
                 out, traced = self._replay(raw, sig, dtype)
             else:
-                out = self._run(_converted(raw, dtype), dtype)
+                with obs.span("exec.feed"):
+                    leaves = _converted(raw, dtype)
+                with obs.span("exec.replay"), recorded_passes() as ran:
+                    out = self._run(leaves, dtype)
+                self._passes = _pass_table(ran, self._unit_of)
+                _STREAM_B.inc(_total_bytes(self._passes), backend="cuda",
+                              scope=self._scope)
+                # each walk's outputs are its own: handed out as they are
+                with obs.span("exec.copy_out"):
+                    out = dict(out)
         with self._stats_lock:
             if self.device.type != "cuda":
                 traced = sig not in self._walked
@@ -556,12 +620,17 @@ class CudaProgram:
                 stream.wait_event(self._done)
             cap = self._graphs.get(sig)
             traced = cap is None
-            leaves, copied = self._fill(raw, dtype, cap)
-            if traced:
-                cap = self._graphs[sig] = self._capture(leaves, dtype)
+            with obs.span("exec.feed"):
+                leaves, copied = self._fill(raw, dtype, cap)
+            with obs.span("exec.replay"):
+                if traced:
+                    cap = self._graphs[sig] = self._capture(leaves, dtype)
+                cap.graph.replay()
             _DONATED_B.inc(copied, backend="cuda", scope=self._scope)
-            cap.graph.replay()
-            out = {o: t.clone() for o, t in cap.outs.items()}
+            self._passes = cap.passes
+            _STREAM_B.inc(cap.stream_bytes, backend="cuda", scope=self._scope)
+            with obs.span("exec.copy_out"):
+                out = {o: t.clone() for o, t in cap.outs.items()}
             self._done = torch.cuda.Event()
             self._done.record(stream)
             for name, n in cap.counts.items():
@@ -578,13 +647,14 @@ class CudaProgram:
             self._run(leaves, dtype)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with kernels.capturing() as counts:
+        with kernels.capturing() as counts, recorded_passes() as ran:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = self._run(leaves, dtype)
         if counts != warm:
             raise RuntimeError(f"the captured walk launched {counts}, the "
                                f"warm-up {warm}")
-        return _Captured(leaves, graph, outs, counts)
+        return _Captured(leaves, graph, outs, counts,
+                         _pass_table(ran, self._unit_of))
 
     # -- the walk --------------------------------------------------------
     def _n_lanes(self, leaves) -> Optional[int]:

@@ -51,7 +51,16 @@ reduction on the same rows before its square root.  Launches count as
 Every pass has its own body, assembled from its node list, so the kernel
 source is generated here, written under the build directory keyed by a hash
 of its text, and imported; passes with the same structure share one
-compiled kernel.  ``BLOCK_R`` is the kernel's own choice, not the plan's
+compiled kernel.  The two kernels are named ``main_kernel_<tag>`` and
+``finalize_kernel_<tag>_<ftag>``, ``tag`` a hash of the main kernel's text
+(its parameters and body) and ``ftag`` one of the finalize kernel's, so a
+device trace names each pass apart and passes with one main body share
+one main name; a deferred pass's main kernel keeps the ordinary pass's
+name and text, and its fold-only finalize kernel has a name of its own.
+:meth:`StreamKernel.least_bytes` counts what one launch of a pass moves
+at least, and :func:`recorded_passes` records the passes a walk runs.
+
+``BLOCK_R`` is the kernel's own choice, not the plan's
 ``tile_rows`` (which the co-designer sized for a 128 MiB VMEM: 1024 rows at
 n=4096 would leave 128 of the card's 132 SMs idle).  Matrix passes take 16
 rows per program.  A ``(rows, C)`` tile wider than ``MAX_TILE_WIDTH`` (256)
@@ -92,11 +101,12 @@ fp32 (no TF32) and with fp64 operands and accumulator in fp64.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import os
 import threading
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -204,6 +214,25 @@ def _plain_op(op: str, ins):
     if op == "axpy":
         return ins[0] * ins[1] + ins[2]
     raise NotImplementedError(f"stream pass has no rule for op {op!r}")
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def recorded_passes() -> Iterator[List[Tuple["StreamKernel", torch.dtype,
+                                             Optional[int]]]]:
+    """The passes the calling thread runs inside the block, one ``(pass,
+    dtype, n_lanes)`` entry a call, on the card (a launch, or a launch a
+    graph captures) and in the plain version alike.  Scopes nest, and
+    every open one records."""
+    stack = _local.__dict__.setdefault("open", [])
+    ran: List[Tuple[StreamKernel, torch.dtype, Optional[int]]] = []
+    stack.append(ran)
+    try:
+        yield ran
+    finally:
+        stack.pop()
 
 
 class StreamKernel:
@@ -346,6 +375,8 @@ class StreamKernel:
                 raise ValueError(f"stream pass operand {n!r}: shape "
                                  f"{tuple(t.shape)}, expected "
                                  f"{self._shape(n, n_lanes)}")
+        for ran in getattr(_local, "open", ()):
+            ran.append((self, ins[0].dtype, n_lanes))
         if on_cuda(*ins):
             return self.launch(env)
         return self.plain(env)
@@ -428,11 +459,39 @@ class StreamKernel:
     def _compiled(self, dtype: torch.dtype):
         hit = self._kernels.get(dtype)
         if hit is None:
-            src = self.source(dtype)
+            src, main, fin = self._source(dtype)
             mod = _load_source(src)
-            hit = self._kernels[dtype] = (mod.main_kernel,
-                                          mod.finalize_kernel)
+            hit = self._kernels[dtype] = (getattr(mod, main),
+                                          getattr(mod, fin))
         return hit
+
+    def kernel_names(self, dtype: torch.dtype) -> Tuple[str, Optional[str]]:
+        """The names of the main kernel and of the finalize kernel (None
+        where the pass launches none) at ``dtype``, as a device trace
+        shows them."""
+        _src, main, fin = self._source(dtype)
+        return main, fin if self._fin_out else None
+
+    def least_bytes(self, dtype: torch.dtype,
+                    n_lanes: Optional[int] = None) -> int:
+        """The least bytes one launch of the pass moves at ``dtype`` (a
+        lane form's at ``n_lanes`` lanes): each external operand read once
+        (streamed ones, resident right-hand sides and scalars alike), each
+        streamed product and scalar output written once, and the main
+        kernel's partials written once and, where the finalize kernel runs,
+        read once.  An operand or product with lanes counts once a lane.
+        Shapes and dtype alone: the same whatever the kernels do."""
+        lanes = n_lanes or 1
+
+        def size(name: str) -> int:
+            return _numel(self.shapes[name]) * (lanes if name in self.lanes
+                                                else 1)
+
+        parts = len(self.red_out) * self.n_prog * (
+            lanes if self.group is not None else 1)
+        elems = (sum(size(n) for n in self.in_names + self.out_names)
+                 + parts * (2 if self._fin_out else 1))
+        return elems * dtype.itemsize
 
     # -- code generation --------------------------------------------------
     @property
@@ -445,7 +504,12 @@ class StreamKernel:
         return [n for n in self.scalar_in if n in used]
 
     def source(self, dtype: torch.dtype) -> str:
-        """The Triton source of this pass at ``dtype`` (both kernels).
+        """The Triton source of this pass at ``dtype`` (both kernels)."""
+        return self._source(dtype)[0]
+
+    def _source(self, dtype: torch.dtype) -> Tuple[str, str, str]:
+        """The Triton source of this pass at ``dtype`` and the names of its
+        main and finalize kernels (see the module's docstring).
 
         The single request, and a lane form of one lane a program, run one
         body (:meth:`_lane_body`; a lane's base pointer is the operand's
@@ -557,9 +621,16 @@ class StreamKernel:
             return (f"{jit}\ndef {name}({', '.join(params)}):\n"
                     + "".join(f"    {ln}\n" for ln in lines))
 
+        def tag(name, params, lines):
+            return hashlib.sha256(kernel(name, params, lines)
+                                  .encode()).hexdigest()[:8]
+
+        main_name = f"main_kernel_{tag('main_kernel', args, main)}"
+        fin_name = (f"finalize_kernel_{main_name[len('main_kernel_'):]}_"
+                    f"{tag('finalize_kernel', fin_args, fin)}")
         return ("import triton\nimport triton.language as tl\n\n\n"
-                + kernel("main_kernel", args, main) + "\n\n"
-                + kernel("finalize_kernel", fin_args, fin))
+                + kernel(main_name, args, main) + "\n\n"
+                + kernel(fin_name, fin_args, fin)), main_name, fin_name
 
     def _lane_body(self, g: Optional[int], v, ptr, ew, tdt) -> List[str]:
         """The main kernel's body for the single request (``g`` None) or

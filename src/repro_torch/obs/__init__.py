@@ -20,16 +20,17 @@ layer of the port:
   code (:func:`enable`) or via the environment::
 
       CELLO_OBS=jsonl:cello.jsonl python3 my_solver.py
-      CELLO_OBS=chrome:cello.trace.json,torchprof python3 my_solver.py
+      CELLO_OBS=chrome:cello.trace.json python3 my_solver.py
 
   ``CELLO_OBS`` accepts a comma-separated list of ``jsonl:PATH`` /
   ``chrome:PATH`` sinks (flushed at interpreter exit and on
   :func:`flush`), or just ``1`` to enable tracing with no sink.
-  Add ``torchprof`` to mirror spans into the framework's profiler: each
-  span becomes a ``torch.profiler.record_function`` range, which shows in
-  a ``torch.profiler`` trace beside the kernels it launched.  The JAX
-  package's spelling, ``jaxprof``, means the same here, so one
-  ``CELLO_OBS`` serves both packages.
+  Spans need no switch to show in the framework's profiler: while a
+  ``torch.profiler`` session is active, each span enters a
+  ``torch.profiler.record_function`` range, enabled or not, which shows
+  in the trace beside the kernels it launched.  ``torchprof`` and the JAX
+  package's ``jaxprof``, which switch its mirror on, are accepted and
+  switch nothing here, so one ``CELLO_OBS`` serves both packages.
 
 Render either artifact with ``python scripts/obs_report.py FILE``.
 """
@@ -102,11 +103,10 @@ def flush() -> Dict[str, int]:
     return out
 
 
-def enable(*, jsonl: Optional[str] = None, chrome: Optional[str] = None,
-           torch_profiler: bool = False) -> SpanTracer:
-    """Turn span tracing on, optionally attaching export sinks and
-    mirroring spans into ``torch.profiler`` ranges."""
-    tr = default_tracer().enable(torch_profiler=torch_profiler)
+def enable(*, jsonl: Optional[str] = None,
+           chrome: Optional[str] = None) -> SpanTracer:
+    """Turn span tracing on, optionally attaching export sinks."""
+    tr = default_tracer().enable()
     for fmt, path in (("jsonl", jsonl), ("chrome", chrome)):
         if path:
             _SINKS.append((fmt, str(path)))
@@ -127,7 +127,6 @@ def configure_from_env(env: Optional[str] = None) -> bool:
     spec = spec.strip()
     if not spec or spec.lower() in ("0", "false", "off", "no"):
         return False
-    torch_profiler = False
     sinks: List[Tuple[str, str]] = []
     for part in spec.split(","):
         part = part.strip()
@@ -137,8 +136,7 @@ def configure_from_env(env: Optional[str] = None) -> bool:
             continue                     # enable, no sink
         if part.lower() in ("torchprof", "torch_profiler", "jaxprof",
                             "jax_profiler"):
-            torch_profiler = True
-            continue
+            continue                     # spans reach the profiler anyway
         fmt, sep, path = part.partition(":")
         if sep and fmt.lower() in ("jsonl", "chrome", "trace") and path:
             sinks.append(("jsonl" if fmt.lower() == "jsonl" else "chrome",
@@ -147,7 +145,7 @@ def configure_from_env(env: Optional[str] = None) -> bool:
             warnings.warn(
                 f"CELLO_OBS: unrecognized part {part!r} (want 1, torchprof, "
                 "jsonl:PATH or chrome:PATH) — ignored", stacklevel=2)
-    enable(torch_profiler=torch_profiler)
+    enable()
     for fmt, path in sinks:
         _SINKS.append((fmt, path))
     if sinks:

@@ -14,11 +14,11 @@ instrumented ``Session`` run yields the pipeline shape directly:
 per-search-pass children) → ``session.lower`` → ``exec.compile`` /
 ``exec.dispatch``.
 
-Disabled is the default and costs one method call per span site: ``span()``
-returns a shared no-op context manager, allocates nothing, and records
-nothing (the <2% overhead policy in ``docs/observability.md``).  Enable via
-:func:`SpanTracer.enable`, ``repro_torch.obs.enable()``, or the
-``CELLO_OBS`` environment variable.
+Disabled is the default and costs one method call and one check of the
+profiler per span site: ``span()`` returns a shared no-op context manager,
+allocates nothing, and records nothing (the <2% overhead policy in
+``docs/observability.md``).  Enable via :func:`SpanTracer.enable`,
+``repro_torch.obs.enable()``, or the ``CELLO_OBS`` environment variable.
 
 Export schema (documented contract — ``scripts/obs_report.py --validate``
 and the CI ``obs-smoke`` job check it):
@@ -32,11 +32,12 @@ and the CI ``obs-smoke`` job check it):
   ``ts``/``dur`` (µs), ``pid``, ``tid``, and the span metadata under
   ``args``.
 
-An opt-in profiler hook (``torch_profiler``) mirrors every span into a
-``torch.profiler.record_function`` range, so CELLO pipeline stages line up
-with the CUDA kernels and graph launches inside a ``torch.profiler``
-trace (where the JAX package mirrors them into
-``jax.profiler.TraceAnnotation``).
+While a ``torch.profiler`` session is active, every span, recorded or
+not, also enters a ``torch.profiler.record_function`` range of its name,
+so CELLO pipeline stages line up with the CUDA kernels and graph launches
+inside the profiler's trace whether or not the tracer is enabled (where
+the JAX package mirrors its spans into ``jax.profiler.TraceAnnotation``
+on request).
 """
 from __future__ import annotations
 
@@ -45,6 +46,8 @@ import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from torch._C._autograd import _profiler_enabled
 
 __all__ = [
     "SpanTracer", "default_tracer", "JSONL_KEYS",
@@ -73,6 +76,32 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _profiler_range(name: str):
+    from torch.profiler import record_function
+    return record_function(name)
+
+
+class _RangeSpan:
+    """A span the disabled tracer hands out while a ``torch.profiler``
+    session is active: the profiler's range alone, nothing recorded."""
+
+    __slots__ = ("_ctx",)
+
+    def __init__(self, name: str):
+        self._ctx = _profiler_range(name)
+
+    def __enter__(self):
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+        return False
+
+    def annotate(self, **kv) -> "_RangeSpan":
+        return self
+
+
 class _Span:
     """One live span: records itself on exit."""
 
@@ -92,8 +121,8 @@ class _Span:
         stack = tr._stack()
         self._depth = len(stack)
         stack.append(self)
-        if tr.torch_profiler:
-            self._prof_ctx = tr._profiler_range(self.name)
+        if _profiler_enabled():
+            self._prof_ctx = _profiler_range(self.name)
             self._prof_ctx.__enter__()
         self._t0 = time.perf_counter()
         return self
@@ -119,10 +148,8 @@ class _Span:
 class SpanTracer:
     """Collects spans from every thread; exports JSONL / Chrome JSON."""
 
-    def __init__(self, enabled: bool = False, *,
-                 torch_profiler: bool = False):
+    def __init__(self, enabled: bool = False):
         self.enabled = enabled
-        self.torch_profiler = torch_profiler
         self._epoch = time.perf_counter()
         self._epoch_unix = time.time()
         self._records: List[Dict[str, Any]] = []
@@ -132,10 +159,14 @@ class SpanTracer:
     # -- span API --------------------------------------------------------
     def span(self, name: str, **args):
         """A nested timed region.  Disabled tracers return a shared no-op
-        context manager (identity-stable — the zero-overhead path)."""
-        if not self.enabled:
-            return _NULL_SPAN
-        return _Span(self, name, args)
+        context manager (identity-stable — the zero-overhead path), or,
+        while a ``torch.profiler`` session is active, the profiler's range
+        of ``name`` alone."""
+        if self.enabled:
+            return _Span(self, name, args)
+        if _profiler_enabled():
+            return _RangeSpan(name)
+        return _NULL_SPAN
 
     def record(self, name: str, start_s: float, dur_s: float, *,
                depth: Optional[int] = None, **args) -> None:
@@ -153,11 +184,8 @@ class SpanTracer:
         return time.perf_counter() - self._epoch
 
     # -- lifecycle -------------------------------------------------------
-    def enable(self, *, torch_profiler: Optional[bool] = None
-               ) -> "SpanTracer":
+    def enable(self) -> "SpanTracer":
         self.enabled = True
-        if torch_profiler is not None:
-            self.torch_profiler = torch_profiler
         return self
 
     def disable(self) -> "SpanTracer":
@@ -188,11 +216,6 @@ class SpanTracer:
         }
         with self._lock:
             self._records.append(rec)
-
-    @staticmethod
-    def _profiler_range(name: str):
-        from torch.profiler import record_function
-        return record_function(name)
 
     # -- export ----------------------------------------------------------
     def spans(self) -> List[Dict[str, Any]]:

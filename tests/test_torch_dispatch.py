@@ -129,6 +129,72 @@ def test_counters_live_under_the_programs_scope():
     assert snap["exec.traces"]["cells"][0]["value"] == 1.0
 
 
+SPARSE_SET = [
+    ("cg_sparse", dict(n=1024, iters=6, pattern="laplacian5")),
+    ("bicgstab_sparse", dict(n=1024, iters=6, pattern="random",
+                             density=27 / 1024)),
+]
+
+
+@pytest.mark.parametrize("workload,params", SPARSE_SET,
+                         ids=[w for w, _ in SPARSE_SET])
+def test_stream_bytes_count_every_b1_launch_of_a_run(workload, params):
+    """``exec.stream_bytes`` grows by the pass table's total at each run:
+    every pass's least bytes a launch times its launches a run.  For cg,
+    counted by hand from the shapes: a rolled iteration streams 11
+    vectors (r and ``A p`` in, r out; r and p in, p out; p, ``A p``, the
+    previous p and x in, x out), 9 scalars in and out (4, 1 and 4 in its
+    three passes) and each of its two reductions' partials written and
+    read once."""
+    traced, plan = _plan(workload, params)
+    prog = get_backend("cuda").compile(plan)
+    assert prog.passes() == []
+    streamed = obs.registry().counter("exec.stream_bytes")
+    for runs in (1, 2, 3):
+        prog(_feeds(traced.program, seed=runs, dtype=np.float64))
+        rows = prog.passes()
+        total = sum(r["bytes"] * r["launches"] for r in rows)
+        assert streamed.value(backend="cuda", scope=prog._scope) == \
+            runs * total
+    prog(_feeds(traced.program, seed=4, dtype=np.float32))
+    half = prog.passes()
+    assert [2 * r["bytes"] for r in half] == [r["bytes"] for r in rows]
+    assert streamed.value(backend="cuda", scope=prog._scope) == \
+        3.5 * total
+    # the table counts the launches the walk made: the rolled loop's
+    # template passes once an iteration, every other pass once
+    roll = plan.exec_plan.roll
+    loop = [r for r in rows if r["launches"] == roll.n_iters]
+    assert loop and {r["unit"] for r in loop} == set(range(
+        roll.first, roll.first + roll.per_iter))
+    assert all(r["launches"] == 1 for r in rows if r not in loop)
+    assert all(r["kernel"].startswith("main_kernel_") for r in rows)
+    if workload == "cg_sparse":
+        n, n_prog = params["n"], params["n"] // 256
+        assert len(loop) == 3
+        assert sum(r["bytes"] for r in loop) == (11 * n + 9
+                                                 + 2 * 2 * n_prog) * 8
+
+
+def test_stream_bytes_count_each_shards_launch():
+    """On a mesh of 4 every shard launches each pass on its quarter of the
+    rows: the pass table has the single program's units and launches
+    four times over, and the counter its total."""
+    traced, plan = _plan("cg_sparse", SPARSE_SET[0][1])
+    feeds = _feeds(traced.program, seed=5, dtype=np.float64)
+    single = get_backend("cuda").compile(plan)
+    sharded = get_backend("cuda").compile(traced.analyze().codesign()
+                                          .lower(mesh=4))
+    single(feeds)
+    sharded(feeds)
+    one, four = single.passes(), sharded.passes()
+    assert [r["unit"] for r in four] == [r["unit"] for r in one]
+    assert [r["launches"] for r in four] == [4 * r["launches"] for r in one]
+    assert obs.registry().counter("exec.stream_bytes").value(
+        backend="cuda", scope=sharded._scope) == sum(
+            r["bytes"] * r["launches"] for r in four)
+
+
 def test_cuda_perunit_is_registered_and_unfused():
     assert {"cuda", "cuda-perunit", "reference"} <= set(list_backends())
     traced, plan = _plan("cg", dict(n=64, iters=3))

@@ -171,7 +171,8 @@ def test_quickstart_plan_matches_jax_field_for_field(argv, monkeypatch):
 def test_observe_cg_trace_loads_with_the_jax_span_names(tmp_path,
                                                         monkeypatch):
     """Each package's chrome trace loads as JSON and holds the same span
-    names, the kernel backends on both sides (``cuda``, ``pallas``)."""
+    names, the kernel backends on both sides (``cuda``, ``pallas``); the
+    port's also holds its run's three stages under ``exec.dispatch``."""
     import repro.obs as jx_obs
     from repro_torch import obs
     for mod in (jx_obs, obs):              # spans of earlier tests go
@@ -192,7 +193,8 @@ def test_observe_cg_trace_loads_with_the_jax_span_names(tmp_path,
     for f in ("j.json", "t.json"):
         with open(tmp_path / f) as fh:
             names.append({e["name"] for e in json.load(fh)["traceEvents"]})
-    assert names[0] == names[1]
+    assert names[0] | {"exec.feed", "exec.replay", "exec.copy_out"} == \
+        names[1]
     assert {"session.trace", "session.analyze", "session.codesign",
             "session.lower", "codesign.search", "exec.compile",
             "exec.dispatch", "example.run"} <= names[1]

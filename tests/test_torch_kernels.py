@@ -141,12 +141,43 @@ def _all_stream_kernels():
                          ids=["fp32", "fp64"])
 def test_generated_triton_source_parses(dtype):
     seen = 0
+    tags: dict = {}          # main kernel body -> tag
+    repeats = 0              # passes whose main body an earlier one has
+    deferred = 0             # deferred twins checked
     for wl, k in _all_stream_kernels():
         src = k.source(dtype)
         tree = ast.parse(src)
         names = [f.name for f in tree.body if isinstance(f, ast.FunctionDef)]
-        assert names == ["main_kernel", "finalize_kernel"], wl
+        # the prefixes kept, the main kernel's tag from its text (equal
+        # bodies give equal tags, others differ) and the finalize kernel's
+        # name the main tag and a tag of its own text
+        tag = names[0][len("main_kernel_"):]
+        ftag = names[1][len(f"finalize_kernel_{tag}_"):]
+        assert names == [f"main_kernel_{tag}",
+                         f"finalize_kernel_{tag}_{ftag}"], wl
+        assert len(tag) == len(ftag) == 8, wl
+        assert k.kernel_names(dtype) == (
+            names[0], names[1] if k._fin_out else None), wl
+        if k.red_out:
+            # a deferred twin: the same main kernel; its finalize kernel
+            # shares the ordinary one's name only where it has its text
+            d = StreamKernel(k.nodes, k.shapes,
+                             set(k.stream_out) | set(k.scalar_out), k.rows,
+                             defer_finalize=True)
+            main_d, fin_d = d.kernel_names(dtype)
+            assert main_d == names[0], wl
+            assert fin_d.startswith(f"finalize_kernel_{tag}_"), wl
+
+            def fin_text(s):
+                return s.split("def finalize_kernel")[1].split("(", 1)[1]
+
+            same = fin_text(d.source(dtype)) == fin_text(src)
+            assert (fin_d == names[1]) == same, wl
+            deferred += not same
         main = tree.body[2]
+        body = ast.dump(main.args) + "".join(map(ast.dump, main.body))
+        repeats += body in tags
+        assert tags.setdefault(body, tag) == tag, wl
         params = [a.arg for a in main.args.args]
         assert len(params) == len(set(params)), (wl, params)
         # fp32 division and square root round as IEEE (as torch's do)
@@ -155,6 +186,7 @@ def test_generated_triton_source_parses(dtype):
         assert k.source(dtype) == src            # deterministic text
         seen += 1
     assert seen > 10
+    assert len(set(tags.values())) == len(tags) > 1 and repeats and deferred
 
 
 def test_wrappers_refuse_other_devices():

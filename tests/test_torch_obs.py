@@ -14,6 +14,7 @@ import json
 import subprocess
 import sys
 import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import repro.obs as jx_obs
 from repro_torch import obs
 from repro_torch.obs.metrics import (HIST_REL_ERROR, MetricsRegistry,
                                      merge_summaries, next_scope)
+from repro_torch.obs import tracing
 from repro_torch.obs.tracing import (JSONL_KEYS, SpanTracer, load_jsonl,
                                      validate_chrome, validate_jsonl)
 
@@ -391,14 +393,19 @@ class TestFacade:
         assert obs.tracer() is not jx_obs.tracer()
 
     def test_env_spellings_of_the_profiler_mirror(self):
+        """``torchprof`` and the JAX package's ``jaxprof`` are accepted
+        without a warning and switch nothing: spans reach an active
+        ``torch.profiler`` session whatever ``CELLO_OBS`` says."""
         was_enabled = obs.tracer().enabled
         try:
             for spec in ("torchprof", "jaxprof", "1,torch_profiler"):
-                obs.tracer().torch_profiler = False
-                assert obs.configure_from_env(spec) is True
-                assert obs.tracer().torch_profiler
+                obs.disable()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("error")
+                    assert obs.configure_from_env(spec) is True
+                assert obs.tracer().enabled
+                assert not hasattr(obs.tracer(), "torch_profiler")
         finally:
-            obs.tracer().torch_profiler = False
             if not was_enabled:
                 obs.disable()
 
@@ -451,13 +458,55 @@ def test_port_exports_pass_the_jax_validators(tmp_path):
 
 
 def test_a_span_shows_in_a_torch_profiler_trace():
+    """Inside a ``torch.profiler`` session every span enters the
+    profiler's range, recorded by the tracer or not; outside one the
+    disabled tracer hands out its shared no-op span."""
     from torch.profiler import ProfilerActivity, profile
-    tr = SpanTracer(enabled=True, torch_profiler=True)
+    on, off = SpanTracer(enabled=True), SpanTracer()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tr.span("exec.dispatch", backend="cuda"):
+        with on.span("exec.dispatch", backend="cuda"):
             torch.ones(8).sum()
-    assert "exec.dispatch" in [ev.name for ev in prof.events()]
-    assert [r["name"] for r in tr.spans()] == ["exec.dispatch"]
+        with off.span("exec.replay") as sp:
+            sp.annotate(k=1)
+            torch.ones(8).sum()
+    names = [ev.name for ev in prof.events()]
+    assert "exec.dispatch" in names and "exec.replay" in names
+    assert [r["name"] for r in on.spans()] == ["exec.dispatch"]
+    assert off.spans() == []
+    assert off.span("a") is off.span("b") is tracing._NULL_SPAN
+
+
+def test_a_runs_stages_show_in_a_torch_profiler_trace_with_the_tracer_off():
+    """A ``cuda`` run on the CPU under ``torch.profiler``, the tracer
+    disabled: its feed, replay (here the walk) and copy-out stages are
+    ranges under ``exec.dispatch``, and nothing is recorded; with no
+    profiler the disabled ``span()`` is the shared null span."""
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.api as pt_api
+    tr = obs.tracer()
+    was_enabled = tr.enabled
+    obs.disable()
+    try:
+        plan = (pt_api.Session(device="cpu", use_cache=False)
+                .trace(workload="cg_sparse", n=64, iters=2,
+                       pattern="laplacian5")
+                .analyze().codesign().lower(backend="cuda"))
+        plan.run(seed=0)
+        recorded = len(tr.spans())
+        assert obs.span("exec.feed") is tracing._NULL_SPAN
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            plan.run(seed=1)
+        assert obs.span("exec.replay") is tracing._NULL_SPAN
+        assert len(tr.spans()) == recorded
+    finally:
+        if was_enabled:
+            obs.enable()
+    events = prof.events()
+    assert [ev.name for ev in events].count("exec.dispatch") == 1
+    for stage in ("exec.feed", "exec.replay", "exec.copy_out"):
+        (ev,) = [ev for ev in events if ev.name == stage]
+        assert ev.cpu_parent is not None
+        assert ev.cpu_parent.name == "exec.dispatch", stage
 
 
 def test_session_and_executor_spans_on_the_cpu(tmp_path):
